@@ -1,0 +1,78 @@
+"""Plain PyTorch versions of the port's kernels (port of
+``repro.kernels.ref``).
+
+Each ``ref_*`` computes the same function as its Hopper kernel with plain
+tensor ops, in f32, and casts the result to the input dtype.  The kernel
+wrappers run these on CPU tensors; ``chip_smoke.py`` and the CUDA tests
+hold each kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, heads: int, axis: int) -> torch.Tensor:
+    """Grouped K/V -> one K/V head per q head (q head h reads kv head
+    h // (heads // kv_heads), the reference's ``jnp.repeat`` layout)."""
+    kv = k.shape[axis]
+    if heads % kv:
+        raise ValueError(f"{heads} q heads do not group over {kv} kv heads")
+    return k.repeat_interleave(heads // kv, dim=axis) if kv != heads else k
+
+
+def ref_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,H,S,D]; k/v [B,Hkv,T,D] with Hkv dividing H -> (out [B,H,S,D],
+    lse [B,H,S] f32).
+
+    Masking compares absolute row/column indices (``kv <= q`` and, with a
+    window, ``kv > q - window``); masked scores are -1e30, not -inf, as in
+    the reference.  ``lse`` is the log-sum-exp of the scaled scores, the
+    residual the flash backward reads."""
+    H, S, D = q.shape[1], q.shape[2], q.shape[3]
+    T = k.shape[2]
+    k = _repeat_kv(k, H, 1).float()
+    v = _repeat_kv(v, H, 1).float()
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), k) * D ** -0.5
+    if causal:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(T, device=q.device)[None, :]
+        mask = kp <= qp
+        if window > 0:
+            mask &= kp > (qp - window)
+        s = s.masked_fill(~mask, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhst,bhtd->bhsd", p, v)
+    return out.to(q.dtype), lse
+
+
+def ref_decode_attention(q, k, v, kv_pos, pos, *, window: int = 0):
+    """q [B,H,D]; k/v [B,T,KV,D] (grouped heads, KV divides H);
+    kv_pos [B,T] int32 (-1 = empty); pos [B] int32 -> [B,H,D].
+
+    An entry is attended iff ``kv_pos >= 0 and kv_pos <= pos`` (and, with a
+    window, ``kv_pos > pos - window``)."""
+    B, H, D = q.shape
+    KV = k.shape[2]
+    if H % KV:
+        raise ValueError(f"{H} q heads do not group over {KV} kv heads")
+    qg = q.float().reshape(B, KV, H // KV, D)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * D ** -0.5
+    valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+    if window > 0:
+        valid &= kv_pos > (pos[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def ref_swiglu_ffn(x, w_gate, w_up, w_down):
+    """x [N,D]; w_gate/w_up [D,F]; w_down [F,D] -> [N,D]:
+    ``(silu(x·Wg) ⊙ x·Wu)·Wd`` in f32."""
+    xf = x.float()
+    g = xf @ w_gate.float()
+    u = xf @ w_up.float()
+    return ((torch.nn.functional.silu(g) * u) @ w_down.float()).to(x.dtype)

@@ -1,0 +1,121 @@
+"""Grouped-query attention with RoPE (and qk-norm): the prefill forward and
+the one-token decode step against a dense KV cache (port of
+``repro.models.attention``).
+
+Prefill runs through ``kernels.ops.flash_attention`` and decode through
+``kernels.ops.decode_attention``: the Hopper kernels for CUDA tensors, their
+plain PyTorch versions for CPU tensors.  The flash kernel takes K/V with
+fewer heads than Q, so the reference's GQA repeat (``attention.py:207``) is
+never materialized.  Both kernels keep the softmax ``p`` in f32 before P·V,
+as the TPU kernels do; the reference's plain jnp paths cast it to the
+activation dtype first (``attention.py:88,309``), which only differs below
+f32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import ModelConfig, PSpec
+from repro_torch.models.layers import apply_rope, rmsnorm
+
+
+def attention_specs(cfg: ModelConfig) -> dict:
+    D, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": PSpec((D, H, Dh), init=f"scaled:{D}"),
+        "wk": PSpec((D, KV, Dh), init=f"scaled:{D}"),
+        "wv": PSpec((D, KV, Dh), init=f"scaled:{D}"),
+        "wo": PSpec((H, Dh, D), init=f"scaled:{H * Dh}"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = PSpec((Dh,), init="ones")
+        p["k_norm"] = PSpec((Dh,), init="ones")
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B,S,D] · w [D,heads,Dh] -> [B,S,heads,Dh] (``bsd,dhk->bshk``)."""
+    D, heads, Dh = w.shape
+    y = x @ w.to(x.dtype).reshape(D, heads * Dh)
+    return y.view(*x.shape[:-1], heads, Dh)
+
+
+def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """o [B,S,H,Dh] · w [H,Dh,D] -> [B,S,D] (``bshk,hkd->bsd``)."""
+    H, Dh, D = w.shape
+    return o.reshape(*o.shape[:-2], H * Dh) @ w.to(o.dtype).reshape(H * Dh, D)
+
+
+def _qkv(x, params, cfg: ModelConfig, positions):
+    """Projections + qk-norm + rope; positions broadcast to [B,S]."""
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if cfg.qk_norm and "q_norm" in params:
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention(x: torch.Tensor, params: dict, cfg: ModelConfig, *,
+              causal: bool = True, return_kv: bool = False):
+    """x [B,S,D] -> [B,S,D] at the standard positions 0..S-1 (the only
+    layout a prefill or a forward of this slice uses; the flash kernel's
+    causal mask compares row and column indices).  ``return_kv`` also
+    returns the grouped (k, v) [B,S,KV,Dh] for prefill caching."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    q, k, v = _qkv(x, params, cfg, positions)
+    window = (cfg.sliding_window or 0) if causal else 0
+    out, _ = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window)
+    y = _out_proj(out.transpose(1, 2), params["wo"])
+    return (y, (k, v)) if return_kv else y
+
+
+def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
+             kv_positions: torch.Tensor, k_new: torch.Tensor,
+             v_new: torch.Tensor, pos: torch.Tensor,
+             write_idx: torch.Tensor) -> None:
+    """In place: row b's entry ``write_idx[b]`` of the caches takes
+    (k_new[b], v_new[b], pos[b]).  A write at ``write_idx >= T`` is dropped,
+    as JAX drops an out-of-bounds scatter (the engine keeps advancing the
+    positions of slots that run past capacity); the write goes through a
+    clamped index and a select, so it needs no device-to-host sync."""
+    B, T = kv_positions.shape
+    ok = (write_idx >= 0) & (write_idx < T)
+    idx = write_idx.clamp(0, T - 1).long()
+    b = torch.arange(B, device=idx.device)
+    keep = ok[:, None, None]
+    k_cache[b, idx] = torch.where(keep, k_new.to(k_cache.dtype),
+                                  k_cache[b, idx])
+    v_cache[b, idx] = torch.where(keep, v_new.to(v_cache.dtype),
+                                  v_cache[b, idx])
+    kv_positions[b, idx] = torch.where(ok, pos.to(kv_positions.dtype),
+                                       kv_positions[b, idx])
+
+
+def attention_decode(x: torch.Tensor, params: dict, cfg: ModelConfig, *,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     kv_positions: torch.Tensor, pos: torch.Tensor,
+                     write_idx: torch.Tensor) -> torch.Tensor:
+    """One-token decode against a dense KV cache.
+
+    x [B,1,D]; caches [B,T,KV,Dh]; kv_positions [B,T] int32 (-1 = empty);
+    pos [B] int32 absolute position of the new token; write_idx [B] the
+    cache entry it lands in.  The new K/V entry is written into the caches
+    in place (where the reference returns updated copies) before attending,
+    so the token sees itself.  Returns y [B,1,D]."""
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(x, params, cfg, pos[:, None])
+    write_kv(k_cache, v_cache, kv_positions, k_new[:, 0], v_new[:, 0], pos,
+             write_idx)
+    out = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                               kv_positions, pos,
+                               window=cfg.sliding_window or 0)
+    return _out_proj(out.view(B, 1, *out.shape[1:]), params["wo"])

@@ -1,0 +1,105 @@
+"""Block assembly over stacked layer parameters (port of
+``repro.models.blocks``, the ``attn`` kind only).
+
+A group's parameters are stacked along a leading "layers" axis, as in the
+reference, so a reference parameter tree carries over leaf for leaf.  The
+reference's ``jax.lax.scan`` over that axis (``blocks.py:195``) becomes a
+Python loop over layer views; decode caches are stacked the same way and
+each layer's view is updated in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import (attention, attention_decode,
+                                          attention_specs)
+from repro_torch.models.common import LayerGroup, ModelConfig, PSpec, tree_map
+from repro_torch.models.layers import rmsnorm, rmsnorm_spec
+from repro_torch.models.mlp import mlp, mlp_specs
+
+
+def block_specs(kind: str, cfg: ModelConfig) -> dict:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
+    D = cfg.d_model
+    return {"norm1": rmsnorm_spec(D), "attn": attention_specs(cfg),
+            "norm2": rmsnorm_spec(D), "ffn": mlp_specs(cfg)}
+
+
+def stack_specs(specs, n: int):
+    """Add a leading layers axis of length ``n`` to every PSpec leaf."""
+    return tree_map(lambda p: PSpec((n,) + p.shape, p.init, p.dtype), specs)
+
+
+def group_specs(group: LayerGroup, cfg: ModelConfig) -> dict:
+    per_layer = {f"sub{j}": block_specs(kind, cfg)
+                 for j, kind in enumerate(group.pattern)}
+    return stack_specs(per_layer, group.repeats)
+
+
+def layer(tree, i: int):
+    """Layer ``i``'s view of a stacked parameter or cache tree."""
+    return tree_map(lambda a: a[i], tree)
+
+
+def block_forward(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+                  collect_cache: bool = False):
+    """One ``attn`` block over the standard positions 0..S-1.
+    Returns (x, cache or None); the cache is the grouped (k, v)
+    [B,S,KV,Dh] for prefill."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    cache = None
+    if collect_cache:
+        a, (k, v) = attention(h, p["attn"], cfg, return_kv=True)
+        cache = {"k": k, "v": v}
+    else:
+        a = attention(h, p["attn"], cfg)
+    x = x + a
+    x = x + mlp(rmsnorm(x, p["norm2"], cfg.norm_eps), p["ffn"], cfg)
+    return x, cache
+
+
+def run_groups(x: torch.Tensor, group_params: list, cfg: ModelConfig, *,
+               collect_cache: bool = False):
+    """All layer groups in order.  Returns (x, caches): per group, the
+    layers' prefill (k, v) stacked to [L,B,S,KV,Dh] (None without
+    ``collect_cache``)."""
+    caches = []
+    for group, gp in zip(cfg.groups, group_params):
+        per = [[] for _ in group.pattern]
+        for i in range(group.repeats):
+            lp = layer(gp, i)
+            for j in range(len(group.pattern)):
+                x, c = block_forward(x, lp[f"sub{j}"], cfg,
+                                     collect_cache=collect_cache)
+                per[j].append(c)
+        caches.append({
+            f"sub{j}": {n: torch.stack([c[n] for c in cs]) for n in ("k", "v")}
+            for j, cs in enumerate(per)} if collect_cache else None)
+    return x, caches
+
+
+def block_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict, *,
+                 pos: torch.Tensor, write_idx: torch.Tensor) -> torch.Tensor:
+    """One ``attn`` block, one token; ``cache`` (this layer's views) is
+    updated in place."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + attention_decode(h, p["attn"], cfg, k_cache=cache["k"],
+                             v_cache=cache["v"], kv_positions=cache["pos"],
+                             pos=pos, write_idx=write_idx)
+    return x + mlp(rmsnorm(x, p["norm2"], cfg.norm_eps), p["ffn"], cfg)
+
+
+def run_groups_decode(x: torch.Tensor, group_params: list, caches: list,
+                      cfg: ModelConfig, *, pos: torch.Tensor,
+                      write_idx: torch.Tensor) -> torch.Tensor:
+    """One-token step through all groups.  Where the reference threads the
+    caches through a scan and returns new ones, the port writes each
+    layer's new K/V entry into the stacked caches in place."""
+    for group, gp, gc in zip(cfg.groups, group_params, caches):
+        for i in range(group.repeats):
+            lp, lc = layer(gp, i), layer(gc, i)
+            for j in range(len(group.pattern)):
+                x = block_decode(x, lp[f"sub{j}"], cfg, lc[f"sub{j}"],
+                                 pos=pos, write_idx=write_idx)
+    return x

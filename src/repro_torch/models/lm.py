@@ -1,0 +1,73 @@
+"""Decoder-only causal language model (port of ``repro.models.lm``: the
+forward and the one-token decode step; the loss comes with the training
+slice).
+
+    lm_specs(cfg)                                  parameter PSpec tree
+    lm_forward(params, tokens, cfg, ...)           logits (+ prefill caches)
+    lm_decode_step(params, token, caches, cfg, ...)  logits; caches in place
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.models.blocks import group_specs, run_groups, run_groups_decode
+from repro_torch.models.common import ModelConfig, PSpec
+from repro_torch.models.layers import (embedding_spec, lm_head, rmsnorm,
+                                       rmsnorm_spec)
+
+
+def lm_specs(cfg: ModelConfig) -> dict:
+    s: dict[str, Any] = {
+        "embed": embedding_spec(cfg),
+        "final_norm": rmsnorm_spec(cfg.d_model),
+        "groups": [group_specs(g, cfg) for g in cfg.groups],
+    }
+    if not cfg.tie_embeddings:
+        s["unembed"] = PSpec((cfg.padded_vocab, cfg.d_model),
+                             init=f"scaled:{cfg.d_model}")
+    return s
+
+
+def _embed(params: dict, tokens: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """tokens [B,S] -> rows of the embedding table in the working dtype."""
+    return params["embed"][tokens.long()].to(cfg.dtype)
+
+
+def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+
+def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+               collect_cache: bool = False, last_only: bool = False,
+               last_index: Optional[torch.Tensor] = None):
+    """tokens [B,S] -> (logits [B,S,Vp], caches).
+
+    ``last_only`` projects the final position only ([B,1,Vp]);
+    ``last_index`` [B] picks a per-row position instead (right-padded
+    batched prefill).  ``caches`` is ``run_groups``' per-group stacked
+    prefill (k, v) with ``collect_cache``, else a list of None."""
+    x = _embed(params, tokens, cfg)
+    x, caches = run_groups(x, params["groups"], cfg,
+                           collect_cache=collect_cache)
+    if last_index is not None:
+        x = x[torch.arange(x.shape[0], device=x.device),
+              last_index.long()][:, None]
+    elif last_only:
+        x = x[:, -1:]
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head(x, _unembed_table(params, cfg), cfg), caches
+
+
+def lm_decode_step(params: dict, token: torch.Tensor, caches: list,
+                   cfg: ModelConfig, *, pos: torch.Tensor,
+                   write_idx: torch.Tensor) -> torch.Tensor:
+    """token [B,1] -> logits [B,1,Vp].  The token's K/V entries are written
+    into ``caches`` in place (the reference returns new caches)."""
+    x = _embed(params, token, cfg)
+    x = run_groups_decode(x, params["groups"], caches, cfg, pos=pos,
+                          write_idx=write_idx)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head(x, _unembed_table(params, cfg), cfg)

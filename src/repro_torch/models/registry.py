@@ -1,0 +1,108 @@
+"""Which configs the port serves, and the decoder-only LM family's
+functional surface (port of the parts of ``repro.models.registry`` that
+the serving slice reads).
+
+``check_supported`` is the slice's gate: a config that needs anything
+outside it raises ``NotImplementedError`` naming the ROADMAP item that
+will bring it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.models import lm
+from repro_torch.models.common import ModelConfig
+from repro_torch.serve import kvcache
+
+_LATER = "ROADMAP queue 1, item 11 (remaining families)"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside this slice:
+    dense decoder-only ``attn`` stacks with RoPE and SwiGLU only."""
+    unsupported = {
+        "sliding-window attention (ring-buffer KV)":
+            cfg.sliding_window is not None,
+        "attention logit softcap": cfg.attn_logit_softcap is not None,
+        "final logit softcap": cfg.logit_softcap is not None,
+        "mixture of experts": cfg.moe is not None,
+        "SSM blocks": cfg.ssm is not None,
+        "xLSTM blocks": cfg.xlstm is not None,
+        "encoder-decoder": cfg.encoder is not None,
+        "frontend embeddings": bool(cfg.frontend),
+        "learned positions": cfg.pos_emb != "rope" or not cfg.use_rope,
+        "scaled embeddings": cfg.scale_embeddings,
+        f"{cfg.mlp_act} gating (only SwiGLU)": cfg.mlp_act != "silu",
+        "block kinds other than 'attn'": any(
+            k != "attn" for g in cfg.groups for k in g.pattern),
+    }
+    missing = [what for what, hit in unsupported.items() if hit]
+    if missing:
+        raise NotImplementedError(
+            f"config {cfg.name!r} needs {', '.join(missing)}, which the "
+            f"port does not serve yet ({_LATER})")
+
+
+@dataclass(frozen=True)
+class Capabilities:
+    """The subset of the reference's flags the slice reads: ``swa``
+    selects exact-length admission buckets; the kernel flags say which
+    Hopper kernels can express the config."""
+    swa: bool
+    supports_flash_train: bool
+    supports_fused_ffn: bool
+    supports_flash_decode: bool
+
+    @property
+    def summary(self) -> str:
+        return ",".join(n for n in ("swa", "supports_flash_train",
+                                    "supports_fused_ffn",
+                                    "supports_flash_decode")
+                        if getattr(self, n)) or "-"
+
+
+def capabilities(cfg: ModelConfig) -> Capabilities:
+    return Capabilities(
+        swa=cfg.sliding_window is not None,
+        supports_flash_train=(cfg.attn_logit_softcap is None
+                              and cfg.head_dim <= 256),
+        supports_fused_ffn=cfg.mlp_act == "silu",
+        supports_flash_decode=cfg.attn_logit_softcap is None)
+
+
+def model_specs(cfg: ModelConfig):
+    return lm.lm_specs(cfg)
+
+
+def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig):
+    """tokens [B,S] -> logits [B,S,Vp]."""
+    return lm.lm_forward(params, tokens, cfg)[0]
+
+
+def _decode_write_index(cfg: ModelConfig, caches: list,
+                        pos: torch.Tensor) -> torch.Tensor:
+    """Write indices from the first attention layer's cache length."""
+    cache_len = caches[0]["sub0"]["k"].shape[2]
+    return kvcache.write_index(cfg, pos, cache_len)
+
+
+def model_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
+                  capacity: int, *, last_only: bool = False,
+                  last_index=None):
+    """Full-context forward that also returns decode-ready caches padded
+    to ``capacity``: (logits, caches)."""
+    logits, caches = lm.lm_forward(params, tokens, cfg, collect_cache=True,
+                                   last_only=last_only, last_index=last_index)
+    caches = kvcache.pad_prefill_cache(cfg, caches, tokens.shape[1], capacity)
+    return logits, caches
+
+
+def model_decode_step(params, token: torch.Tensor, caches: list,
+                      cfg: ModelConfig, *, pos: torch.Tensor) -> torch.Tensor:
+    """token [B,1]; pos [B] absolute positions -> logits [B,1,Vp];
+    ``caches`` take the token's K/V in place."""
+    widx = _decode_write_index(cfg, caches, pos)
+    return lm.lm_decode_step(params, token, caches, cfg, pos=pos,
+                             write_idx=widx)

@@ -1,0 +1,233 @@
+"""The port's kernels: each plain PyTorch version against the reference's
+Pallas kernel (interpret mode, as tests/test_kernels.py runs it) and its
+jnp oracle, and, on a CUDA machine, each Hopper kernel against its plain
+version.  Inputs are made from a numpy seed; tolerances are the
+reference's (tests/test_kernels.py): flash 2e-5 f32 / 2e-2 bf16, decode
+2e-5, FFN 1e-5 f32 / 3e-2 bf16.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import decode_attention as da_kernel
+from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.kernels import fused_ffn as ffn_kernel
+
+TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+       "decode": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+       "ffn": {torch.float32: 1e-5, torch.bfloat16: 3e-2}}
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            ).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The reference kernels and oracles (skips where JAX is absent)."""
+    jax = pytest.importorskip("jax")
+    # the reference runs on the CPU in full f32, also where JAX could reach
+    # a GPU (whose default f32 matmuls use TF32)
+    jax.config.update("jax_platforms", "cpu")
+    from repro.kernels import decode_attention, flash_attention, fused_ffn
+    from repro.kernels import ref as jnp_ref
+    return {"jnp": jax.numpy, "flash": flash_attention,
+            "decode": decode_attention, "ffn": fused_ffn, "ref": jnp_ref}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the Hopper kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, tol, msg=""):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol, err_msg=msg)
+
+
+# -- plain versions against the reference (CPU) ------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 96)])
+def test_flash_plain_matches_pallas(jref, dtype, causal, window):
+    jnp = jref["jnp"]
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    q, k, v = (_rand((1, 2, 256, 64), seed=i) for i in range(3))
+    out_j, lse_j = jref["flash"]._forward(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), causal, window, 64, 128,
+        True)
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    out, lse = ref.ref_attention(tq, tk, tv, causal=causal, window=window)
+    tol = TOL["flash"][dtype]
+    _close(out.float(), out_j, tol, "out vs Pallas")
+    _close(lse, lse_j, tol, "lse vs Pallas")
+    want = jref["ref"].ref_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                     causal=causal, window=window)
+    _close(out.float(), want, tol, "out vs jnp oracle")
+
+
+def test_flash_plain_groups_kv_heads(jref):
+    """K/V with fewer heads than Q equal the reference's repeated layout."""
+    jnp = jref["jnp"]
+    q = _rand((2, 6, 40, 16), seed=3)
+    k, v = _rand((2, 2, 40, 16), seed=4), _rand((2, 2, 40, 16), seed=5)
+    out, _ = ref.ref_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    want = jref["ref"].ref_attention(jnp.asarray(q),
+                                     jnp.repeat(jnp.asarray(k), 3, axis=1),
+                                     jnp.repeat(jnp.asarray(v), 3, axis=1))
+    _close(out, want, TOL["flash"][torch.float32])
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_decode_plain_matches_pallas(jref, window):
+    jnp = jref["jnp"]
+    B, H, KV, T, D = 2, 8, 2, 256, 64
+    q, k, v = (_rand((B, H, D), 6), _rand((B, T, KV, D), 7),
+               _rand((B, T, KV, D), 8))
+    pos = np.array([T // 3, T - 1], np.int32)
+    t = np.arange(T, dtype=np.int32)
+    kv_pos = np.where(t[None] <= pos[:, None], t[None], -1).astype(np.int32)
+    args = (q, k, v, kv_pos, pos)
+    want = jref["decode"].decode_attention(
+        *(jnp.asarray(a) for a in args), window=window, bk=64,
+        interpret=True)
+    got = ref.ref_decode_attention(*(torch.from_numpy(a) for a in args),
+                                   window=window)
+    _close(got, want, TOL["decode"][torch.float32], "vs Pallas")
+    oracle = jref["ref"].ref_decode_attention(
+        jnp.asarray(q), jnp.repeat(jnp.asarray(k), H // KV, axis=2),
+        jnp.repeat(jnp.asarray(v), H // KV, axis=2), jnp.asarray(kv_pos),
+        jnp.asarray(pos), window=window)
+    _close(got, oracle, TOL["decode"][torch.float32], "vs jnp oracle")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_plain_matches_pallas(jref, dtype):
+    jnp = jref["jnp"]
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    N, D, F = 128, 128, 256
+    arrs = (_rand((N, D), 9), _rand((D, F), 10, 0.05),
+            _rand((D, F), 11, 0.05), _rand((F, D), 12, 0.05))
+    want = jref["ffn"]._forward(*(jnp.asarray(a, jdt) for a in arrs),
+                                64, 128, True)
+    got = ref.ref_swiglu_ffn(*(torch.from_numpy(a).to(dtype) for a in arrs))
+    assert got.dtype == dtype
+    _close(got.float(), want, TOL["ffn"][dtype], "vs Pallas")
+    oracle = jref["ref"].ref_swiglu_ffn(*(jnp.asarray(a, jdt) for a in arrs))
+    _close(got.float(), oracle, TOL["ffn"][dtype], "vs jnp oracle")
+
+
+# -- dispatch, checks and the build (CPU) ------------------------------------
+
+
+def test_ops_dispatch_cpu_tensors_to_plain_versions():
+    ops.reset_launch_counts()
+    q = torch.from_numpy(_rand((1, 2, 8, 16), 13))
+    out, lse = ops.flash_attention(q, q, q)
+    assert out.shape == q.shape and lse.shape == (1, 2, 8)
+    x = torch.from_numpy(_rand((4, 16), 14))
+    w = torch.from_numpy(_rand((16, 32), 15))
+    assert ops.swiglu_ffn(x, w, w, w.t().contiguous()).shape == (4, 16)
+    assert ops.launch_counts() == {"flash_attention": 0, "fused_ffn": 0,
+                                   "decode_attention": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises; it never computes on the
+    CPU itself."""
+    q = torch.zeros(1, 1, 8, 64)
+    x, w = torch.zeros(4, 16), torch.zeros(16, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        ffn_kernel.swiglu_ffn(x, w, w, w.t().contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        da_kernel.decode_attention(torch.zeros(1, 2, 64),
+                                   torch.zeros(1, 8, 1, 64),
+                                   torch.zeros(1, 8, 1, 64),
+                                   torch.zeros(1, 8, dtype=torch.int32),
+                                   torch.zeros(1, dtype=torch.int32))
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_build_is_keyed_by_sources():
+    paths = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert len(set(p.parent for p in paths.values())) == len(paths)
+    assert all(_build.lib_path(n) == p for n, p in paths.items())
+
+
+@pytest.mark.parametrize("N,expect_splits", [(16, True), (4096, False)])
+def test_ffn_plan_splits_f_only_when_rows_leave_sms_idle(N, expect_splits):
+    br, f_per_split, splits = ffn_kernel.plan(N, 768, 2048, num_sms=132)
+    assert br * 768 <= ffn_kernel.SMEM_ROWS_X_D and br >= min(N, 8)
+    assert f_per_split % ffn_kernel.BF == 0 and f_per_split * splits >= 2048
+    assert (splits > 1) == expect_splits
+    if expect_splits:
+        assert -(-N // br) * splits <= 132
+
+
+# -- Hopper kernels against their plain versions (CUDA only) -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,Hkv,causal,window", [
+    (256, 256, 4, True, 0), (200, 200, 2, True, 0), (130, 70, 4, False, 0),
+    (256, 256, 1, True, 100)])
+def test_flash_kernel_matches_plain(cuda, dtype, S, T, Hkv, causal, window):
+    q = torch.from_numpy(_rand((2, 4, S, 64), 20)).to(cuda, dtype)
+    k = torch.from_numpy(_rand((2, Hkv, T, 64), 21)).to(cuda, dtype)
+    v = torch.from_numpy(_rand((2, Hkv, T, 64), 22)).to(cuda, dtype)
+    out, lse = fa_kernel.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+    want, want_lse = ref.ref_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _close(out.float().cpu(), want.float().cpu(), TOL["flash"][dtype])
+    _close(lse.cpu(), want_lse.cpu(), TOL["flash"][torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 50])
+def test_decode_kernel_matches_plain(cuda, dtype, window):
+    B, H, KV, T, D = 3, 12, 4, 300, 64
+    q = torch.from_numpy(_rand((B, H, D), 23)).to(cuda, dtype)
+    k = torch.from_numpy(_rand((B, T, KV, D), 24)).to(cuda, dtype)
+    v = torch.from_numpy(_rand((B, T, KV, D), 25)).to(cuda, dtype)
+    pos = torch.tensor([0, 150, T - 1], dtype=torch.int32, device=cuda)
+    t = torch.arange(T, dtype=torch.int32, device=cuda)
+    kv_pos = torch.where(t[None] <= pos[:, None], t[None],
+                         torch.full_like(t[None], -1)).contiguous()
+    got = da_kernel.decode_attention(q, k, v, kv_pos, pos, window=window)
+    want = ref.ref_decode_attention(q, k, v, kv_pos, pos, window=window)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["decode"][dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 16, 300])
+def test_ffn_kernel_matches_plain(cuda, dtype, N):
+    D, F = 256, 512
+    x, wg, wu, wd = (torch.from_numpy(a).to(cuda, dtype) for a in (
+        _rand((N, D), 26), _rand((D, F), 27, 0.05), _rand((D, F), 28, 0.05),
+        _rand((F, D), 29, 0.05)))
+    got = ffn_kernel.swiglu_ffn(x, wg, wu, wd)
+    want = ref.ref_swiglu_ffn(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["ffn"][dtype])
