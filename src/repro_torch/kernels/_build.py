@@ -23,7 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("flash_attention", "fused_ffn", "decode_attention")
+SOURCES = ("flash_attention", "fused_ffn", "decode_attention",
+           "paged_attention")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -69,6 +69,48 @@ def ref_decode_attention(q, k, v, kv_pos, pos, *, window: int = 0):
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def ref_paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
+                               pos):
+    """q [B,H,D]; k/v pools [N,bs,KV,D]; pos_pool [N,bs] int32 (-1 =
+    empty); block_table [B,M] int32; pos [B] int32 -> [B,H,D].
+
+    Gathers each row's M blocks into a contiguous [B, M*bs] cache and runs
+    :func:`ref_decode_attention` over it, so a paged cache holding the
+    dense cache's entries gives the dense result bit for bit."""
+    B, M = block_table.shape
+    bs = k_pool.shape[1]
+    flat = block_table.reshape(-1).long()
+    k = k_pool[flat].reshape(B, M * bs, *k_pool.shape[2:])
+    v = v_pool[flat].reshape(B, M * bs, *v_pool.shape[2:])
+    kv_pos = pos_pool[flat].reshape(B, M * bs)
+    return ref_decode_attention(q, k, v, kv_pos, pos)
+
+
+def ref_paged_decode_attention_q8(q, k_pool, v_pool, k_scale, v_scale,
+                                  pos_pool, block_table, pos):
+    """As :func:`ref_paged_decode_attention` over int8 pools with f32
+    per-(block, kv head) scales k_scale/v_scale [N,KV]: the gathered blocks
+    are dequantized in f32 (int8 x the block's scale) before the dense
+    oracle runs."""
+    B, M = block_table.shape
+    bs = k_pool.shape[1]
+    k = dequantize_gather(k_pool, k_scale, block_table)
+    v = dequantize_gather(v_pool, v_scale, block_table)
+    kv_pos = pos_pool[block_table.reshape(-1).long()].reshape(B, M * bs)
+    return ref_decode_attention(q, k, v, kv_pos, pos)
+
+
+def dequantize_gather(pool, scale, block_table):
+    """int8 pool [N,bs,KV,D] with f32 scales [N,KV] -> each row's blocks
+    [B, M*bs, KV, D] in f32 (the reference's ``_dequantize_gather``, which
+    then casts to the activation dtype; the port stays in f32, as the
+    kernel does)."""
+    B, M = block_table.shape
+    flat = block_table.reshape(-1).long()
+    x = pool[flat].float() * scale[flat][:, None, :, None]
+    return x.reshape(B, M * pool.shape[1], *pool.shape[2:])
+
+
 def ref_swiglu_ffn(x, w_gate, w_up, w_down):
     """x [N,D]; w_gate/w_up [D,F]; w_down [F,D] -> [N,D]:
     ``(silu(x·Wg) ⊙ x·Wu)·Wd`` in f32."""

@@ -1,15 +1,22 @@
 """Grouped-query attention with RoPE (and qk-norm): the prefill forward and
-the one-token decode step against a dense KV cache (port of
-``repro.models.attention``).
+the one-token decode step against a dense KV cache or a paged KV pool
+(port of ``repro.models.attention``).
 
-Prefill runs through ``kernels.ops.flash_attention`` and decode through
-``kernels.ops.decode_attention``: the Hopper kernels for CUDA tensors, their
-plain PyTorch versions for CPU tensors.  The flash kernel takes K/V with
-fewer heads than Q, so the reference's GQA repeat (``attention.py:207``) is
-never materialized.  Both kernels keep the softmax ``p`` in f32 before P·V,
-as the TPU kernels do; the reference's plain jnp paths cast it to the
-activation dtype first (``attention.py:88,309``), which only differs below
-f32.
+Prefill runs through ``kernels.ops.flash_attention``, dense decode through
+``kernels.ops.decode_attention`` and paged decode through
+``kernels.ops.paged_decode_attention`` (``_q8`` for int8 pools): the Hopper
+kernels for CUDA tensors, their plain PyTorch versions for CPU tensors.
+The flash kernel takes K/V with fewer heads than Q, so the reference's GQA
+repeat (``attention.py:207``) is never materialized.  The kernels keep the
+softmax ``p`` in f32 before P·V, as the TPU kernels do; the reference's
+plain jnp paths cast it to the activation dtype first
+(``attention.py:88,309``), which only differs below f32.
+
+int8 pools are dequantized in f32 on both devices: the reference's CPU
+route (``_dequantize_gather``, ``attention.py:406``) casts the dequantized
+K/V to the activation dtype, but its Pallas kernel and its oracle
+(``ref.py:66``) stay in f32, and the port follows the kernel, so the card
+and the CPU compute one function (the two differ only below f32).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, PSpec
 from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.serve.blockpool import TRASH_BLOCK
 
 
 def attention_specs(cfg: ModelConfig) -> dict:
@@ -118,4 +126,84 @@ def attention_decode(x: torch.Tensor, params: dict, cfg: ModelConfig, *,
     out = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                kv_positions, pos,
                                window=cfg.sliding_window or 0)
+    return _out_proj(out.view(B, 1, *out.shape[1:]), params["wo"])
+
+
+def _quantized_block_write(pool: torch.Tensor, scale_pool: torch.Tensor,
+                           new: torch.Tensor, write_bids: torch.Tensor,
+                           off: torch.Tensor) -> None:
+    """In place: quantize the new K or V entries ``new`` [B,KV,Dh] into the
+    int8 ``pool`` [N,bs,KV,Dh] at (``write_bids``, ``off``) [B] against the
+    per-(block, kv head) ``scale_pool`` [N,KV] (max-abs / 127).
+
+    An offset-0 write lands in a fresh (recycled) block, so its stale scale
+    is cleared first (rows writing elsewhere clear the trash block instead)
+    and its stale payload is zeroed.  A new entry above its block's scale
+    grows the scale, and the block's payload is requantized by
+    ``round(q * old / new)``.  The reference requantizes the whole pool
+    with a ratio that is exactly 1.0 (or 0 over a zero payload) for every
+    block it did not clear or write; the port touches only the written and
+    cleared blocks, with the same result bit for bit.  Rounding is half to
+    even, as ``jnp.round``."""
+    new = new.float()
+    bids = write_bids.long()
+    clear = torch.where(off == 0, bids, torch.full_like(bids, TRASH_BLOCK))
+    scale_pool[clear] = 0.0
+    touched = torch.cat([bids, clear])
+    old = scale_pool[touched]
+    need = new.abs().amax(dim=-1) / 127.0                 # [B, KV]
+    scale_pool.scatter_reduce_(0, bids[:, None].expand_as(need), need,
+                               "amax")
+    grown = scale_pool[touched]
+    ones = torch.ones_like(grown)
+    ratio = old / torch.where(grown > 0, grown, ones)
+    pool[touched] = torch.round(pool[touched].float()
+                                * ratio[:, None, :, None]).to(torch.int8)
+    dest = grown[:bids.shape[0]]                          # bids' new scales
+    safe = torch.where(dest > 0, dest, ones[:bids.shape[0]])
+    pool[bids, off.long()] = torch.clamp(torch.round(new / safe[..., None]),
+                                         -127, 127).to(torch.int8)
+
+
+def attention_decode_paged(x: torch.Tensor, params: dict, cfg: ModelConfig,
+                           *, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           pos_pool: torch.Tensor, block_table: torch.Tensor,
+                           write_bids: torch.Tensor, pos: torch.Tensor,
+                           k_scale_pool=None, v_scale_pool=None
+                           ) -> torch.Tensor:
+    """One-token decode against a paged KV pool.
+
+    x [B,1,D]; pools [N,bs,KV,Dh] and pos_pool [N,bs] shared by every row;
+    block_table [B,M] int32 names each row's blocks in order (NULL block 0
+    = unused entry); write_bids [B] the block this token's K/V lands in
+    (the engine's write plan: the trash block for inactive rows); pos [B]
+    the token's absolute position (write offset ``pos % bs``).  The entry
+    is written in place before attending, so the token sees itself.
+    ``k_scale_pool``/``v_scale_pool`` f32 [N,KV] mark int8 pools: the entry
+    is quantized against its block's scale (:func:`_quantized_block_write`)
+    and the q8 kernel dequantizes in its loop.  Returns y [B,1,D]."""
+    B = x.shape[0]
+    bs = k_pool.shape[1]
+    q, k_new, v_new = _qkv(x, params, cfg, pos[:, None])
+    off = pos % bs
+    bids = write_bids.long()
+    # An offset-0 write always lands in a fresh block, recycled storage
+    # whose stale positions would pass the mask as phantoms: clear its
+    # position row before writing into it.
+    pos_pool[bids] = pos_pool[bids].masked_fill((off == 0)[:, None], -1)
+    if k_scale_pool is not None:
+        _quantized_block_write(k_pool, k_scale_pool, k_new[:, 0], bids, off)
+        _quantized_block_write(v_pool, v_scale_pool, v_new[:, 0], bids, off)
+    else:
+        k_pool[bids, off.long()] = k_new[:, 0].to(k_pool.dtype)
+        v_pool[bids, off.long()] = v_new[:, 0].to(v_pool.dtype)
+    pos_pool[bids, off.long()] = pos.to(pos_pool.dtype)
+    qd = q[:, 0].contiguous()
+    if k_scale_pool is not None:
+        out = ops.paged_decode_attention_q8(qd, k_pool, v_pool, k_scale_pool,
+                                            v_scale_pool, pos_pool,
+                                            block_table, pos)
+    else:
+        out = ops.paged_decode_attention(qd, k_pool, v_pool, pos_pool,
+                                         block_table, pos)
     return _out_proj(out.view(B, 1, *out.shape[1:]), params["wo"])

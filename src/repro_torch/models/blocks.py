@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.attention import (attention, attention_decode,
+                                          attention_decode_paged,
                                           attention_specs)
 from repro_torch.models.common import LayerGroup, ModelConfig, PSpec, tree_map
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec
@@ -80,26 +81,40 @@ def run_groups(x: torch.Tensor, group_params: list, cfg: ModelConfig, *,
 
 
 def block_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict, *,
-                 pos: torch.Tensor, write_idx: torch.Tensor) -> torch.Tensor:
+                 pos: torch.Tensor, write_idx: torch.Tensor,
+                 paged=None) -> torch.Tensor:
     """One ``attn`` block, one token; ``cache`` (this layer's views) is
-    updated in place."""
+    updated in place.  ``paged`` = {"block_table": [B,M], "write_bids":
+    [B]} switches the cache to the pooled paged layout (its leaves are then
+    this layer's block pools; int8 pools carry ``k_scale``/``v_scale``)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    x = x + attention_decode(h, p["attn"], cfg, k_cache=cache["k"],
+    if paged is not None:
+        a = attention_decode_paged(
+            h, p["attn"], cfg, k_pool=cache["k"], v_pool=cache["v"],
+            pos_pool=cache["pos"], block_table=paged["block_table"],
+            write_bids=paged["write_bids"], pos=pos,
+            k_scale_pool=cache.get("k_scale"),
+            v_scale_pool=cache.get("v_scale"))
+    else:
+        a = attention_decode(h, p["attn"], cfg, k_cache=cache["k"],
                              v_cache=cache["v"], kv_positions=cache["pos"],
                              pos=pos, write_idx=write_idx)
+    x = x + a
     return x + mlp(rmsnorm(x, p["norm2"], cfg.norm_eps), p["ffn"], cfg)
 
 
 def run_groups_decode(x: torch.Tensor, group_params: list, caches: list,
                       cfg: ModelConfig, *, pos: torch.Tensor,
-                      write_idx: torch.Tensor) -> torch.Tensor:
+                      write_idx: torch.Tensor, paged=None) -> torch.Tensor:
     """One-token step through all groups.  Where the reference threads the
     caches through a scan and returns new ones, the port writes each
-    layer's new K/V entry into the stacked caches in place."""
+    layer's new K/V entry into the stacked caches in place.  ``paged``
+    (block table + this tick's write plan) applies to every layer: one
+    table serves all layers' pools."""
     for group, gp, gc in zip(cfg.groups, group_params, caches):
         for i in range(group.repeats):
             lp, lc = layer(gp, i), layer(gc, i)
             for j in range(len(group.pattern)):
                 x = block_decode(x, lp[f"sub{j}"], cfg, lc[f"sub{j}"],
-                                 pos=pos, write_idx=write_idx)
+                                 pos=pos, write_idx=write_idx, paged=paged)
     return x

@@ -5,6 +5,7 @@ slice).
     lm_specs(cfg)                                  parameter PSpec tree
     lm_forward(params, tokens, cfg, ...)           logits (+ prefill caches)
     lm_decode_step(params, token, caches, cfg, ...)  logits; caches in place
+                                                   (dense or paged)
 """
 from __future__ import annotations
 
@@ -63,11 +64,13 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def lm_decode_step(params: dict, token: torch.Tensor, caches: list,
                    cfg: ModelConfig, *, pos: torch.Tensor,
-                   write_idx: torch.Tensor) -> torch.Tensor:
+                   write_idx: torch.Tensor, paged=None) -> torch.Tensor:
     """token [B,1] -> logits [B,1,Vp].  The token's K/V entries are written
-    into ``caches`` in place (the reference returns new caches)."""
+    into ``caches`` in place (the reference returns new caches).
+    ``paged`` = {"block_table", "write_bids"} switches the caches to the
+    pooled paged layout (``serve/blockpool.py``)."""
     x = _embed(params, token, cfg)
     x = run_groups_decode(x, params["groups"], caches, cfg, pos=pos,
-                          write_idx=write_idx)
+                          write_idx=write_idx, paged=paged)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_head(x, _unembed_table(params, cfg), cfg)

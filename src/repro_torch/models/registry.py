@@ -49,27 +49,43 @@ def check_supported(cfg: ModelConfig) -> None:
 class Capabilities:
     """The subset of the reference's flags the slice reads: ``swa``
     selects exact-length admission buckets; the kernel flags say which
-    Hopper kernels can express the config."""
+    Hopper kernels can express the config; ``supports_paged_decode`` /
+    ``supports_quantized_kv`` gate the pooled KV layout and its int8
+    pool."""
     swa: bool
     supports_flash_train: bool
     supports_fused_ffn: bool
     supports_flash_decode: bool
+    supports_paged_decode: bool
+    supports_quantized_kv: bool
 
     @property
     def summary(self) -> str:
         return ",".join(n for n in ("swa", "supports_flash_train",
                                     "supports_fused_ffn",
-                                    "supports_flash_decode")
+                                    "supports_flash_decode",
+                                    "supports_paged_decode",
+                                    "supports_quantized_kv")
                         if getattr(self, n)) or "-"
 
 
 def capabilities(cfg: ModelConfig) -> Capabilities:
+    # Paged KV covers self-attention stacks without a sliding window (the
+    # reference's structural law).  The port has no plain gather route on
+    # the card, so the paged kernel's own limit (no logit softcap, the
+    # reference's ``paged_pallas_supported``) is part of the capability;
+    # the int8 pool shares both.
+    paged = (cfg.sliding_window is None
+             and cfg.attn_logit_softcap is None
+             and all(k == "attn" for g in cfg.groups for k in g.pattern))
     return Capabilities(
         swa=cfg.sliding_window is not None,
         supports_flash_train=(cfg.attn_logit_softcap is None
                               and cfg.head_dim <= 256),
         supports_fused_ffn=cfg.mlp_act == "silu",
-        supports_flash_decode=cfg.attn_logit_softcap is None)
+        supports_flash_decode=cfg.attn_logit_softcap is None,
+        supports_paged_decode=paged,
+        supports_quantized_kv=paged)
 
 
 def model_specs(cfg: ModelConfig):
@@ -106,3 +122,15 @@ def model_decode_step(params, token: torch.Tensor, caches: list,
     widx = _decode_write_index(cfg, caches, pos)
     return lm.lm_decode_step(params, token, caches, cfg, pos=pos,
                              write_idx=widx)
+
+
+def model_paged_decode_step(params, token: torch.Tensor, caches: list,
+                            cfg: ModelConfig, *, pos: torch.Tensor,
+                            block_table: torch.Tensor,
+                            write_bids: torch.Tensor) -> torch.Tensor:
+    """Paged-layout decode step: ``caches`` are ``serve.blockpool`` pools,
+    ``block_table`` [B,M] int32, ``write_bids`` [B] this tick's write plan
+    -> logits [B,1,Vp]; the pools take the token's K/V in place."""
+    return lm.lm_decode_step(
+        params, token, caches, cfg, pos=pos, write_idx=pos,
+        paged={"block_table": block_table, "write_bids": write_bids})

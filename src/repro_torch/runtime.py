@@ -5,6 +5,9 @@
     logits, caches = rt.prefill(tokens)
     logits = rt.decode_step(token, caches, pos)           # caches in place
     engine = rt.engine(num_slots=16)
+    rt = Runtime.create("exanode-100m", capacity=2048, kv_layout="paged",
+                        kv_dtype="int8")                  # int8 block pool
+    engine = rt.engine(num_slots=16, block_size=16)
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without a GPU ``create`` raises rather than carrying on on the CPU.  Pass
@@ -20,6 +23,32 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import registry
 from repro_torch.models.common import ModelConfig, count_params, init_params
 from repro_torch.serve import steps as serve_steps
+
+KV_LAYOUTS = ("dense", "paged")
+KV_DTYPES = ("f32", "int8")
+
+
+def check_kv_layout(caps: registry.Capabilities, name: str, kv_layout: str,
+                    kv_dtype: str) -> None:
+    """The reference's ``ValueError``s for a serve KV layout: unknown
+    values, a layout or pool the arch cannot serve, and an int8 pool
+    without the paged layout."""
+    if kv_layout not in KV_LAYOUTS:
+        raise ValueError(f"unknown kv_layout {kv_layout!r}; valid choices: "
+                         f"{', '.join(KV_LAYOUTS)}")
+    if kv_layout == "paged" and not caps.supports_paged_decode:
+        raise ValueError(f"arch {name!r} does not support the paged KV "
+                         f"layout (caps: {caps.summary})")
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}; valid choices: "
+                         f"{', '.join(KV_DTYPES)}")
+    if kv_dtype == "int8":
+        if kv_layout != "paged":
+            raise ValueError("kv_dtype='int8' requires kv_layout='paged' "
+                             "(the dense slab cache has no quantized layout)")
+        if not caps.supports_quantized_kv:
+            raise ValueError(f"arch {name!r} does not support the quantized "
+                             f"KV pool (caps: {caps.summary})")
 
 
 def resolve_device(device) -> torch.device:
@@ -39,7 +68,8 @@ class Runtime:
     :meth:`create`."""
 
     def __init__(self, *, arch: str, cfg: ModelConfig, device: torch.device,
-                 capacity: int, seed: int, params=None):
+                 capacity: int, seed: int, params=None,
+                 kv_layout: str = "dense", kv_dtype: str = "f32"):
         self.arch = arch
         self.cfg = cfg
         self.caps = registry.capabilities(cfg)
@@ -47,20 +77,27 @@ class Runtime:
         self.specs = registry.model_specs(cfg)
         self.capacity = capacity
         self.seed = seed
+        self.kv_layout = kv_layout      # serve KV layout: dense | paged
+        self.kv_dtype = kv_dtype        # paged pool storage: f32 | int8
         self._params = params
 
     @classmethod
     def create(cls, arch: Union[str, ModelConfig], *, smoke: bool = False,
                capacity: int = 128, seed: int = 0, params=None,
-               device=None) -> "Runtime":
+               device=None, kv_layout: str = "dense",
+               kv_dtype: str = "f32") -> "Runtime":
         """Build the chain for one config.
 
         ``arch`` is a registry name (``smoke`` selects the reduced config)
         or a ready ``ModelConfig``.  ``capacity`` is the decode-cache length
-        of the prefill/decode steps and the engine.  A config outside this
-        slice (any family but the dense decoder-only ``attn`` stack)
-        raises ``NotImplementedError`` naming the ROADMAP item that will
-        bring it."""
+        of the prefill/decode steps and the engine.  ``kv_layout`` picks
+        the engine's KV layout ("dense" per-slot slabs or "paged" pooled
+        blocks) and ``kv_dtype`` the paged pool's storage ("f32" is the
+        working dtype, "int8" quantized blocks with per-(block, kv head)
+        scales, paged only); bad values raise ``ValueError`` here.  A
+        config outside this slice (any family but the dense decoder-only
+        ``attn`` stack) raises ``NotImplementedError`` naming the ROADMAP
+        item that will bring it."""
         if isinstance(arch, ModelConfig):
             if smoke:
                 raise ValueError("smoke=True only applies when arch is a "
@@ -70,8 +107,11 @@ class Runtime:
             name = arch
             cfg = get_smoke_config(arch) if smoke else get_config(arch)
         registry.check_supported(cfg)
+        check_kv_layout(registry.capabilities(cfg), cfg.name, kv_layout,
+                        kv_dtype)
         return cls(arch=name, cfg=cfg, device=resolve_device(device),
-                   capacity=capacity, seed=seed, params=params)
+                   capacity=capacity, seed=seed, params=params,
+                   kv_layout=kv_layout, kv_dtype=kv_dtype)
 
     # -- params -------------------------------------------------------------
 
@@ -101,6 +141,9 @@ class Runtime:
     def make_decode_step(self, *, advance_pos: bool = False):
         return serve_steps.make_decode_step(self.cfg, advance_pos=advance_pos)
 
+    def make_paged_decode_step(self):
+        return serve_steps.make_paged_decode_step(self.cfg)
+
     def prefill(self, tokens: torch.Tensor, *, last_only: bool = False):
         """tokens [B,S] -> (logits, caches padded to ``capacity``)."""
         return registry.model_prefill(self.params, tokens, self.cfg,
@@ -115,23 +158,57 @@ class Runtime:
 
     # -- serving ------------------------------------------------------------
 
-    def engine(self, *, num_slots: int = 4, **engine_kw):
-        """A continuous-batching ``ServeEngine`` over this Runtime;
-        ``engine_kw`` forwards the knobs of later slices (which raise)."""
+    def engine(self, *, num_slots: int = 4, kv_layout=None, kv_dtype=None,
+               **engine_kw):
+        """A continuous-batching ``ServeEngine`` over this Runtime.
+        ``kv_layout`` / ``kv_dtype`` default to the Runtime's own;
+        ``engine_kw`` forwards the paged pool's sizing (``block_size``,
+        ``num_blocks``, ``max_blocks_per_seq``) and the knobs of later
+        slices (which raise)."""
         from repro_torch.serve.engine import ServeEngine
-        return ServeEngine(self, num_slots=num_slots, **engine_kw)
+        return ServeEngine(
+            self, num_slots=num_slots,
+            kv_layout=kv_layout if kv_layout is not None else self.kv_layout,
+            kv_dtype=kv_dtype if kv_dtype is not None else self.kv_dtype,
+            **engine_kw)
+
+    def kv_bytes_per_stream(self, kv_dtype=None, *,
+                            block_size: int = 16) -> int:
+        """Per-stream KV bytes at ``capacity``: attention layers x 2 (K+V) x
+        capacity x KV x Dh x itemsize, plus, for ``kv_dtype="int8"``, the
+        two f32 per-(block, kv head) scale rows of the ceil(capacity /
+        block_size) blocks.  Exact for the dense slab; for paged pools the
+        per-entry cost (block rounding and prefix sharing move the
+        realized number: ``ServeEngine.kv_cache_bytes``)."""
+        kv_dtype = kv_dtype if kv_dtype is not None else self.kv_dtype
+        cfg = self.cfg
+        layers = sum(g.repeats * sum(1 for k in g.pattern if k == "attn")
+                     for g in cfg.groups)
+        itemsize = 1 if kv_dtype == "int8" else cfg.dtype.itemsize
+        total = (layers * self.capacity * 2 * cfg.num_kv_heads
+                 * cfg.head_dim * itemsize)
+        if kv_dtype == "int8":
+            blocks = -(-self.capacity // block_size)
+            total += layers * blocks * 2 * cfg.num_kv_heads * 4
+        return total
 
     def describe(self) -> str:
         where = (torch.cuda.get_device_name(self.device)
                  if self.device.type == "cuda"
                  else "cpu (plain PyTorch versions of the kernels)")
+        decode = {("dense", "f32"): "decode_attention",
+                  ("paged", "f32"): "paged_decode_attention",
+                  ("paged", "int8"): "paged_decode_attention_q8"}[
+                      (self.kv_layout, self.kv_dtype)]
         return "\n".join([
             f"runtime[{self.cfg.name}] params={self.num_params:,} "
             f"device={self.device} ({where})",
             f"  caps      : {self.caps.summary}",
-            f"  kernels   : flash_attention fused_ffn decode_attention "
+            f"  kernels   : flash_attention fused_ffn {decode} "
             f"({'Hopper CUDA' if self.device.type == 'cuda' else 'plain'})",
-            f"  serve     : capacity={self.capacity} kv_layout=dense "
+            f"  serve     : capacity={self.capacity} "
+            f"kv_layout={self.kv_layout} kv_dtype={self.kv_dtype} "
+            f"kv_bytes/stream={self.kv_bytes_per_stream():,} "
             f"dtype={self.cfg.dtype} scheduler=off",
         ])
 

@@ -1,5 +1,6 @@
-"""Continuous-batching serve engine, dense KV layout (port of
-``repro.serve.engine.ServeEngine``'s monolithic-admission path).
+"""Continuous-batching serve engine over the dense KV layout or the paged
+block pool (port of ``repro.serve.engine.ServeEngine``'s
+monolithic-admission path).
 
 A fixed pool of ``num_slots`` decode slots runs in lock-step, one decode
 step per tick.  Queued requests are admitted into free slots through
@@ -27,10 +28,25 @@ its EOS frees its slot.  The semantics are the reference's:
 * **Inactive slots still compute.**  Their positions keep advancing and
   their cache writes are junk that no live query attends to; a write past
   the cache's end is dropped (``models.attention.write_kv``).
+* **Paged layout** (``kv_layout="paged"``, ``kv_dtype="f32"|"int8"``).
+  A ``serve.blockpool.BlockPool`` sized for the worst case (every slot at
+  capacity, unless ``num_blocks`` says otherwise) hands out blocks:
+  admission allocates each prompt's chain, sharing full prompt blocks
+  whose content chain is cached, and scatters the same capacity-padded
+  prefill caches the dense layout splices into the blocks it wrote;
+  admission defers a request until its worst-case chain (prompt + new
+  tokens) fits the unreserved pool, and ``submit`` rejects one the pool
+  can never hold.  Each tick plans every slot's write (lazy growth at
+  block boundaries, copy-on-write of shared tails, the trash block for
+  inactive slots), applies the copies, and passes the block table and the
+  plan to the step through a pinned, double-buffered staging tensor, so
+  the host never waits for the device there.  A finished request's blocks
+  are released at once; the prefix cache keeps their content until they
+  are recycled.
 
-The reference's paged pool, int8 KV, chunked-prefill scheduler, fault
-tolerance, integrity scrubbing and telemetry are later slices; their
-knobs raise ``NotImplementedError`` here.
+The reference's chunked-prefill scheduler, fault tolerance, integrity
+scrubbing and telemetry are later slices; their knobs raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -42,7 +58,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.serve import kvcache
+from repro_torch.runtime import check_kv_layout
+from repro_torch.serve import blockpool, kvcache
 
 
 @dataclass
@@ -102,12 +119,20 @@ class ServeEngine:
     product); RMSNorm scales stay f32."""
 
     def __init__(self, runtime, *, num_slots: int = 4,
-                 kv_layout: str = "dense", scheduler: bool = False,
-                 health_every: int = 0, scrub_every: int = 0,
-                 injector=None):
-        if kv_layout != "dense":
-            _unsupported(f"kv_layout={kv_layout!r}",
-                         "ROADMAP queue 1, item 7 (paged KV)")
+                 kv_layout: str = "dense", kv_dtype: str = "f32",
+                 block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 max_blocks_per_seq: Optional[int] = None,
+                 scheduler: bool = False, health_every: int = 0,
+                 scrub_every: int = 0, injector=None):
+        check_kv_layout(runtime.caps, runtime.cfg.name, kv_layout, kv_dtype)
+        if kv_layout == "dense" and any(
+                v is not None for v in (block_size, num_blocks,
+                                        max_blocks_per_seq)):
+            raise ValueError(
+                "block_size/num_blocks/max_blocks_per_seq size the paged "
+                "block pool; pass kv_layout='paged' (a dense engine would "
+                "silently ignore them)")
         if scheduler:
             _unsupported("the chunked-prefill scheduler",
                          "ROADMAP queue 1, item 8")
@@ -121,10 +146,39 @@ class ServeEngine:
         # bounded queue scan for admission grouping (see _admit_batch)
         self.admit_window = 4 * num_slots
         self.params = serving_params(rt.params, self.cfg.dtype)
+        self.kv_layout, self.kv_dtype = kv_layout, kv_dtype
+        self.paged = kv_layout == "paged"
+        pin = self.device.type == "cuda"
+        # one capacity-padded prefill for both layouts: the paged splice
+        # reads block columns out of the same caches the dense one splices
         self._prefill = rt.make_prefill_step()
-        self._decode = rt.make_decode_step(advance_pos=True)
-        self.caches = kvcache.init_cache(self.cfg, num_slots, self.capacity,
-                                         device=self.device)
+        if self.paged:
+            bs = block_size if block_size is not None else 16
+            M = (max_blocks_per_seq if max_blocks_per_seq is not None
+                 else -(-self.capacity // bs))
+            nblocks = (num_blocks if num_blocks is not None
+                       else num_slots * M + blockpool.NUM_RESERVED)
+            # max_entries=capacity junks writes where the dense layout
+            # drops them, also when capacity % block_size != 0
+            self.pool = blockpool.BlockPool(nblocks, bs, num_slots, M,
+                                            max_entries=self.capacity)
+            self.caches = blockpool.init_paged_cache(
+                self.cfg, nblocks, bs, kv_dtype, device=self.device)
+            self._decode = rt.make_paged_decode_step()
+            # each tick's block table [S*M] and write plan [S], staged in
+            # one of two pinned host buffers (the copy of tick t reads its
+            # buffer until tick t's collection has waited on the device)
+            n = num_slots * (M + 1)
+            self._host_plan = [torch.empty(n, dtype=torch.int32,
+                                           pin_memory=pin) for _ in range(2)]
+            self._plan = torch.empty(n, dtype=torch.int32,
+                                     device=self.device)
+        else:
+            self.pool = None
+            self.caches = kvcache.init_cache(self.cfg, num_slots,
+                                             self.capacity,
+                                             device=self.device)
+            self._decode = rt.make_decode_step(advance_pos=True)
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
         self.stats = EngineStats()
@@ -139,14 +193,34 @@ class ServeEngine:
                                 device=self.device)
         # two host buffers for the one-tick-lag collection: step t copies
         # into one while step t-1's is read from the other
-        pin = self.device.type == "cuda"
         self._host_tok = [torch.empty(num_slots, dtype=torch.int32,
                                       pin_memory=pin) for _ in range(2)]
         self._inflight = None   # (host buffer, copy-done event, slot->req)
 
     # -- admission ----------------------------------------------------------
 
+    def _paged_reserve(self, req: Request) -> int:
+        """Worst-case block-chain length of ``req``: prompt plus its whole
+        generation budget, capped at the table width (writes past it go to
+        the trash block, where the dense layout drops them)."""
+        return min(self.pool.blocks_needed(len(req.prompt)
+                                           + req.max_new_tokens),
+                   self.pool.max_blocks_per_seq)
+
     def submit(self, req: Request):
+        if self.paged:
+            # fail fast on a request the pool can never hold: admission
+            # would otherwise wait forever for evictions
+            nbp = self.pool.blocks_needed(len(req.prompt))
+            usable = self.pool.num_blocks - blockpool.NUM_RESERVED
+            need = self._paged_reserve(req)
+            if nbp > self.pool.max_blocks_per_seq or need > usable:
+                raise ValueError(
+                    f"request rid={req.rid} needs {need} KV blocks "
+                    f"worst-case (prompt alone {nbp}) but the pool has "
+                    f"{usable} usable blocks and tables hold "
+                    f"{self.pool.max_blocks_per_seq}; grow num_blocks / "
+                    f"max_blocks_per_seq or shrink the request")
         req.submitted_at = time.perf_counter()
         self.queue.append(req)
 
@@ -165,20 +239,31 @@ class ServeEngine:
         """Admit queued requests through one padded batched prefill per
         group.  A group is the head request plus later requests of its
         bucket within the first ``admit_window`` (4 x ``num_slots``) queue
-        entries, at most one per free slot; a full group ends the scan, so
-        no request is overtaken by a look-alike submitted after it.
-        Returns the number admitted."""
+        entries, at most one per free slot; a full group ends the scan, and
+        so, under the paged layout, does the first request whose worst-case
+        chain no longer fits the unreserved pool, so no request is
+        overtaken by a look-alike submitted after it.  Returns the number
+        admitted."""
         admitted = 0
         free = [s for s in range(self.num_slots) if self.slot_req[s] is None]
         while free and self.queue:
             blen = self._bucket_len(len(self.queue[0].prompt))
-            idxs = []
+            avail = self.pool.available_blocks if self.paged else 0
+            need, idxs = 0, []
             for i in range(min(len(self.queue), self.admit_window)):
-                if i and self._bucket_len(len(self.queue[i].prompt)) != blen:
+                r = self.queue[i]
+                if i and self._bucket_len(len(r.prompt)) != blen:
                     continue
                 if len(idxs) >= len(free):
                     break
+                if self.paged:
+                    nb = self._paged_reserve(r)
+                    if need + nb > avail:
+                        break       # the pool cannot fit this one yet
+                    need += nb
                 idxs.append(i)
+            if not idxs:            # the head does not fit: wait
+                break
             group = [self.queue[i] for i in idxs]
             for i in reversed(idxs):
                 del self.queue[i]
@@ -211,7 +296,18 @@ class ServeEngine:
                  "lengths": torch.from_numpy(lens).to(dev)}
         next_tok, part = self._prefill(self.params, batch)
         self.stats.prefill_calls += 1
-        kvcache.splice_slots(self.caches, part, slot_ids.tolist())
+        if self.paged:
+            # each row's chain (shared prompt blocks and pad rows splice to
+            # the trash block) and the scatter of its bucket columns
+            nb = -(-blen // self.pool.block_size)
+            dst = np.full((Bp, nb), blockpool.TRASH_BLOCK, np.int32)
+            for i, (s, r) in enumerate(zip(slots, group)):
+                dst[i] = self.pool.admit(
+                    s, r.prompt, nb, reserve_blocks=self._paged_reserve(r))
+            blockpool.paged_splice(self.caches, part,
+                                   torch.from_numpy(dst).to(dev))
+        else:
+            kvcache.splice_slots(self.caches, part, slot_ids.tolist())
         # seed the hot loop for the B authentic rows (pad rows repeat row
         # B-1 and its slot, so they would write the same values)
         idx = torch.from_numpy(slot_ids[:B].astype(np.int64)).to(dev)
@@ -237,6 +333,8 @@ class ServeEngine:
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0
         self.stats.finished += 1
+        if self.paged:
+            self.pool.release(slot)
 
     # -- main loop ----------------------------------------------------------
 
@@ -244,8 +342,13 @@ class ServeEngine:
         """Enqueue one decode step over every slot and a non-blocking copy
         of its tokens to the host; returns what the next tick collects."""
         reqs = list(self.slot_req)
-        self._tok, self.caches, self._pos = self._decode(
-            self.params, self._tok, self.caches, self._pos)
+        if self.paged:
+            self._tok, self.caches, self._pos = self._decode(
+                self.params, self._tok, self.caches, self._pos,
+                *self._write_plan(reqs))
+        else:
+            self._tok, self.caches, self._pos = self._decode(
+                self.params, self._tok, self.caches, self._pos)
         self.stats.ticks += 1
         host = self._host_tok[self.stats.ticks % 2]
         host.copy_(self._tok.view(-1), non_blocking=True)
@@ -254,6 +357,27 @@ class ServeEngine:
             done = torch.cuda.Event()
             done.record()
         return host, done, reqs
+
+    def _write_plan(self, reqs: list):
+        """This tick's paged write plan: plan each slot's write, apply the
+        copy-on-write copies (ahead of the step on the same stream), and
+        stage the block table and the plan to the device.  Returns
+        (block_table [S,M], write_bids [S]) on the device."""
+        S, M = self.num_slots, self.pool.max_blocks_per_seq
+        host = self._host_plan[self.stats.ticks % 2]
+        bids = host[S * M:].numpy()
+        copies = []
+        for s in range(S):
+            bids[s], cp = self.pool.write_plan(s, reqs[s] is not None)
+            copies.extend(cp)
+        if copies:
+            src, dst = zip(*copies)
+            blockpool.copy_blocks(
+                self.caches, torch.tensor(src, device=self.device),
+                torch.tensor(dst, device=self.device))
+        host[:S * M].numpy().reshape(S, M)[:] = self.pool.table
+        self._plan.copy_(host, non_blocking=True)
+        return self._plan[:S * M].view(S, M), self._plan[S * M:]
 
     def _collect(self, inflight):
         """Apply the previous tick's tokens (waits for their copy only)."""
@@ -314,6 +438,23 @@ class ServeEngine:
             out.update({f"{name}_p{q}": percentile(xs, q)
                         for q in (50, 95, 99)})
         return out
+
+
+    def kv_cache_bytes(self) -> int:
+        """Bytes of K/V storage as allocated: the dense per-slot slabs or
+        the paged pool, int8 scale pools included."""
+        return sum(sub[n].numel() * sub[n].element_size()
+                   for gc in self.caches for sub in gc.values()
+                   for n in ("k", "v", "k_scale", "v_scale") if n in sub)
+
+    def kv_cache_f32_equiv_bytes(self) -> int:
+        """Bytes the same K/V entries would take in the working dtype (no
+        scale pools); equals :meth:`kv_cache_bytes` unless the pool is
+        int8."""
+        itemsize = self.cfg.dtype.itemsize
+        return sum(sub[n].numel() * itemsize
+                   for gc in self.caches for sub in gc.values()
+                   for n in ("k", "v"))
 
 
 def serving_params(params, dtype: torch.dtype):

@@ -1,9 +1,12 @@
-"""Serve steps: prefill (context -> caches) and decode (one token) (port of
-``repro.serve.steps``, single device, dense layout).
+"""Serve steps: prefill (context -> caches) and decode (one token), over the
+dense cache or the paged pool (port of ``repro.serve.steps``, single
+device).
 
 The reference jits these with the caches donated; the port runs them
 eagerly and updates the decode caches in place.  Kernels are chosen by
-device inside the model code (``kernels.ops``): there is no impl knob.
+device inside the model code (``kernels.ops``): there is no impl knob, and
+the contradictions the reference's ``resolve_decode_attn_impl`` rejects
+(an int8 pool without the paged layout) are ``Runtime`` and engine checks.
 """
 from __future__ import annotations
 
@@ -12,7 +15,9 @@ from typing import Callable
 import torch
 
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.registry import model_decode_step, model_prefill
+from repro_torch.models.registry import (model_decode_step,
+                                         model_paged_decode_step,
+                                         model_prefill)
 from repro_torch.serve import kvcache
 
 
@@ -62,5 +67,21 @@ def make_decode_step(cfg: ModelConfig, *,
         if advance_pos:
             return nxt[:, None], caches, pos + 1
         return nxt, caches
+
+    return decode
+
+
+def make_paged_decode_step(cfg: ModelConfig) -> Callable:
+    """(params, token [B,1], caches, pos [B], block_table [B,M], write_bids
+    [B]) -> (next [B,1], caches, pos + 1): the paged analog of
+    ``make_decode_step(advance_pos=True)``.  ``caches`` are the pooled
+    block caches (``serve.blockpool``; int8 pools carry scale leaves),
+    ``write_bids`` the engine's write plan for this tick."""
+
+    def decode(params, token, caches, pos, block_table, write_bids):
+        logits = model_paged_decode_step(params, token, caches, cfg, pos=pos,
+                                         block_table=block_table,
+                                         write_bids=write_bids)
+        return greedy_sample(logits)[:, None], caches, pos + 1
 
     return decode

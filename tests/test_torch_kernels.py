@@ -2,8 +2,10 @@
 Pallas kernel (interpret mode, as tests/test_kernels.py runs it) and its
 jnp oracle, and, on a CUDA machine, each Hopper kernel against its plain
 version.  Inputs are made from a numpy seed; tolerances are the
-reference's (tests/test_kernels.py): flash 2e-5 f32 / 2e-2 bf16, decode
-2e-5, FFN 1e-5 f32 / 3e-2 bf16.
+reference's (tests/test_kernels.py, tests/test_paged.py): flash 2e-5 f32 /
+2e-2 bf16, decode 2e-5, paged decode 1e-5, FFN 1e-5 f32 / 3e-2 bf16; the
+plain paged versions are held against the reference in
+tests/test_torch_paged.py.
 """
 import numpy as np
 import pytest
@@ -13,9 +15,11 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import fused_ffn as ffn_kernel
+from repro_torch.kernels import paged_attention as pa_kernel
 
 TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "decode": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+       "paged": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
        "ffn": {torch.float32: 1e-5, torch.bfloat16: 3e-2}}
 
 
@@ -138,7 +142,9 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
     w = torch.from_numpy(_rand((16, 32), 15))
     assert ops.swiglu_ffn(x, w, w, w.t().contiguous()).shape == (4, 16)
     assert ops.launch_counts() == {"flash_attention": 0, "fused_ffn": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0,
+                                   "paged_decode_attention": 0,
+                                   "paged_decode_attention_q8": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -217,6 +223,66 @@ def test_decode_kernel_matches_plain(cuda, dtype, window):
     want = ref.ref_decode_attention(q, k, v, kv_pos, pos, window=window)
     torch.cuda.synchronize()
     _close(got.float().cpu(), want.float().cpu(), TOL["decode"][dtype])
+
+
+def _paged_case(H, KV, D, seed, bs=16, M=6, N=24, B=4):
+    """Paged inputs: rows with 1, M-1, M and 2 blocks (NULL tails), row 3
+    sharing row 2's first block, tail entries past each row's length
+    holding stale positions above every query's; numpy, q/pools f32."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((N, bs, KV, D)).astype(np.float32)
+              for _ in range(2))
+    pos_pool = np.full((N, bs), -1, np.int32)
+    pos_pool[2:] = rng.integers(10 * bs, 20 * bs, (N - 2, bs))
+    table = np.zeros((B, M), np.int32)
+    free = list(rng.permutation(np.arange(2, N)))
+    lens = [5, (M - 1) * bs, M * bs - 3, bs + 7]
+    for b, L in enumerate(lens):
+        for j in range(-(-L // bs)):
+            if b == 3 and j == 0:
+                table[b, j] = table[2, 0]
+                continue
+            bid = table[b, j] = free.pop()
+            valid = np.arange(j * bs, (j + 1) * bs) < L
+            pos_pool[bid, valid] = np.arange(j * bs, (j + 1) * bs)[valid]
+    pos = np.array([L - 1 for L in lens], np.int32)
+    pos[2] -= 2                        # the chain holds entries past pos
+    return q, kp, vp, pos_pool, table, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(8, 2, 64), (6, 1, 64), (4, 4, 64),
+                                    (12, 4, 64), (24, 8, 128)])
+def test_paged_kernel_matches_plain(cuda, dtype, H, KV, D):
+    q, kp, vp, pos_pool, table, pos = (
+        torch.from_numpy(a).to(cuda) for a in _paged_case(H, KV, D, 30))
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    got = pa_kernel.paged_decode_attention(q, kp, vp, pos_pool, table, pos)
+    want = ref.ref_paged_decode_attention(q, kp, vp, pos_pool, table, pos)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["paged"][dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(8, 2, 64), (6, 1, 64), (4, 4, 64),
+                                    (12, 4, 64), (24, 8, 128)])
+def test_paged_q8_kernel_matches_plain(cuda, dtype, H, KV, D):
+    q, kp, vp, pos_pool, table, pos = (
+        torch.from_numpy(a).to(cuda) for a in _paged_case(H, KV, D, 31))
+    q = q.to(dtype)
+    ks = kp.abs().amax(dim=(1, 3)) / 127.0                  # [N, KV]
+    vs = vp.abs().amax(dim=(1, 3)) / 127.0
+    kq = torch.round(kp / ks[:, None, :, None]).to(torch.int8)
+    vq = torch.round(vp / vs[:, None, :, None]).to(torch.int8)
+    got = pa_kernel.paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
+                                              table, pos)
+    want = ref.ref_paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
+                                             table, pos)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["paged"][dtype])
 
 
 @pytest.mark.cuda

@@ -224,8 +224,7 @@ def test_out_of_slice_requests_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PortRuntime.create(bad, device="cpu")
     rt = PortRuntime.create("exanode-100m", smoke=True, device="cpu")
-    for kw in ({"kv_layout": "paged"}, {"scheduler": True},
-               {"health_every": 1}, {"scrub_every": 2}):
+    for kw in ({"scheduler": True}, {"health_every": 1}, {"scrub_every": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rt.engine(**kw)
 
