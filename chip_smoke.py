@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, as a check
     python3 chip_smoke.py --phases kernels   # a subset, while iterating
@@ -7,11 +7,13 @@
 Phases, in order, each printing one line:
 
   gpu      the card's name and power limit, as nvidia-smi reports them;
-  build    builds the four kernel sources (five kernels) from
+  build    builds the six kernel sources (nine kernels) from
            src/repro_torch/csrc, one nvcc each, all started together;
   kernels  holds each kernel against its plain PyTorch version on the card
-           at the serving path's shapes, in f32 and bf16 (the paged kernels
-           also with int8 pools, and at llama3.2-3b's head dim 128), and
+           at its path's shapes (serving; for the four backward kernels,
+           training at batch 8 x 512), in f32 and bf16 (the paged kernels
+           also with int8 pools; the paged and backward attention kernels
+           also at llama3.2-3b's head dim 128 with 24 / 8 heads), and
            times the kernel, the plain version and a PyTorch library
            yardstick for the same function (the port never calls it);
   model    exanode-100m at full width in f32 with seeded weights: prefill
@@ -27,7 +29,24 @@ Phases, in order, each printing one line:
            kv_layout="paged" and paged with kv_dtype="int8"
            (.engine(num_slots=16, block_size=16)), each cold and then warm;
            prints each run's figures and the share of token positions
-           where paged matches dense and int8 matches paged.
+           where paged matches dense and int8 matches paged;
+  train    exanode-100m at full width: in f32, one step's loss and every
+           grad leaf with the kernels on the card against the plain path
+           on the CPU, from the same seeded params and batch (2 x 512);
+           then python -m repro_torch.launch.train's loop,
+           Runtime.create("exanode-100m", shape_kind="train", seq_len=512),
+           bf16 activations and f32 params, global batch 8, 20 cosine
+           steps, every launch counter zeroed just before and read just
+           after: per-step losses, step time p50, tokens/s and peak device
+           memory; fails unless the loss falls and every kernel of the
+           train path (flash forward and backward, fused SwiGLU forward
+           and backward) launched.
+
+  train_profile  torch.profiler over three more bf16 train steps: device
+           time per step by kernel group and the device's idle share.
+
+One more phase runs only when named: int8_cpu (the int8 pool's token
+agreement on the card and through the plain versions on the CPU).
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 ...}.  Any failed check raises before the last line.  Without a CUDA
@@ -42,7 +61,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "model", "serve", "paged")   # the build always runs
+PHASES = ("kernels", "model", "serve", "paged", "train",
+          "train_profile")                          # the build always runs
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s and bf16 tensor-core
 # FLOP/s.  Rates assume the full 700 W power limit.
@@ -50,13 +70,43 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12}
 
 # Tolerances: the reference's own (tests/test_kernels.py,
-# tests/test_paged.py).
+# tests/test_paged.py).  Backward kernels: in f32 the reference's grad
+# tolerances (tests/test_kernels.py:115-180: flash 2e-4, FFN 1e-4); in
+# bf16 its forward ones (flash 2e-2, FFN 3e-2), since kernel and plain
+# version both accumulate in f32 and round the grads to bf16 once.  The
+# FFN weight grads sum over all N rows, where the reference's tests had
+# <= 256: their f32 tolerance is scaled by sqrt(N / 256) (``dw_tol``; the
+# f32 rounding of an N-term sum grows as sqrt(N)).  Those bounds are
+# absolute as well as relative, so where grads are small they could pass
+# a zeroed or badly wrong grad: the backward kernels are also held to
+# ||got - want|| / ||want|| <= BWD_REL_TOL, which scales with the values.
+# Kernel and plain version round the same f32 sums once, so in bf16 the
+# relative difference is far below one bf16 step (2^-8).
 TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "fused_ffn": {"float32": 1e-5, "bfloat16": 3e-2},
        "decode_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "paged_decode_attention": {"float32": 1e-5, "bfloat16": 2e-2},
-       "paged_decode_attention_q8": {"float32": 1e-5, "bfloat16": 2e-2}}
+       "paged_decode_attention_q8": {"float32": 1e-5, "bfloat16": 2e-2},
+       "flash_attention_bwd_dq": {"float32": 2e-4, "bfloat16": 2e-2},
+       "flash_attention_bwd_dkv": {"float32": 2e-4, "bfloat16": 2e-2},
+       "fused_ffn_bwd_dx": {"float32": 1e-4, "bfloat16": 3e-2},
+       "fused_ffn_bwd_dw": {"float32": 1e-4, "bfloat16": 3e-2}}
+BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 MODEL_LOGITS_TOL = 1e-3
+# The train phase's f32 step against the CPU: the reference's fast-path
+# bounds (tests/test_train_fastpath.py:71-76), atol + rtol.  At full width
+# the RMS grad element is about 3e-4, below that atol, so each leaf is also
+# held to ||g_cuda - g_cpu|| / ||g_cpu|| <= TRAIN_GRAD_REL_TOL.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_GRAD_REL_TOL = 1e-4, 1e-3, 1e-4
+# The bf16 run's mean loss over its last 5 of 20 steps must be this far
+# below the mean over its first 5.  The reference gates its smoke run
+# (64 x 256 widths, lr 3e-3, 30 steps) at 0.2 (tests/test_train_serve.py:
+# 39).  At full width, with the launcher's default peak lr of 3e-4 and a
+# 2-step warmup, the CPU rehearsal of this run (plain versions, bf16
+# activations) fell by 0.0677 (10.8630 -> 10.7952), with single steps
+# scattered by up to 0.04; at peak lr 3e-3 it rose.  The gate is half the
+# rehearsal's drop.
+TRAIN_LOSS_DROP = 0.03
 # The int8 pool's greedy tokens must equal the bf16 paged run's on this
 # share of token positions.  The reference's own gate is 0.95
 # (BENCH_serve.json "quantized", CPU smoke runs with short streams).  At
@@ -80,7 +130,18 @@ SOURCES = {
                                "src/repro/kernels/paged_attention.py:75"),
     "paged_decode_attention_q8": ("src/repro_torch/csrc/paged_attention.cu",
                                   "src/repro/kernels/paged_attention.py:92"),
+    "flash_attention_bwd_dq": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                               "src/repro/kernels/flash_attention.py:145"),
+    "flash_attention_bwd_dkv": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:180"),
+    "fused_ffn_bwd_dx": ("src/repro_torch/csrc/fused_ffn_bwd.cu",
+                         "src/repro/kernels/fused_ffn.py:108"),
+    "fused_ffn_bwd_dw": ("src/repro_torch/csrc/fused_ffn_bwd.cu",
+                         "src/repro/kernels/fused_ffn.py:131"),
 }
+TRAIN_KERNELS = ("flash_attention", "fused_ffn", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "fused_ffn_bwd_dx",
+                 "fused_ffn_bwd_dw")
 
 
 def gpu_line() -> str:
@@ -127,10 +188,16 @@ def bound(nb: int, flops: float, dtype: str) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check(name: str, got, want, dtype: str, what: str) -> float:
+def dw_tol(rows: int, dtype: str) -> float:
+    tol = TOL["fused_ffn_bwd_dw"][dtype]
+    return tol * max(1.0, (rows / 256) ** 0.5) if dtype == "float32" else tol
+
+
+def check(name: str, got, want, dtype: str, what: str, tol=None) -> float:
     """Max |got - want|; raises unless every element is within
-    tol + tol * |want| (numpy's allclose with atol = rtol = tol)."""
-    tol = TOL[name][dtype]
+    tol + tol * |want| (numpy's allclose with atol = rtol = tol; tol
+    defaults to ``TOL[name][dtype]``)."""
+    tol = TOL[name][dtype] if tol is None else tol
     got, want = got.float(), want.float()
     err = (got - want).abs()
     if not bool((err <= tol + tol * want.abs()).all()) or \
@@ -138,6 +205,30 @@ def check(name: str, got, want, dtype: str, what: str) -> float:
         raise AssertionError(f"{name} {what} {dtype}: max abs err "
                              f"{float(err.max()):.3g} over tol {tol}")
     return float(err.max())
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| in f32 (inf where want is 0 and got not)."""
+    got, want = got.float(), want.float()
+    num, den = float((got - want).norm()), float(want.norm())
+    return num / den if den else (0.0 if num == 0 else float("inf"))
+
+
+def check_grad(name: str, got, want, dtype: str, what: str,
+               tol=None) -> dict:
+    """``check`` and the relative bound BWD_REL_TOL[dtype]; returns the max
+    abs err, the relative err and the largest |want|."""
+    err = check(name, got, want, dtype, what, tol)
+    rel = rel_err(got, want)
+    if not rel <= BWD_REL_TOL[dtype]:
+        raise AssertionError(f"{name} {what} {dtype}: ||err|| / ||want|| "
+                             f"{rel:.3g} over {BWD_REL_TOL[dtype]}")
+    return dict(err=err, rel=rel, max=float(want.float().abs().max()))
+
+
+def worst(*rs: dict) -> dict:
+    """The larger err and rel of several ``check_grad`` results."""
+    return {k: max(r[k] for r in rs) for k in rs[0]}
 
 
 def kernels_phase(torch, timer) -> dict:
@@ -255,6 +346,7 @@ def kernels_phase(torch, timer) -> dict:
             q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)),
         library="torch.nn.functional.scaled_dot_product_attention")
     out.update(paged_kernels(torch, timer))
+    out.update(backward_kernels(torch, timer))
     return out
 
 
@@ -372,6 +464,307 @@ def paged_kernels(torch, timer) -> dict:
                      + " + torch.nn.functional.scaled_dot_product_attention"
                        " with the positional mask"))
     return out
+
+
+def grad_errs(errs: dict, i: int) -> dict:
+    """JSON fields of output ``i`` from ``{case: (check_grad, ...)}``: the
+    bf16 case's max abs err, relative err and largest |want|, and each
+    other case's max abs err and relative err."""
+    bf = errs["bfloat16"][i]
+    out = dict(max_abs_err=bf["err"], rel_err=bf["rel"],
+               max_abs_want=bf["max"])
+    for case, rs in errs.items():
+        if case != "bfloat16":
+            key = "f32" if case == "float32" else f"f32_{case}"
+            out[f"max_abs_err_{key}"] = rs[i]["err"]
+            out[f"rel_err_{key}"] = rs[i]["rel"]
+    return out
+
+
+def backward_kernels(torch, timer) -> dict:
+    """The four backward kernels against the plain backward versions at the
+    train path's shapes (exanode-100m, batch 8 x 512: attention q in the
+    model's [B,S,H,D] -> [B,H,S,D] view, FFN rows 4096), f32 and bf16;
+    attention also ragged with a window and at llama3.2-3b's 24 / 8 heads
+    of dim 128, the FFN at llama3.2-3b's widths, both f32.  Times in bf16.
+    The plain versions and the library yardsticks compute all of a pair's
+    grads in one call, so each pair's two rows share those times."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ffn
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    def attn(B, S, H, KV, D):
+        return (randn(B, S, H, D).transpose(1, 2),
+                randn(B, S, KV, D).transpose(1, 2),
+                randn(B, S, KV, D).transpose(1, 2),
+                randn(B, S, H, D).transpose(1, 2))
+
+    def attn_errs(q, k, v, do, dt: str, what: str, causal=True, window=0):
+        kw = dict(causal=causal, window=window)
+        o, lse = fa.flash_attention(q, k, v, **kw)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        wq, wk, wv = ref.ref_attention_bwd(q, k, v, o, lse, do, **kw)
+        return (check_grad(fa.NAME_BWD_DQ, dq, wq, dt, what),
+                worst(check_grad(fa.NAME_BWD_DKV, dk, wk, dt, what + " dk"),
+                      check_grad(fa.NAME_BWD_DKV, dv, wv, dt, what + " dv")))
+
+    B, S, H, KV, D = 8, 512, 12, 4, 64
+    base = attn(B, S, H, KV, D)
+    errs = {}
+    for dt in (f32, bf16):
+        name = str(dt).split(".")[1]
+        errs[name] = attn_errs(*(t.to(dt) for t in base), name, "causal")
+    errs["ragged"] = attn_errs(*(t[:, :, :500] for t in base), "float32",
+                               "S=500 window=128", window=128)
+    errs["d128"] = attn_errs(*attn(2, 512, 24, 8, 128), "float32",
+                             "24/8 heads of dim 128")
+    q, k, v, do = (t.to(bf16) for t in base)
+    o, lse = fa.flash_attention(q, k, v, causal=True)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    pairs = B * H * S * (S + 1) / 2                 # causal pairs only
+    stats = B * H * S * 4                           # one f32 per row
+    plain_ms = timer.ms(lambda: ref.ref_attention_bwd(q, k, v, o, lse, do))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                        enable_gqa=True)
+    library_ms = timer.ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), do, retain_graph=True))
+    shape = (f"q/dO [{B},{H},{S},{D}] k/v [{B},{KV},{S},{D}] causal bf16, "
+             f"q/k/v/dO strided [B,S,H,D] views")
+    common = dict(plain_ms=plain_ms, library_ms=library_ms,
+                  plain="ref_attention_bwd (dq, dk, dv in one call)",
+                  library="backward of torch.nn.functional."
+                          "scaled_dot_product_attention with enable_gqa "
+                          "(dq, dk, dv in one call)")
+    out = {}
+    for i, (name, fn, nb, flops) in enumerate((
+            (fa.NAME_BWD_DQ,
+             lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do),
+             nbytes(q, k, v, o, do, q) + 2 * stats, 6 * D * pairs),
+            (fa.NAME_BWD_DKV,
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+             nbytes(q, k, v, do, k, v) + 2 * stats, 8 * D * pairs))):
+        b_ms, b_by = bound(nb, flops, "bfloat16")
+        out[name] = dict(
+            shape=shape, **grad_errs(errs, i), ms=timer.ms(fn),
+            bound_ms=b_ms, bound_by=b_by, **common)
+
+    N, D, Fd = 4096, 768, 2048
+
+    def ffn_args(N, D, Fd):
+        return [randn(N, D), randn(D, Fd, scale=D ** -0.5),
+                randn(D, Fd, scale=D ** -0.5), randn(Fd, D, scale=Fd ** -0.5),
+                randn(N, D)]
+
+    def ffn_errs(args, dt: str, what: str):
+        want = ref.ref_swiglu_ffn_bwd(*args)
+        dws = ffn.swiglu_ffn_bwd_dw(*args)
+        tol = dw_tol(args[0].shape[0], dt)
+        return (check_grad(ffn.NAME_BWD_DX, ffn.swiglu_ffn_bwd_dx(*args),
+                           want[0], dt, what),
+                worst(*(check_grad(ffn.NAME_BWD_DW, g, w, dt, what, tol)
+                        for g, w in zip(dws, want[1:]))))
+
+    base = ffn_args(N, D, Fd)
+    errs = {str(dt).split(".")[1]: ffn_errs([t.to(dt) for t in base],
+                                           str(dt).split(".")[1],
+                                           f"N={N}")
+            for dt in (f32, bf16)}
+    errs["wide"] = ffn_errs(ffn_args(256, 3072, 8192), "float32",
+                            "llama3.2-3b widths D=3072 F=8192, N=256")
+    x, wg, wu, wd, dy = (t.to(bf16) for t in base)
+
+    def hidden():
+        g, u, dh = x @ wg, x @ wu, dy @ wd.t()
+        sg = torch.sigmoid(g)
+        return g * sg, dh * g * sg, dh * u * (sg + g * sg * (1 - sg)), u
+
+    def lib_dx():
+        _, du, dg, _ = hidden()
+        return dg @ wg.t() + du @ wu.t()
+
+    def lib_dw():
+        silu, du, dg, u = hidden()
+        return x.t() @ dg, x.t() @ du, (silu * u).t() @ dy
+
+    plain_ms = timer.ms(lambda: ref.ref_swiglu_ffn_bwd(x, wg, wu, wd, dy))
+    shape = f"x/dy [{N},{D}] Wg/Wu [{D},{Fd}] Wd [{Fd},{D}] bf16"
+    ins = nbytes(x, wg, wu, wd, dy)
+    for i, (name, fn, nb, products, lib, libname) in enumerate((
+            (ffn.NAME_BWD_DX, lambda: ffn.swiglu_ffn_bwd_dx(x, wg, wu, wd, dy),
+             ins + nbytes(x), 5, lib_dx,
+             "five torch.matmul (g, u, dh recomputed; dg·Wgᵀ + du·Wuᵀ) + "
+             "the gate's elementwise ops"),
+            (ffn.NAME_BWD_DW, lambda: ffn.swiglu_ffn_bwd_dw(x, wg, wu, wd, dy),
+             ins + nbytes(wg, wu, wd), 6, lib_dw,
+             "six torch.matmul (g, u, dh recomputed; xᵀdg, xᵀdu, hᵀdy) + "
+             "the gate's elementwise ops"))):
+        b_ms, b_by = bound(nb, products * 2 * N * D * Fd, "bfloat16")
+        out[name] = dict(
+            shape=shape, **grad_errs(errs, i), ms=timer.ms(fn),
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=timer.ms(lib), plain="ref_swiglu_ffn_bwd (dx, dWg, "
+            "dWu, dWd in one call)", library=libname,
+            flops_counted=f"{products} products of 2·N·D·F")
+    return out
+
+
+def train_phase(torch, gpu: str) -> tuple[str, dict]:
+    """Full-width training: an f32 step's loss and grads on the card
+    against the CPU, then the bf16 training run with the launch counters
+    zeroed just before and read just after."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.models.registry import model_specs
+    from repro_torch.train.steps import value_and_grad
+    cfg = get_config("exanode-100m").scaled(dtype=torch.float32)
+    cpu_params = init_params(model_specs(cfg), seed=0)
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, 512, 2), 0)
+    res = {dev: value_and_grad(tree_map(lambda t: t.to(dev), cpu_params),
+                               to_device(batch, dev), cfg)
+           for dev in ("cpu", "cuda")}
+    loss_err = abs(float(res["cuda"][0]) - float(res["cpu"][0]))
+    failed = []
+    if not loss_err <= TRAIN_LOSS_TOL * (1 + abs(float(res["cpu"][0]))):
+        failed.append(f"f32 loss differs by {loss_err:.3g}")
+    grad_err = grad_rel = 0.0
+    for g, w in zip(tree_leaves(res["cuda"][2]), tree_leaves(res["cpu"][2])):
+        diff = (g.cpu() - w).abs()
+        rel = rel_err(g.cpu(), w)
+        grad_err = max(grad_err, float(diff.max()))
+        grad_rel = max(grad_rel, rel)
+        if not bool((diff <= TRAIN_GRAD_TOL * (1 + w.abs())).all()):
+            failed.append(f"f32 grad leaf {tuple(w.shape)} max abs err "
+                          f"{float(diff.max()):.3g}")
+        if not rel <= TRAIN_GRAD_REL_TOL:
+            failed.append(f"f32 grad leaf {tuple(w.shape)} ||err|| / "
+                          f"||grad|| {rel:.3g}")
+    del res
+
+    steps, B, S = 20, 8, 512
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    _, hist = train_loop("exanode-100m", steps=steps, global_batch=B,
+                         seq_len=S)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    p50 = float(np.median([h["seconds"] for h in hist]))
+    drop = float(np.mean(losses[:5]) - np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)):
+        failed.append("non-finite loss")
+    if not drop > TRAIN_LOSS_DROP:
+        failed.append(f"loss fell by {drop:.4f}, not more than "
+                      f"{TRAIN_LOSS_DROP}")
+    missing = [n for n in TRAIN_KERNELS if not launches[n]]
+    if missing:
+        failed.append(f"kernels of the train path never launched: {missing}")
+    line = (f"train: exanode-100m f32, batch 2 x 512: loss err "
+            f"{loss_err:.3g}, max abs grad err {grad_err:.3g}, largest "
+            f"leaf ||err|| / ||grad|| {grad_rel:.3g} (tol loss "
+            f"{TRAIN_LOSS_TOL}, grads {TRAIN_GRAD_TOL} atol + rtol and "
+            f"{TRAIN_GRAD_REL_TOL} relative per leaf); bf16 "
+            f"activations, f32 params, global batch {B} x {S}, {steps} "
+            f"cosine steps: losses {[round(x, 4) for x in losses]}; first-5 "
+            f"minus last-5 mean {drop:.4f} (gate {TRAIN_LOSS_DROP}); step "
+            f"p50 {p50 * 1e3:.1f} ms, {B * S / p50:.0f} tokens/s; peak "
+            f"memory {peak / 2**30:.3f} GiB; launches {launches} "
+            f"({steps} steps) [{gpu}]")
+    if failed:
+        raise AssertionError(line + "\ntrain phase failed: "
+                             + "; ".join(failed))
+    return line, {n: launches[n] for n in TRAIN_KERNELS}
+
+
+# kernel-name substrings -> the groups of the train profile
+PROFILE_GROUPS = (
+    ("flash_attention (fwd)", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("fused_ffn (fwd)", ("ffn_fwd_kernel", "ffn_reduce_kernel")),
+    ("fused_ffn_bwd_dx", ("ffn_bwd_dx_kernel",)),
+    ("fused_ffn_bwd_dw", ("ffn_bwd_dw_kernel", "ffn_dw_reduce_kernel")),
+    ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
+)
+
+
+def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
+    """``torch.profiler`` over ``steps`` bf16 train
+    steps (exanode-100m, batch 8 x 512, after one warm-up step): the
+    device time of each kernel group per step, its share of the device
+    time, and the device's idle share of the window (1 - device time /
+    host wall time; one stream, so kernels do not overlap).  Device time
+    sums the trace's device events (kernels, copies, sets) but its user
+    annotations: a trace may hold device-side copies of those (the
+    autograd Functions' names), which span the kernels they enclose and
+    would count them twice.  A device time above the wall time raises."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
+    from repro_torch.runtime import Runtime
+    rt = Runtime.create("exanode-100m", shape_kind="train", seq_len=512)
+    dcfg = DataConfig(rt.cfg.vocab_size, 512, 8)
+    batches = [to_device(synthetic_batch(dcfg, i), "cuda")
+               for i in range(steps + 1)]
+    state, _ = rt.train_step(rt.init_train_state(), batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, _ = rt.train_step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    per = {}           # kernel name -> device microseconds in the window
+    notes = 0.0        # device-side annotations' microseconds, left out
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        us = ev.duration_ns() / 1e3
+        if not ev.is_user_annotation():
+            per[ev.name()] = per.get(ev.name(), 0) + us
+        else:
+            notes += us
+    total = sum(per.values())
+    if not total:
+        raise AssertionError("train_profile: the profiler recorded no "
+                             "device time")
+    if total / 1e6 > wall:
+        raise AssertionError(f"train_profile: device time {total / 1e3:.1f}"
+                             f" ms exceeds the wall time "
+                             f"{wall * 1e3:.1f} ms: {sorted(per)}")
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["other"] = 0.0
+    for key, us in per.items():
+        name = next((n for n, subs in PROFILE_GROUPS
+                     if any(x in key for x in subs)), "other")
+        groups[name] += us
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    return (f"train_profile: exanode-100m bf16 batch 8 x 512, {steps} "
+            f"steps after one warm-up: wall {wall / steps * 1e3:.1f} ms a "
+            f"step, device time {total / steps / 1e3:.1f} ms a step,"
+            f" idle share {1 - total / 1e6 / wall:.4f} (device-side "
+            f"annotations left out: {notes / steps / 1e3:.1f} ms a step); "
+            f"per step "
+            f"by group: " + "; ".join(
+                f"{n} {us / steps / 1e3:.2f} ms ({us / total:.4f})"
+                for n, us in groups.items())
+            + "; top kernels: " + "; ".join(
+                f"{k[:60]} {us / steps / 1e3:.2f} ms" for k, us in top)
+            + f" [{gpu}]")
 
 
 def model_phase(torch) -> str:
@@ -712,21 +1105,23 @@ def main() -> int:
             flush=True)
     if "model" in phases:
         print(model_phase(torch), flush=True)
-    launches = {}
-    if "serve" in phases:
-        line, serve_launches = serve_phase(torch, gpu)
-        launches.update(serve_launches)
-        print(line, flush=True)
-    if "paged" in phases:
-        line, paged_launches = paged_phase(torch, gpu)
-        launches.update(paged_launches)
-        print(line, flush=True)
+    by_path = {}       # path -> that run's launch counts
+    for path, run in (("serve", serve_phase), ("paged", paged_phase),
+                      ("train", train_phase)):
+        if path in phases:
+            line, by_path[path] = run(torch, gpu)
+            print(line, flush=True)
     if "int8_cpu" in phases:
         print(int8_cpu_phase(torch, gpu), flush=True)
+    if "train_profile" in phases:
+        print(train_profile_phase(torch, gpu), flush=True)
     if entries:
         print(json.dumps({"kernels": [
             dict(name=n, route="cuda", source=SOURCES[n][0],
-                 replaces=SOURCES[n][1], launches=launches.get(n),
+                 replaces=SOURCES[n][1],
+                 launches=sum(c.get(n, 0) for c in by_path.values()),
+                 launches_by_path={p: c[n] for p, c in by_path.items()
+                                   if n in c},
                  kernel_ms=e["ms"], gpu=gpu, **e)
             for n, e in entries.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

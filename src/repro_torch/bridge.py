@@ -7,6 +7,8 @@ wo [L,H,Dh,D]}``, ``norm2`` and ``ffn.{wi_gate, wi_up, wo}``).  So the
 bridge is a leaf-by-leaf conversion of numpy arrays, e.g. of
 ``jax.tree.map(np.asarray, repro.models.common.init_params(specs, key))``,
 with shapes checked against the port's own specs when a config is given.
+``opt_state_from_reference`` carries an AdamW state across the same way
+(moments, step count and, with bf16 params, the f32 master copy).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.models.common import ModelConfig, tree_map
 from repro_torch.models.registry import model_specs
+from repro_torch.optim.adamw import OptState
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -43,3 +46,15 @@ def params_from_reference(tree, cfg: Optional[ModelConfig] = None, *,
                              f"specs for {cfg.name!r}: got {got}, want "
                              f"{want}")
     return params
+
+
+def opt_state_from_reference(opt, cfg: Optional[ModelConfig] = None, *,
+                             device="cpu") -> OptState:
+    """The reference's ``OptState`` (numpy or jax leaves: mu, nu, count,
+    master or ``()``) -> the port's, on ``device``."""
+    return OptState(
+        mu=params_from_reference(opt.mu, cfg, device=device),
+        nu=params_from_reference(opt.nu, cfg, device=device),
+        count=int(np.asarray(opt.count)),
+        master=(() if opt.master == () else
+                params_from_reference(opt.master, cfg, device=device)))

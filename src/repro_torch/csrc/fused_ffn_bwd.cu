@@ -1,0 +1,409 @@
+// Fused SwiGLU FFN backward for Hopper, sm_90a: two kernels (+ a reduce).
+//
+// Replaces: src/repro/kernels/fused_ffn.py:108 _bwd_dx_kernel and :131
+// _bwd_dw_kernel (both reached through _backward:159, pallas_calls at :164
+// and :181; wired by the custom_vjp _swiglu_bwd:222).
+//
+// With g = x·Wg, u = x·Wu, σ = logistic(g), h = g·σ·u and dh = dy·Wdᵀ:
+//   du = dh·g·σ,   dg = dh·u·(σ + g·σ·(1 − σ)),
+//   dX = dg·Wgᵀ + du·Wuᵀ,  dWg = xᵀ·dg,  dWu = xᵀ·du,  dWd = hᵀ·dy.
+// Neither kernel stores anything [N,F]-shaped: each recomputes the
+// (g, u, dh) tile it needs from x, the weights and dy, as the TPU kernels
+// do.
+//
+// What bounds it on this card: at training row counts the products are
+// O(N*D*F) operations against O((N+F)*D) bytes, so both kernels are bound
+// by operations (five [N,D]x[D,F]-sized products in the dx kernel, six in
+// the dw kernel).  This first version runs them as f32 FMAs on the CUDA
+// cores (tensor cores, wgmma, are for a later version).
+//
+// What the design does about it:
+// * dx kernel: one block owns BR rows, staged once in shared memory as f32,
+//   and walks F in 32-wide tiles (the forward's layout): each lane one F
+//   column, each warp BR/8 rows, it recomputes g, u and dh for the tile,
+//   parks dg and du in shared memory and folds dg·Wgᵀ + du·Wuᵀ into an f32
+//   [BR,D] accumulator in shared memory.  The TPU grid walked F in order
+//   with a VMEM accumulator; here the walk is a loop inside the block.
+// * dw kernel: one block owns a BF-wide tile of F (BF <= 16, chosen so the
+//   three f32 weight-gradient tiles [D,BF], [D,BF], [BF,D] fit in shared
+//   memory) and a range of rows, walked in chunks: for each chunk it
+//   recomputes the (h, dg, du) tile into shared memory (each thread one F
+//   column of two rows), then each thread takes D columns and adds the
+//   chunk's xᵀ·dg, xᵀ·du and hᵀ·dy for them in registers before adding
+//   them to the shared accumulators.  The TPU grid walked the rows in order
+//   with VMEM accumulators.  When the F tiles alone would leave SMs idle,
+//   the rows are split across blocks that write f32 partials to a
+//   [splits, 3, D*F] workspace, and a second small kernel adds the splits
+//   in order (deterministic, no atomics), as the forward's split-F scheme.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBF = 32;        // dx kernel's F tile: one column per lane
+
+__device__ __forceinline__ void swiglu_grads(float g, float u, float dh,
+                                             float* h, float* dg, float* du) {
+  const float sg = 1.f / (1.f + expf(-g));
+  const float silu = g * sg;
+  *h = silu * u;
+  *du = dh * silu;
+  *dg = dh * u * (sg + g * sg * (1.f - sg));
+}
+
+template <typename T, int BR>
+__global__ void __launch_bounds__(kThreads)
+ffn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wg,
+                  const T* __restrict__ wu, const T* __restrict__ wd,
+                  const T* __restrict__ dy, T* __restrict__ dx, int N, int D,
+                  int F) {
+  constexpr int RPW = BR / 8;  // rows per warp
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;               // [BR][D]
+  float* acc = xs + BR * D;       // [BR][D]
+  float* dgs = acc + BR * D;      // [BR][kBF]
+  float* dus = dgs + BR * kBF;    // [BR][kBF]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * BR;
+  for (int i = tid; i < BR * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    xs[i] = row0 + r < N ? to_f32(x[(int64_t)(row0 + r) * D + d]) : 0.f;
+    acc[i] = 0.f;
+  }
+  __syncthreads();
+
+  for (int f0 = 0; f0 < F; f0 += kBF) {
+    const int f = f0 + lane;
+    float g[RPW], u[RPW], dh[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) g[i] = u[i] = dh[i] = 0.f;
+    if (f < F) {
+      const T* pg = wg + f;
+      const T* pu = wu + f;
+      const T* pd = wd + (int64_t)f * D;
+      for (int d = 0; d < D; d += 4) {  // D % 4 == 0 (checked by the wrapper)
+        float a[4], b[4], c[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[e] = to_f32(pg[(int64_t)(d + e) * F]);
+          b[e] = to_f32(pu[(int64_t)(d + e) * F]);
+          c[e] = to_f32(pd[d + e]);
+        }
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) {
+          const int r = warp * RPW + i;
+          const float4 xv = *reinterpret_cast<const float4*>(xs + r * D + d);
+          float yv[4] = {0.f, 0.f, 0.f, 0.f};
+          if (row0 + r < N) {
+            const T* py = dy + (int64_t)(row0 + r) * D + d;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) yv[e] = to_f32(py[e]);
+          }
+          g[i] = fmaf(xv.x, a[0], g[i]); u[i] = fmaf(xv.x, b[0], u[i]);
+          g[i] = fmaf(xv.y, a[1], g[i]); u[i] = fmaf(xv.y, b[1], u[i]);
+          g[i] = fmaf(xv.z, a[2], g[i]); u[i] = fmaf(xv.z, b[2], u[i]);
+          g[i] = fmaf(xv.w, a[3], g[i]); u[i] = fmaf(xv.w, b[3], u[i]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dh[i] = fmaf(yv[e], c[e], dh[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      float h, dg = 0.f, du = 0.f;
+      if (f < F) swiglu_grads(g[i], u[i], dh[i], &h, &dg, &du);
+      dgs[(warp * RPW + i) * kBF + lane] = dg;
+      dus[(warp * RPW + i) * kBF + lane] = du;
+    }
+    __syncthreads();
+
+    // fold dg·Wgᵀ + du·Wuᵀ into the accumulator: thread -> columns d
+    const int nf = min(kBF, F - f0);
+    for (int d = tid; d < D; d += kThreads) {
+      float a[kBF], b[kBF];
+      const T* pg = wg + (int64_t)d * F + f0;
+      const T* pu = wu + (int64_t)d * F + f0;
+#pragma unroll
+      for (int j = 0; j < kBF; ++j) {
+        a[j] = j < nf ? to_f32(pg[j]) : 0.f;
+        b[j] = j < nf ? to_f32(pu[j]) : 0.f;
+      }
+#pragma unroll 2
+      for (int r = 0; r < BR; ++r) {
+        const float4* g4 = reinterpret_cast<const float4*>(dgs + r * kBF);
+        const float4* u4 = reinterpret_cast<const float4*>(dus + r * kBF);
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBF / 4; ++j) {
+          const float4 gv = g4[j], uv = u4[j];
+          s = fmaf(gv.x, a[4 * j], s);     s = fmaf(uv.x, b[4 * j], s);
+          s = fmaf(gv.y, a[4 * j + 1], s); s = fmaf(uv.y, b[4 * j + 1], s);
+          s = fmaf(gv.z, a[4 * j + 2], s); s = fmaf(uv.z, b[4 * j + 2], s);
+          s = fmaf(gv.w, a[4 * j + 3], s); s = fmaf(uv.w, b[4 * j + 3], s);
+        }
+        acc[r * D + d] += s;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < BR * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    if (row0 + r < N) dx[(int64_t)(row0 + r) * D + d] = from_f32<T>(acc[i]);
+  }
+}
+
+// dw kernel: rows per chunk, so that each thread recomputes 2 rows x 1
+// column of the [RC, BF] hidden tile.
+template <int BF>
+__host__ __device__ constexpr int rows_per_chunk() {
+  return 2 * kThreads / BF;
+}
+
+template <typename T, int BF>
+__global__ void __launch_bounds__(kThreads)
+ffn_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ wg,
+                  const T* __restrict__ wu, const T* __restrict__ wd,
+                  const T* __restrict__ dy, T* __restrict__ dwg,
+                  T* __restrict__ dwu, T* __restrict__ dwd,
+                  float* __restrict__ ws, int N, int D, int F,
+                  int rows_per_split, int splits) {
+  constexpr int RC = rows_per_chunk<BF>();
+  extern __shared__ __align__(16) float smem[];
+  float* ag = smem;               // dWg tile [D][BF]
+  float* au = ag + D * BF;        // dWu tile [D][BF]
+  float* ad = au + D * BF;        // dWd tile [BF][D]
+  float* hs = ad + BF * D;        // [RC][BF]
+  float* dgs = hs + RC * BF;      // [RC][BF]
+  float* dus = dgs + RC * BF;     // [RC][BF]
+
+  const int tid = threadIdx.x;
+  const int f0 = blockIdx.x * BF;
+  const int nf = min(BF, F - f0);
+  const int split = blockIdx.y;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(N, r_begin + rows_per_split);
+  for (int i = tid; i < 3 * D * BF; i += kThreads) ag[i] = 0.f;
+
+  // phase-1 role: column j of rows 2*rg, 2*rg + 1 of each chunk
+  const int j = tid % BF, rg = tid / BF;
+  const int f = f0 + j;
+
+  for (int c0 = r_begin; c0 < r_end; c0 += RC) {
+    __syncthreads();  // previous chunk's tiles consumed
+    {
+      float g[2] = {0.f, 0.f}, u[2] = {0.f, 0.f}, dh[2] = {0.f, 0.f};
+      const int ra = c0 + 2 * rg;
+      const bool ok0 = j < nf && ra < r_end, ok1 = j < nf && ra + 1 < r_end;
+      if (ok0) {
+        const T* x0 = x + (int64_t)ra * D;
+        const T* y0 = dy + (int64_t)ra * D;
+        const T* pd = wd + (int64_t)f * D;
+        for (int d = 0; d < D; d += 4) {  // D % 4 == 0
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float a = to_f32(wg[(int64_t)(d + e) * F + f]);
+            const float b = to_f32(wu[(int64_t)(d + e) * F + f]);
+            const float c = to_f32(pd[d + e]);
+            const float xv0 = to_f32(x0[d + e]), yv0 = to_f32(y0[d + e]);
+            g[0] = fmaf(xv0, a, g[0]);
+            u[0] = fmaf(xv0, b, u[0]);
+            dh[0] = fmaf(yv0, c, dh[0]);
+            if (ok1) {
+              const float xv1 = to_f32(x0[D + d + e]);
+              const float yv1 = to_f32(y0[D + d + e]);
+              g[1] = fmaf(xv1, a, g[1]);
+              u[1] = fmaf(xv1, b, u[1]);
+              dh[1] = fmaf(yv1, c, dh[1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float h = 0.f, dg = 0.f, du = 0.f;
+        if (i == 0 ? ok0 : ok1) swiglu_grads(g[i], u[i], dh[i], &h, &dg, &du);
+        const int r = 2 * rg + i;
+        hs[r * BF + j] = h;
+        dgs[r * BF + j] = dg;
+        dus[r * BF + j] = du;
+      }
+    }
+    __syncthreads();
+
+    // phase 2: thread -> column d of x/dy; the chunk's rows summed in
+    // registers, then added to the shared accumulators
+    const int nr = min(RC, r_end - c0);
+    for (int d = tid; d < D; d += kThreads) {
+      float sg[BF], su[BF], sd[BF];
+#pragma unroll
+      for (int t = 0; t < BF; ++t) sg[t] = su[t] = sd[t] = 0.f;
+      for (int r = 0; r < nr; ++r) {
+        const float xv = to_f32(x[(int64_t)(c0 + r) * D + d]);
+        const float yv = to_f32(dy[(int64_t)(c0 + r) * D + d]);
+#pragma unroll
+        for (int t = 0; t < BF; ++t) {
+          sg[t] = fmaf(xv, dgs[r * BF + t], sg[t]);
+          su[t] = fmaf(xv, dus[r * BF + t], su[t]);
+          sd[t] = fmaf(hs[r * BF + t], yv, sd[t]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < BF; ++t) {
+        ag[d * BF + t] += sg[t];
+        au[d * BF + t] += su[t];
+        ad[t * D + d] += sd[t];
+      }
+    }
+  }
+  __syncthreads();
+
+  // write the tiles: dWg/dWu [D,F] columns f0.., dWd [F,D] rows f0..
+  const int64_t DF = (int64_t)D * F;
+  for (int i = tid; i < D * BF; i += kThreads) {
+    const int d = i / BF, t = i % BF;
+    if (t >= nf) continue;
+    const int64_t gi = (int64_t)d * F + f0 + t;
+    if (splits == 1) {
+      dwg[gi] = from_f32<T>(ag[i]);
+      dwu[gi] = from_f32<T>(au[i]);
+    } else {
+      ws[(int64_t)split * 3 * DF + gi] = ag[i];
+      ws[(int64_t)split * 3 * DF + DF + gi] = au[i];
+    }
+  }
+  for (int i = tid; i < BF * D; i += kThreads) {
+    const int t = i / D, d = i % D;
+    if (t >= nf) continue;
+    const int64_t gi = (int64_t)(f0 + t) * D + d;
+    if (splits == 1)
+      dwd[gi] = from_f32<T>(ad[i]);
+    else
+      ws[(int64_t)split * 3 * DF + 2 * DF + gi] = ad[i];
+  }
+}
+
+// The three weight gradients = the sum over splits of the workspace, in
+// split order.
+template <typename T>
+__global__ void ffn_dw_reduce_kernel(const float* __restrict__ ws,
+                                     T* __restrict__ dwg, T* __restrict__ dwu,
+                                     T* __restrict__ dwd, int64_t DF,
+                                     int splits) {
+  const int64_t n = 3 * DF;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < splits; ++k) s += ws[k * n + i];
+    T* out = i < DF ? dwg : (i < 2 * DF ? dwu : dwd);
+    out[i % DF] = from_f32<T>(s);
+  }
+}
+
+template <typename T, int BR>
+cudaError_t launch_dx(const void* x, const void* wg, const void* wu,
+                      const void* wd, const void* dy, void* dx, int N, int D,
+                      int F, cudaStream_t stream) {
+  auto kern = ffn_bwd_dx_kernel<T, BR>;
+  const int smem = (2 * BR * D + 2 * BR * kBF) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<(N + BR - 1) / BR, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wg),
+      static_cast<const T*>(wu), static_cast<const T*>(wd),
+      static_cast<const T*>(dy), static_cast<T*>(dx), N, D, F);
+  return cudaGetLastError();
+}
+
+template <typename T, int BF>
+cudaError_t launch_dw(const void* x, const void* wg, const void* wu,
+                      const void* wd, const void* dy, void* dwg, void* dwu,
+                      void* dwd, float* ws, int N, int D, int F,
+                      int rows_per_split, int splits, cudaStream_t stream) {
+  auto kern = ffn_bwd_dw_kernel<T, BF>;
+  constexpr int RC = rows_per_chunk<BF>();
+  const int smem = (3 * D * BF + 3 * RC * BF) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((F + BF - 1) / BF, splits);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wg),
+      static_cast<const T*>(wu), static_cast<const T*>(wd),
+      static_cast<const T*>(dy), static_cast<T*>(dwg), static_cast<T*>(dwu),
+      static_cast<T*>(dwd), ws, N, D, F, rows_per_split, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t DF = (int64_t)D * F;
+  const int blocks = (int)std::min<int64_t>((3 * DF + 255) / 256, 2048);
+  ffn_dw_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
+      ws, static_cast<T*>(dwg), static_cast<T*>(dwu), static_cast<T*>(dwd),
+      DF, splits);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dx(int br, const void* x, const void* wg, const void* wu,
+                        const void* wd, const void* dy, void* dx, int N, int D,
+                        int F, cudaStream_t s) {
+  switch (br) {
+    case 8: return launch_dx<T, 8>(x, wg, wu, wd, dy, dx, N, D, F, s);
+    case 16: return launch_dx<T, 16>(x, wg, wu, wd, dy, dx, N, D, F, s);
+    case 32: return launch_dx<T, 32>(x, wg, wu, wd, dy, dx, N, D, F, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_dw(int bf, const void* x, const void* wg, const void* wu,
+                        const void* wd, const void* dy, void* dwg, void* dwu,
+                        void* dwd, float* ws, int N, int D, int F, int rps,
+                        int splits, cudaStream_t s) {
+  switch (bf) {
+    case 1: return launch_dw<T, 1>(x, wg, wu, wd, dy, dwg, dwu, dwd, ws, N, D, F, rps, splits, s);
+    case 2: return launch_dw<T, 2>(x, wg, wu, wd, dy, dwg, dwu, dwd, ws, N, D, F, rps, splits, s);
+    case 4: return launch_dw<T, 4>(x, wg, wu, wd, dy, dwg, dwu, dwd, ws, N, D, F, rps, splits, s);
+    case 8: return launch_dw<T, 8>(x, wg, wu, wd, dy, dwg, dwu, dwd, ws, N, D, F, rps, splits, s);
+    case 16: return launch_dw<T, 16>(x, wg, wu, wd, dy, dwg, dwu, dwd, ws, N, D, F, rps, splits, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x, dy, dx [N,D]; wg/wu [D,F]; wd [F,D]; all contiguous.  br rows per
+// block (8, 16 or 32).
+extern "C" int repro_swiglu_ffn_bwd_dx(const void* x, const void* wg,
+                                       const void* wu, const void* wd,
+                                       const void* dy, void* dx, int N, int D,
+                                       int F, int br, int dtype,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return dispatch_dx<float>(br, x, wg, wu, wd, dy, dx, N, D, F, s);
+  if (dtype == kBF16)
+    return dispatch_dx<__nv_bfloat16>(br, x, wg, wu, wd, dy, dx, N, D, F, s);
+  return cudaErrorInvalidValue;
+}
+
+// dwg/dwu [D,F], dwd [F,D], contiguous; bf the F tile (1-16, a power of
+// two); rows_per_split a multiple of the chunk 512/bf; ws f32
+// [splits, 3, D*F] (unused when splits == 1).
+extern "C" int repro_swiglu_ffn_bwd_dw(const void* x, const void* wg,
+                                       const void* wu, const void* wd,
+                                       const void* dy, void* dwg, void* dwu,
+                                       void* dwd, float* ws, int N, int D,
+                                       int F, int bf, int rows_per_split,
+                                       int splits, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return dispatch_dw<float>(bf, x, wg, wu, wd, dy, dwg, dwu, dwd, ws, N, D,
+                              F, rows_per_split, splits, s);
+  if (dtype == kBF16)
+    return dispatch_dw<__nv_bfloat16>(bf, x, wg, wu, wd, dy, dwg, dwu, dwd,
+                                      ws, N, D, F, rows_per_split, splits, s);
+  return cudaErrorInvalidValue;
+}

@@ -23,8 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("flash_attention", "fused_ffn", "decode_attention",
-           "paged_attention")
+SOURCES = ("flash_attention", "flash_attention_bwd", "fused_ffn",
+           "fused_ffn_bwd", "decode_attention", "paged_attention")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -93,6 +93,8 @@ def build_all() -> float:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built first if needed)."""
+    if name not in SOURCES:
+        raise KeyError(f"no kernel source {name!r}; SOURCES: {SOURCES}")
     if name not in _libs:
         if not lib_path(name).exists():
             build_all()

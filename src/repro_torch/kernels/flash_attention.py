@@ -1,5 +1,6 @@
-"""Flash attention forward (prefill) on Hopper: the wrapper of
-``csrc/flash_attention.cu``.
+"""Flash attention on Hopper: the wrappers of ``csrc/flash_attention.cu``
+(forward: prefill and training) and ``csrc/flash_attention_bwd.cu``
+(backward: training).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:67``
 ``_attn_kernel`` (reached through ``_forward:112``).  One CUDA block per
@@ -12,8 +13,18 @@ fewer heads than Q (q head h reads kv head ``h // (H // Hkv)``), so GQA
 needs no materialized repeat.  Any q/k/v strides are accepted as long as
 the head dim is contiguous; ``out`` takes q's memory layout.
 
-The plain version is ``kernels.ref.ref_attention``; ``kernels.ops``
-dispatches between the two by device.
+The backward (:func:`flash_attention_bwd`) replaces the TPU kernels
+``repro/kernels/flash_attention.py:145`` ``_bwd_dq_kernel`` and ``:180``
+``_bwd_dkv_kernel`` (reached through ``_backward:224``): the dq kernel
+(one block per batch, head and 64-row q tile) also writes ``delta =
+rowsum(dO ⊙ O)`` for the dkv kernel (one block per batch, kv head and
+64-key tile, looping over the kv head's q heads, so grouped dK/dV are
+summed in f32 inside the block).  Both recompute ``p = exp(s − lse)`` from
+the forward's lse, with p = 0 where the forward masked.
+
+The plain versions are ``kernels.ref.ref_attention`` and
+``ref_attention_bwd``; ``kernels.ops`` dispatches between them and the
+kernels by device, the backward through ``ops.FlashAttention``.
 """
 from __future__ import annotations
 
@@ -25,11 +36,33 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "flash_attention"
+NAME_BWD_DQ = "flash_attention_bwd_dq"
+NAME_BWD_DKV = "flash_attention_bwd_dkv"
+BWD_LIB = "flash_attention_bwd"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)   # the backward's f32 tiles in smem
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 """Kernel launches since the last ``ops.reset_launch_counts()``."""
+launches_dq = 0
+"""Backward dq kernel launches (one per backward call)."""
+launches_dkv = 0
+"""Backward dkv kernel launches (one per backward call)."""
+
+
+@functools.cache
+def _bwd_entries():
+    lib = _build.library(BWD_LIB)
+    common = ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    dq = lib.repro_flash_attention_bwd_dq
+    dq.argtypes = [ctypes.c_void_p] * 8 + common
+    dq.restype = ctypes.c_int
+    dkv = lib.repro_flash_attention_bwd_dkv
+    dkv.argtypes = [ctypes.c_void_p] * 8 + common
+    dkv.restype = ctypes.c_int
+    return dq, dkv
 
 
 @functools.cache
@@ -87,3 +120,113 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(NAME, code, "flash_attention launch")
     launches += 1
     return out, lse
+
+
+def _check_bwd(q, k, v, rows: tuple, stats: tuple, what: str):
+    """Validate backward inputs: q and ``rows`` (out / dout) [B,H,S,D],
+    k/v [B,Hkv,T,D] in one dtype, ``stats`` (lse / delta) contiguous f32
+    [B,H,S], all on one CUDA device."""
+    ts = (q, k, v) + rows
+    if not all(t.is_cuda for t in ts + stats):
+        raise ValueError(f"{what} kernel takes CUDA tensors; "
+                         f"kernels.ops.FlashAttention dispatches CPU "
+                         f"tensors to the plain backward")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q [B,H,S,D], k/v [B,Hkv,T,D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (batch, head dim, head groups)")
+    if any(t.shape != q.shape for t in rows):
+        raise ValueError(f"{[tuple(t.shape) for t in rows]} must match q "
+                         f"{tuple(q.shape)}")
+    if any(tuple(t.shape) != (B, H, S) or t.dtype != torch.float32
+           or not t.is_contiguous() for t in stats):
+        raise ValueError(f"lse/delta must be contiguous f32 [B,H,S]; got "
+                         f"{[(t.dtype, tuple(t.shape)) for t in stats]}")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {BWD_HEAD_DIMS} (backward)")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"q/k/v/out/dout must share one dtype of "
+                         f"{list(DTYPES)}; got {[t.dtype for t in ts]}")
+    if len({t.device for t in ts + stats}) != 1:
+        raise ValueError(f"{what} inputs must be on one device")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError(f"{what} needs a contiguous head dim (stride 1)")
+    return B, H, Hkv, S, k.shape[2], D
+
+
+def _strides(*ts):
+    return (ctypes.c_int64 * 18)(*(x for t in ts for x in t.stride()[:3]))
+
+
+def _window(causal: bool, window: int) -> int:
+    if window < 0:
+        raise ValueError(f"negative window {window}")
+    return int(window) if causal else 0
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True,
+                           window: int = 0):
+    """Backward kernel #1 (replaces ``_bwd_dq_kernel``): q/out/dout
+    [B,H,S,D], k/v [B,Hkv,T,D] in one dtype, lse [B,H,S] f32, on one CUDA
+    device -> (dq in q's dtype and layout, delta = rowsum(dout ⊙ out)
+    [B,H,S] f32).  Strided inputs are taken as they are when their head
+    dim is contiguous."""
+    global launches_dq
+    B, H, Hkv, S, T, D = _check_bwd(q, k, v, (out, dout), (lse,),
+                                    NAME_BWD_DQ)
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = _bwd_entries()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, H, Hkv, S, T, D, _strides(q, k, v, out, dout, dq),
+            int(causal), _window(causal, window), DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(BWD_LIB, code, "flash_attention_bwd_dq launch")
+    launches_dq += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
+                            window: int = 0):
+    """Backward kernel #2 (replaces ``_bwd_dkv_kernel``): as
+    :func:`flash_attention_bwd_dq`, with its ``delta`` -> (dk, dv) in k's
+    and v's dtype and layouts, summed over each kv head's q heads."""
+    global launches_dkv
+    B, H, Hkv, S, T, D = _check_bwd(q, k, v, (dout,), (lse, delta),
+                                    NAME_BWD_DKV)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        code = _bwd_entries()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, Hkv, S, T, D, _strides(q, k, v, dout, dk, dv),
+            int(causal), _window(causal, window), DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(BWD_LIB, code, "flash_attention_bwd_dkv launch")
+    launches_dkv += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0):
+    """The backward of :func:`flash_attention` from its inputs, output and
+    lse residual: the dq kernel (which also writes delta), then the dkv
+    kernel -> (dq, dk, dv).  ``dout`` (whatever layout autograd hands
+    over) is made contiguous only when its head dim is not."""
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout,
+                                       causal=causal, window=window)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                     causal=causal, window=window)
+    return dq, dk, dv

@@ -1,4 +1,5 @@
-"""Fused SwiGLU FFN forward on Hopper: the wrapper of ``csrc/fused_ffn.cu``.
+"""Fused SwiGLU FFN on Hopper: the wrappers of ``csrc/fused_ffn.cu``
+(forward) and ``csrc/fused_ffn_bwd.cu`` (backward).
 
 Replaces the TPU kernel ``repro/kernels/fused_ffn.py:50`` ``_ffn_kernel``
 (reached through ``_forward:71``): ``y = (silu(x·Wg) ⊙ x·Wu)·Wd`` with the
@@ -11,8 +12,18 @@ across blocks that write f32 partial sums to a [splits, N, D] workspace,
 and a second small kernel adds them in split order — deterministic, no
 atomics.
 
-The plain version is ``kernels.ref.ref_swiglu_ffn``; ``kernels.ops``
-dispatches between the two by device.
+The backward (:func:`swiglu_ffn_bwd`) replaces the TPU kernels
+``repro/kernels/fused_ffn.py:108`` ``_bwd_dx_kernel`` and ``:131``
+``_bwd_dw_kernel`` (reached through ``_backward:159``).  Both recompute
+the (g, u, dh) tile they need from x, the weights and dy; nothing
+[N, F]-shaped is stored.  The dx kernel walks F per block of rows, as the
+forward; the dw kernel owns a narrow F tile (``plan_dw``) and walks rows,
+split across blocks into an f32 workspace added in order by a second
+kernel when the F tiles alone would leave SMs idle.
+
+The plain versions are ``kernels.ref.ref_swiglu_ffn`` and
+``ref_swiglu_ffn_bwd``; ``kernels.ops`` dispatches between them and the
+kernels by device, the backward through ``ops.SwiGLUFFN``.
 """
 from __future__ import annotations
 
@@ -24,14 +35,27 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "fused_ffn"
+NAME_BWD_DX = "fused_ffn_bwd_dx"
+NAME_BWD_DW = "fused_ffn_bwd_dw"
+BWD_LIB = "fused_ffn_bwd"
 BF = 32            # F tile width (csrc/fused_ffn.cu)
 SMEM_ROWS_X_D = 24576  # br * D: the f32 [br, D] rows + accumulator in smem
 MAX_D = SMEM_ROWS_X_D // 8
+# dw kernel: its three f32 weight-gradient tiles (12 * D * bf bytes) and
+# its [512/bf, bf] hidden tiles share one block's shared memory
+DW_SMEM_BYTES = 200 * 1024
+DW_TILES = (16, 8, 4, 2, 1)
+DW_CHUNK_X_BF = 512          # rows per chunk * bf (csrc/fused_ffn_bwd.cu)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 """Kernel launches since the last ``ops.reset_launch_counts()``: one per
 call, two when F is split (the partial-sum kernel and the reduce)."""
+launches_dx = 0
+"""Backward dx kernel launches (one per backward call)."""
+launches_dw = 0
+"""Backward dw kernel launches: one per backward call, two when the rows
+are split (the partial-sum kernel and the reduce)."""
 
 
 @functools.cache
@@ -46,6 +70,20 @@ def _entry():
 @functools.cache
 def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _bwd_entries():
+    lib = _build.library(BWD_LIB)
+    dx = lib.repro_swiglu_ffn_bwd_dx
+    dx.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    dx.restype = ctypes.c_int
+    dw = lib.repro_swiglu_ffn_bwd_dw
+    dw.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    dw.restype = ctypes.c_int
+    return dx, dw
 
 
 def plan(N: int, D: int, F: int, num_sms: int) -> tuple[int, int, int]:
@@ -67,16 +105,40 @@ def plan(N: int, D: int, F: int, num_sms: int) -> tuple[int, int, int]:
     return br, f_per_split, -(-F // f_per_split)
 
 
-def swiglu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-               w_down: torch.Tensor) -> torch.Tensor:
-    """x [N,D]; w_gate/w_up [D,F]; w_down [F,D], contiguous, on one CUDA
-    device, all f32 or all bf16 -> [N,D] in x's dtype."""
-    global launches
-    ts = (x, w_gate, w_up, w_down)
+def plan_dx(N: int, D: int) -> int:
+    """Rows per block of the dx kernel: 16 (two blocks' f32 rows and
+    accumulators fit one SM at D = 768), or 8 for few rows or wide D."""
+    return 16 if N > 8 and 16 * D <= SMEM_ROWS_X_D else 8
+
+
+def plan_dw(N: int, D: int, F: int, num_sms: int) -> tuple[int, int, int]:
+    """(F tile bf, rows per split, splits) of the dw kernel.
+
+    bf: the widest of 16, 8, ..., 1 whose three f32 [D, bf] gradient tiles
+    fit the block's shared memory.  The rows are split across blocks only
+    when the F tiles alone would leave more than half the SMs idle: then
+    into about one block per SM, each split a whole number of row chunks
+    (``512 // bf`` rows)."""
+    bf = next((b for b in DW_TILES
+               if 12 * D * b + 12 * DW_CHUNK_X_BF <= DW_SMEM_BYTES), None)
+    if bf is None:
+        raise ValueError(f"d_model {D} too wide for the dw kernel's "
+                         f"shared-memory tiles")
+    chunk = DW_CHUNK_X_BF // bf
+    chunks = -(-N // chunk)
+    f_tiles = -(-F // bf)
+    splits = 1 if 2 * f_tiles > num_sms else min(chunks,
+                                                -(-num_sms // f_tiles))
+    per_split = -(-chunks // splits)
+    return bf, per_split * chunk, -(-chunks // per_split)
+
+
+def _check(what: str, x, w_gate, w_up, w_down, *extra):
+    ts = (x, w_gate, w_up, w_down) + extra
     if not all(t.is_cuda for t in ts):
-        raise ValueError("fused_ffn kernel takes CUDA tensors; "
-                         "kernels.ops.swiglu_ffn dispatches CPU tensors to "
-                         "the plain version")
+        raise ValueError(f"{what} kernel takes CUDA tensors; "
+                         f"kernels.ops dispatches CPU tensors to the plain "
+                         f"version")
     if x.ndim != 2 or w_gate.ndim != 2:
         raise ValueError(f"expected x [N,D], w_gate [D,F]; got "
                          f"{tuple(x.shape)}, {tuple(w_gate.shape)}")
@@ -87,6 +149,9 @@ def swiglu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         raise ValueError(f"weights {tuple(w_gate.shape)}, "
                          f"{tuple(w_up.shape)}, {tuple(w_down.shape)} do not "
                          f"match x {tuple(x.shape)}")
+    if any(tuple(t.shape) != (N, D) for t in extra):
+        raise ValueError(f"dy {[tuple(t.shape) for t in extra]} does not "
+                         f"match x {tuple(x.shape)}")
     if N == 0 or F == 0 or not 0 < D <= MAX_D or D % 4:
         raise ValueError(f"unsupported FFN shape N={N} D={D} F={F} "
                          f"(0 < D <= {MAX_D}, D % 4 == 0)")
@@ -96,7 +161,70 @@ def swiglu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if len({t.device for t in ts}) != 1:
         raise ValueError("x and weights must be on one device")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("fused_ffn needs contiguous x and weights")
+        raise ValueError(f"{what} needs contiguous inputs")
+    return N, D, F
+
+
+def swiglu_ffn_bwd_dx(x: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, w_down: torch.Tensor,
+                      dy: torch.Tensor) -> torch.Tensor:
+    """Backward kernel #1 (replaces ``_bwd_dx_kernel``): x, dy [N,D];
+    w_gate/w_up [D,F]; w_down [F,D], contiguous, on one CUDA device, all
+    f32 or all bf16 -> dx [N,D] in x's dtype."""
+    global launches_dx
+    N, D, F = _check(NAME_BWD_DX, x, w_gate, w_up, w_down, dy)
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = _bwd_entries()[0](
+            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), dy.data_ptr(), dx.data_ptr(), N, D, F,
+            plan_dx(N, D), DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(BWD_LIB, code, "fused_ffn_bwd_dx launch")
+    launches_dx += 1
+    return dx
+
+
+def swiglu_ffn_bwd_dw(x: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, w_down: torch.Tensor,
+                      dy: torch.Tensor):
+    """Backward kernel #2 (replaces ``_bwd_dw_kernel``): as
+    :func:`swiglu_ffn_bwd_dx` -> (dw_gate, dw_up, dw_down) in the weights'
+    dtype; with the rows split (``plan_dw``) a second kernel adds the f32
+    partials in split order."""
+    global launches_dw
+    N, D, F = _check(NAME_BWD_DW, x, w_gate, w_up, w_down, dy)
+    bf, rows_per_split, splits = plan_dw(N, D, F,
+                                         _num_sms(x.device.index or 0))
+    dwg, dwu, dwd = (torch.empty_like(w) for w in (w_gate, w_up, w_down))
+    ws = (torch.empty((splits, 3, D * F), dtype=torch.float32,
+                      device=x.device) if splits > 1 else dwg)
+    with torch.cuda.device(x.device):
+        code = _bwd_entries()[1](
+            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), dy.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
+            dwd.data_ptr(), ws.data_ptr(), N, D, F, bf, rows_per_split,
+            splits, DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(BWD_LIB, code, "fused_ffn_bwd_dw launch")
+    launches_dw += 2 if splits > 1 else 1
+    return dwg, dwu, dwd
+
+
+def swiglu_ffn_bwd(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                   w_down: torch.Tensor, dy: torch.Tensor):
+    """The backward of :func:`swiglu_ffn`: the dx kernel, then the dw
+    kernel -> (dx, dw_gate, dw_up, dw_down)."""
+    return (swiglu_ffn_bwd_dx(x, w_gate, w_up, w_down, dy),
+            *swiglu_ffn_bwd_dw(x, w_gate, w_up, w_down, dy))
+
+
+def swiglu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor) -> torch.Tensor:
+    """x [N,D]; w_gate/w_up [D,F]; w_down [F,D], contiguous, on one CUDA
+    device, all f32 or all bf16 -> [N,D] in x's dtype."""
+    global launches
+    N, D, F = _check("fused_ffn", x, w_gate, w_up, w_down)
     br, f_per_split, splits = plan(N, D, F, _num_sms(x.device.index or 0))
     out = torch.empty_like(x)
     ws = (torch.empty((splits, N, D), dtype=torch.float32, device=x.device)

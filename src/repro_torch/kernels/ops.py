@@ -6,8 +6,21 @@ switch and no fallback: a CUDA tensor the kernel does not take raises.
 Every kernel wrapper counts its own launches (a plain int on its module);
 ``launch_counts`` reads them and ``reset_launch_counts`` zeroes them, so a
 run can show that its main path went through the kernels.
+
+The two differentiable ops, ``flash_attention`` and ``swiglu_ffn``, are
+``torch.autograd.Function``s (``FlashAttention``, ``SwiGLUFFN``) in place
+of the reference's ``jax.custom_vjp``: their forward and backward both
+dispatch by device, to the forward and backward kernels on the card and to
+the plain forward and backward (``ref_attention_bwd``,
+``ref_swiglu_ffn_bwd``) on the CPU.  As in the reference, flash attention
+saves (q, k, v, out, lse) and the FFN (x, w_gate, w_up, w_down): nothing
+[S, T]- or [N, F]-shaped.  Without grad (serving) they are the plain
+forward calls they were: the Functions are entered only when an input
+needs a gradient.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -18,7 +31,11 @@ from repro_torch.kernels import ref
 # kernel name -> (wrapper module, its launch counter attribute)
 KERNELS = {_fa.NAME: (_fa, "launches"), _ffn.NAME: (_ffn, "launches"),
            _da.NAME: (_da, "launches"), _pa.NAME: (_pa, "launches"),
-           _pa.NAME_Q8: (_pa, "launches_q8")}
+           _pa.NAME_Q8: (_pa, "launches_q8"),
+           _fa.NAME_BWD_DQ: (_fa, "launches_dq"),
+           _fa.NAME_BWD_DKV: (_fa, "launches_dkv"),
+           _ffn.NAME_BWD_DX: (_ffn, "launches_dx"),
+           _ffn.NAME_BWD_DW: (_ffn, "launches_dw")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -31,18 +48,81 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q [B,H,S,D]; k/v [B,Hkv,T,D] -> (out [B,H,S,D], lse [B,H,S])."""
+def _flash_fwd(q, k, v, causal: bool, window: int):
     if q.device.type == "cpu":
         return ref.ref_attention(q, k, v, causal=causal, window=window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
-def swiglu_ffn(x, w_gate, w_up, w_down):
-    """x [N,D]; w_gate/w_up [D,F]; w_down [F,D] -> [N,D]."""
+def _ffn_fwd(x, w_gate, w_up, w_down):
     if x.device.type == "cpu":
         return ref.ref_swiglu_ffn(x, w_gate, w_up, w_down)
     return _ffn.swiglu_ffn(x, w_gate, w_up, w_down)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its flash backward (the reference's
+    ``_flash`` custom_vjp).  ``lse`` is an output the backward reads, not
+    a differentiable one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _flash_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = ref.ref_attention_bwd(q, k, v, out, lse, dout,
+                                          causal=ctx.causal,
+                                          window=ctx.window)
+        else:
+            grads = _fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                            causal=ctx.causal,
+                                            window=ctx.window)
+        return (*grads, None, None)
+
+
+class SwiGLUFFN(torch.autograd.Function):
+    """Fused SwiGLU FFN with its recomputing backward (the reference's
+    ``_swiglu`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        return _ffn_fwd(x, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_gate, w_up, w_down = ctx.saved_tensors
+        dy = dy.contiguous()
+        if x.device.type == "cpu":
+            return ref.ref_swiglu_ffn_bwd(x, w_gate, w_up, w_down, dy)
+        return _ffn.swiglu_ffn_bwd(x, w_gate, w_up, w_down, dy)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,H,S,D]; k/v [B,Hkv,T,D] -> (out [B,H,S,D], lse [B,H,S]);
+    differentiable in q, k and v."""
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _flash_fwd(q, k, v, causal, window)
+
+
+def swiglu_ffn(x, w_gate, w_up, w_down):
+    """x [N,D]; w_gate/w_up [D,F]; w_down [F,D] -> [N,D]; differentiable
+    in all four."""
+    if _needs_grad(x, w_gate, w_up, w_down):
+        return SwiGLUFFN.apply(x, w_gate, w_up, w_down)
+    return _ffn_fwd(x, w_gate, w_up, w_down)
 
 
 def decode_attention(q, k, v, kv_pos, pos, *, window: int = 0):

@@ -4,7 +4,10 @@
 Each ``ref_*`` computes the same function as its Hopper kernel with plain
 tensor ops, in f32, and casts the result to the input dtype.  The kernel
 wrappers run these on CPU tensors; ``chip_smoke.py`` and the CUDA tests
-hold each kernel against them on the card.
+hold each kernel against them on the card.  The backward versions
+(``ref_attention_bwd``, ``ref_swiglu_ffn_bwd``) are written out as
+formulas, not taken from ``torch.autograd``, so that they are an
+independent statement of what the backward kernels compute.
 """
 from __future__ import annotations
 
@@ -35,17 +38,58 @@ def ref_attention(q, k, v, *, causal: bool = True, window: int = 0):
     k = _repeat_kv(k, H, 1).float()
     v = _repeat_kv(v, H, 1).float()
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), k) * D ** -0.5
-    if causal:
-        qp = torch.arange(S, device=q.device)[:, None]
-        kp = torch.arange(T, device=q.device)[None, :]
-        mask = kp <= qp
-        if window > 0:
-            mask &= kp > (qp - window)
+    mask = _attend_mask(S, T, causal, window, q.device)
+    if mask is not None:
         s = s.masked_fill(~mask, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhst,bhtd->bhsd", p, v)
     return out.to(q.dtype), lse
+
+
+def _attend_mask(S: int, T: int, causal: bool, window: int, device):
+    """[S,T] bool, True = attended (None without a causal mask)."""
+    if not causal:
+        return None
+    qp = torch.arange(S, device=device)[:, None]
+    kp = torch.arange(T, device=device)[None, :]
+    mask = kp <= qp
+    if window > 0:
+        mask &= kp > (qp - window)
+    return mask
+
+
+def ref_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                      window: int = 0):
+    """The backward of :func:`ref_attention` from its residuals: q/o/do
+    [B,H,S,D], k/v [B,Hkv,T,D], lse [B,H,S] f32 -> (dq, dk, dv) in the
+    inputs' dtypes (the reference's ``_backward``,
+    ``repro/kernels/flash_attention.py:224``, written out in f32):
+
+        p = exp(s − lse) (0 where masked),  δ = rowsum(dO ⊙ O),
+        dS = p ⊙ (dO·Vᵀ − δ),  dQ = dS·K·scale,
+        dK = dSᵀ·(Q·scale),  dV = pᵀ·dO,
+
+    with dK/dV of grouped K/V summed over each kv head's H/Hkv q heads."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    scale = D ** -0.5
+    qs = q.float() * scale
+    kr = _repeat_kv(k, H, 1).float()
+    vr = _repeat_kv(v, H, 1).float()
+    dof = do.float()
+    p = torch.exp(torch.einsum("bhsd,bhtd->bhst", qs, kr) - lse[..., None])
+    mask = _attend_mask(S, T, causal, window, q.device)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    delta = (dof * o.float()).sum(-1)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", dof, vr) - delta[..., None])
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kr) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qs)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    dk = dk.view(B, Hkv, H // Hkv, T, D).sum(2)
+    dv = dv.view(B, Hkv, H // Hkv, T, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ref_decode_attention(q, k, v, kv_pos, pos, *, window: int = 0):
@@ -118,3 +162,27 @@ def ref_swiglu_ffn(x, w_gate, w_up, w_down):
     g = xf @ w_gate.float()
     u = xf @ w_up.float()
     return ((torch.nn.functional.silu(g) * u) @ w_down.float()).to(x.dtype)
+
+
+def ref_swiglu_ffn_bwd(x, w_gate, w_up, w_down, dy):
+    """The backward of :func:`ref_swiglu_ffn`: x, dy [N,D] -> (dx, dw_gate,
+    dw_up, dw_down) in the inputs' dtypes (the reference's ``_backward``,
+    ``repro/kernels/fused_ffn.py:159``, written out in f32): with
+    g = x·Wg, u = x·Wu, σ = logistic(g) and dh = dy·Wdᵀ,
+
+        du = dh·g·σ,  dg = dh·u·(σ + g·σ·(1 − σ)),
+        dx = dg·Wgᵀ + du·Wuᵀ,  dWg = xᵀ·dg,  dWu = xᵀ·du,
+        dWd = (g·σ·u)ᵀ·dy."""
+    xf, dyf = x.float(), dy.float()
+    wg, wu, wd = w_gate.float(), w_up.float(), w_down.float()
+    g = xf @ wg
+    u = xf @ wu
+    sg = torch.sigmoid(g)
+    silu = g * sg
+    dh = dyf @ wd.t()
+    du = dh * silu
+    dg = dh * u * (sg + g * sg * (1.0 - sg))
+    dx = dg @ wg.t() + du @ wu.t()
+    return (dx.to(x.dtype), (xf.t() @ dg).to(w_gate.dtype),
+            (xf.t() @ du).to(w_up.dtype),
+            ((silu * u).t() @ dyf).to(w_down.dtype))

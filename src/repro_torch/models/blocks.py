@@ -6,15 +6,29 @@ reference, so a reference parameter tree carries over leaf for leaf.  The
 reference's ``jax.lax.scan`` over that axis (``blocks.py:195``) becomes a
 Python loop over layer views; decode caches are stacked the same way and
 each layer's view is updated in place.
+
+Remat (the reference's ``_remat_wrap``, ``blocks.py:159``) wraps each
+layer of a differentiated forward in ``torch.utils.checkpoint``:
+``"none"`` saves every activation, ``"full"`` recomputes the whole layer
+in the backward pass, and ``"minimal"`` saves the outputs of the matrix
+products and recomputes the rest, the counterpart of JAX's
+``dots_with_no_batch_dims_saveable`` (the kernels' outputs are not
+products and are recomputed, as the Pallas calls are).  Remat changes
+memory and the number of forward kernel launches, never the numbers.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.attention import (attention, attention_decode,
                                           attention_decode_paged,
                                           attention_specs)
-from repro_torch.models.common import LayerGroup, ModelConfig, PSpec, tree_map
+from repro_torch.models.common import (LayerGroup, ModelConfig, PSpec,
+                                       tree_leaves, tree_map, tree_unflatten)
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_specs
 
@@ -60,19 +74,68 @@ def block_forward(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     return x, cache
 
 
+REMAT_POLICIES = ("none", "minimal", "full")
+# the matrix products the "minimal" policy saves (aten ops under autograd)
+_SAVED_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                        torch.ops.aten.bmm.default,
+                        torch.ops.aten.baddbmm.default})
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, policy: str):
+    """``fn`` under the remat ``policy`` (one of ``REMAT_POLICIES``)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _save_products))
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` layer views of a stacked tree, taken with one ``unbind``
+    per leaf (so the backward stacks each leaf's layer grads once)."""
+    parts = [a.unbind(0) for a in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[i] for p in parts]) for i in range(n)]
+
+
 def run_groups(x: torch.Tensor, group_params: list, cfg: ModelConfig, *,
                collect_cache: bool = False):
     """All layer groups in order.  Returns (x, caches): per group, the
     layers' prefill (k, v) stacked to [L,B,S,KV,Dh] (None without
-    ``collect_cache``)."""
+    ``collect_cache``).  ``cfg.remat_policy`` applies to each layer when a
+    gradient will be taken (grad enabled and x or a parameter requiring
+    it); a prefill that collects caches, or any forward without grad,
+    runs bare."""
+    policy = cfg.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; valid choices: "
+                         f"{', '.join(REMAT_POLICIES)}")
     caches = []
     for group, gp in zip(cfg.groups, group_params):
+        differentiated = torch.is_grad_enabled() and not collect_cache and (
+            x.requires_grad or any(t.requires_grad for t in tree_leaves(gp)))
+
+        def body(xx, lp, group=group):
+            for j in range(len(group.pattern)):
+                xx, _ = block_forward(xx, lp[f"sub{j}"], cfg)
+            return xx
+
+        step = _remat_wrap(body, policy) if differentiated else body
         per = [[] for _ in group.pattern]
-        for i in range(group.repeats):
-            lp = layer(gp, i)
+        for lp in unstack(gp, group.repeats):
+            if not collect_cache:
+                x = step(x, lp)
+                continue
             for j in range(len(group.pattern)):
                 x, c = block_forward(x, lp[f"sub{j}"], cfg,
-                                     collect_cache=collect_cache)
+                                     collect_cache=True)
                 per[j].append(c)
         caches.append({
             f"sub{j}": {n: torch.stack([c[n] for c in cs]) for n in ("k", "v")}

@@ -119,6 +119,13 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_unflatten(tree, leaves) -> Any:
+    """A tree shaped like ``tree`` holding ``leaves`` (in ``tree_leaves``
+    order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def _init_leaf(spec: PSpec, gen: torch.Generator,
                param_dtype: torch.dtype) -> torch.Tensor:
     dtype = spec.dtype or param_dtype

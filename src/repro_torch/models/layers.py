@@ -1,8 +1,10 @@
 """Primitive layers: RMSNorm, rotary embeddings, the embedding table's
-spec and lm_head (port of ``repro.models.layers``)."""
+spec, lm_head and the cross-entropy losses (port of
+``repro.models.layers``)."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ModelConfig, PSpec
 
@@ -58,3 +60,55 @@ def lm_head(x: torch.Tensor, table: torch.Tensor,
     if table.shape[0] != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits
+
+
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed NLL of the labelled tokens (labels -1 = ignore) under f32
+    logits [..., V]; the max is detached (the reference's
+    ``stop_gradient``)."""
+    mask = labels >= 0
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((lse - ll) * mask).sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy: logits [B,S,V], labels [B,S] int (-1 =
+    ignore) -> f32 scalar, the sum divided by max(count, 1).  (The
+    reference's logit softcap is not ported: ``registry.check_supported``
+    rejects softcapped configs.)"""
+    return _nll_sum(logits.float(), labels) / (labels >= 0).sum().clamp(min=1)
+
+
+def _chunk_nll(xc: torch.Tensor, table: torch.Tensor, lc: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Summed NLL of one sequence chunk from its lm_head logits in f32."""
+    return _nll_sum(lm_head(xc, table, cfg).float(), lc)
+
+
+def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor,
+                         labels: torch.Tensor, cfg: ModelConfig,
+                         chunk: int) -> torch.Tensor:
+    """Fused lm_head + cross-entropy over sequence chunks: x [B,S,D],
+    labels [B,S] (-1 = ignore) -> mean NLL (f32 scalar).  The [B,S,V]
+    logits never materialize: each chunk's body is recomputed in the
+    backward pass (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``), so the peak is one [B,chunk,V] block."""
+    S = x.shape[1]
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S + pad, chunk):
+        xc, lc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or table.requires_grad):
+            nll = nll + checkpoint(_chunk_nll, xc, table, lc, cfg,
+                                   use_reentrant=False)
+        else:
+            nll = nll + _chunk_nll(xc, table, lc, cfg)
+    count = (labels >= 0).sum()
+    return nll / count.clamp(min=1)

@@ -1,9 +1,9 @@
 """Decoder-only causal language model (port of ``repro.models.lm``: the
-forward and the one-token decode step; the loss comes with the training
-slice).
+forward, the training loss and the one-token decode step).
 
     lm_specs(cfg)                                  parameter PSpec tree
     lm_forward(params, tokens, cfg, ...)           logits (+ prefill caches)
+    lm_loss(params, batch, cfg, *, ce_chunk=0)     (loss, metrics)
     lm_decode_step(params, token, caches, cfg, ...)  logits; caches in place
                                                    (dense or paged)
 """
@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.models.blocks import group_specs, run_groups, run_groups_decode
 from repro_torch.models.common import ModelConfig, PSpec
-from repro_torch.models.layers import (embedding_spec, lm_head, rmsnorm,
+from repro_torch.models.layers import (chunked_softmax_xent, cross_entropy,
+                                       embedding_spec, lm_head, rmsnorm,
                                        rmsnorm_spec)
 
 
@@ -60,6 +61,32 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         x = x[:, -1:]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_head(x, _unembed_table(params, cfg), cfg), caches
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
+            ce_chunk: int = 0) -> tuple[torch.Tensor, dict]:
+    """batch: tokens [B,S], labels [B,S] (-1 = ignore) -> (loss, {"loss",
+    "ce", "moe_aux"}), f32 scalars.
+
+    ``ce_chunk > 0`` runs the lm_head and cross-entropy fused over
+    sequence chunks (the [B,S,V] logits never materialize), as the
+    reference does under its ``ce_chunk`` activation rule (set for train
+    plans with ``seq_len > 512``; here the caller passes it).  ``moe_aux``
+    is 0: the dense family has no router loss.  Remat follows
+    ``cfg.remat_policy``."""
+    labels = batch["labels"]
+    if ce_chunk:
+        x = _embed(params, batch["tokens"], cfg)
+        x, _ = run_groups(x, params["groups"], cfg)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        ce = chunked_softmax_xent(x, _unembed_table(params, cfg), labels,
+                                  cfg, ce_chunk)
+    else:
+        logits, _ = lm_forward(params, batch["tokens"], cfg)
+        ce = cross_entropy(logits, labels)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
 
 
 def lm_decode_step(params: dict, token: torch.Tensor, caches: list,

@@ -1,6 +1,6 @@
-"""Which configs the port serves, and the decoder-only LM family's
-functional surface (port of the parts of ``repro.models.registry`` that
-the serving slice reads).
+"""Which configs the port serves and trains, and the decoder-only LM
+family's functional surface (port of the parts of
+``repro.models.registry`` that the serving and training slices read).
 
 ``check_supported`` is the slice's gate: a config that needs anything
 outside it raises ``NotImplementedError`` naming the ROADMAP item that
@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve import kvcache
@@ -47,11 +48,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 @dataclass(frozen=True)
 class Capabilities:
-    """The subset of the reference's flags the slice reads: ``swa``
+    """The subset of the reference's flags the slices read: ``swa``
     selects exact-length admission buckets; the kernel flags say which
-    Hopper kernels can express the config; ``supports_paged_decode`` /
-    ``supports_quantized_kv`` gate the pooled KV layout and its int8
-    pool."""
+    Hopper kernels can express the config (``supports_flash_train``: the
+    flash forward and backward kernels, which the training path needs on
+    the card); ``supports_paged_decode`` / ``supports_quantized_kv`` gate
+    the pooled KV layout and its int8 pool."""
     swa: bool
     supports_flash_train: bool
     supports_fused_ffn: bool
@@ -81,7 +83,7 @@ def capabilities(cfg: ModelConfig) -> Capabilities:
     return Capabilities(
         swa=cfg.sliding_window is not None,
         supports_flash_train=(cfg.attn_logit_softcap is None
-                              and cfg.head_dim <= 256),
+                              and cfg.head_dim in BWD_HEAD_DIMS),
         supports_fused_ffn=cfg.mlp_act == "silu",
         supports_flash_decode=cfg.attn_logit_softcap is None,
         supports_paged_decode=paged,
@@ -90,6 +92,13 @@ def capabilities(cfg: ModelConfig) -> Capabilities:
 
 def model_specs(cfg: ModelConfig):
     return lm.lm_specs(cfg)
+
+
+def model_loss(params, batch: dict, cfg: ModelConfig, *, ce_chunk: int = 0):
+    """batch {"tokens", "labels"} [B,S] -> (loss, {"loss", "ce",
+    "moe_aux"}) (the reference's ``model_loss`` / ``_lm_loss``);
+    ``ce_chunk`` as in ``lm.lm_loss``."""
+    return lm.lm_loss(params, batch, cfg, ce_chunk=ce_chunk)
 
 
 def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig):

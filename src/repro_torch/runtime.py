@@ -8,6 +8,9 @@
     rt = Runtime.create("exanode-100m", capacity=2048, kv_layout="paged",
                         kv_dtype="int8")                  # int8 block pool
     engine = rt.engine(num_slots=16, block_size=16)
+    rt = Runtime.create("exanode-100m", shape_kind="train", seq_len=512)
+    state = rt.init_train_state()
+    state, metrics = rt.train_step(state, batch)          # in place
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without a GPU ``create`` raises rather than carrying on on the CPU.  Pass
@@ -15,7 +18,7 @@ without a GPU ``create`` raises rather than carrying on on the CPU.  Pass
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -23,9 +26,17 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import registry
 from repro_torch.models.common import ModelConfig, count_params, init_params
 from repro_torch.serve import steps as serve_steps
+from repro_torch.train import state as train_state_mod
+from repro_torch.train import steps as train_steps
 
 KV_LAYOUTS = ("dense", "paged")
 KV_DTYPES = ("f32", "int8")
+SHAPE_KINDS = ("train", "prefill", "decode")
+GRAD_SYNCS = ("flat", "hierarchical", "hierarchical_int8")
+# The reference's plan runs the lm_head + cross-entropy fused over
+# 512-token chunks for train shapes longer than that (``make_plan``'s
+# ``ce_chunk``).
+CE_CHUNK = 512
 
 
 def check_kv_layout(caps: registry.Capabilities, name: str, kv_layout: str,
@@ -69,7 +80,9 @@ class Runtime:
 
     def __init__(self, *, arch: str, cfg: ModelConfig, device: torch.device,
                  capacity: int, seed: int, params=None,
-                 kv_layout: str = "dense", kv_dtype: str = "f32"):
+                 kv_layout: str = "dense", kv_dtype: str = "f32",
+                 shape_kind: str = "decode", seq_len: int = 128,
+                 param_dtype=torch.float32):
         self.arch = arch
         self.cfg = cfg
         self.caps = registry.capabilities(cfg)
@@ -79,18 +92,39 @@ class Runtime:
         self.seed = seed
         self.kv_layout = kv_layout      # serve KV layout: dense | paged
         self.kv_dtype = kv_dtype        # paged pool storage: f32 | int8
+        self.shape_kind = shape_kind    # train | prefill | decode
+        self.seq_len = seq_len
+        self.param_dtype = param_dtype
+        self.ce_chunk = (CE_CHUNK if shape_kind == "train"
+                         and seq_len > CE_CHUNK else 0)
         self._params = params
+        self._train_step = None
 
     @classmethod
-    def create(cls, arch: Union[str, ModelConfig], *, smoke: bool = False,
-               capacity: int = 128, seed: int = 0, params=None,
+    def create(cls, arch: Union[str, ModelConfig], *,
+               shape_kind: str = "decode", smoke: bool = False,
+               seq_len: Optional[int] = None,
+               capacity: Optional[int] = None, seed: int = 0, params=None,
                device=None, kv_layout: str = "dense",
-               kv_dtype: str = "f32") -> "Runtime":
+               kv_dtype: str = "f32", param_dtype=torch.float32,
+               grad_sync: str = "hierarchical") -> "Runtime":
         """Build the chain for one config.
 
         ``arch`` is a registry name (``smoke`` selects the reduced config)
-        or a ready ``ModelConfig``.  ``capacity`` is the decode-cache length
-        of the prefill/decode steps and the engine.  ``kv_layout`` picks
+        or a ready ``ModelConfig``.  ``shape_kind`` ("train", "prefill" or
+        "decode") and ``seq_len`` size the activation decisions: a train
+        shape longer than 512 tokens fuses the lm_head and cross-entropy
+        over 512-token chunks, as the reference's plan does.
+        ``capacity`` is the decode-cache length of the prefill/decode
+        steps and the engine; the two default to each other, else 128.
+        ``param_dtype`` is the params' storage type (bf16 selects mixed
+        precision in training: an f32 master copy in the optimizer state).
+        A train shape needs ``caps.supports_flash_train`` (the flash
+        backward kernel's head dims).  ``grad_sync`` takes the
+        reference's strategies: on one device ``flat`` and ``hierarchical``
+        are the same step (the reference degrades to ``flat`` without a
+        mesh), and ``hierarchical_int8``, which needs a pod axis and its
+        error-feedback residual, raises.  ``kv_layout`` picks
         the engine's KV layout ("dense" per-slot slabs or "paged" pooled
         blocks) and ``kv_dtype`` the paged pool's storage ("f32" is the
         working dtype, "int8" quantized blocks with per-(block, kv head)
@@ -107,11 +141,28 @@ class Runtime:
             name = arch
             cfg = get_smoke_config(arch) if smoke else get_config(arch)
         registry.check_supported(cfg)
-        check_kv_layout(registry.capabilities(cfg), cfg.name, kv_layout,
-                        kv_dtype)
+        caps = registry.capabilities(cfg)
+        check_kv_layout(caps, cfg.name, kv_layout, kv_dtype)
+        if shape_kind not in SHAPE_KINDS:
+            raise ValueError(f"unknown shape_kind {shape_kind!r}; valid "
+                             f"choices: {', '.join(SHAPE_KINDS)}")
+        if grad_sync not in GRAD_SYNCS:
+            raise ValueError(f"unknown grad_sync {grad_sync!r}; valid "
+                             f"choices: {', '.join(GRAD_SYNCS)}")
+        if grad_sync == "hierarchical_int8":
+            raise ValueError("grad_sync='hierarchical_int8' needs a pod axis "
+                             "and its error-feedback residual; the port runs "
+                             "on one device (ROADMAP queue 1, item 9)")
+        if shape_kind == "train" and not caps.supports_flash_train:
+            raise ValueError(f"arch {cfg.name!r} cannot train through the "
+                             f"flash kernels (caps: {caps.summary})")
+        capacity = capacity if capacity is not None else (seq_len or 128)
+        seq_len = seq_len if seq_len is not None else capacity
         return cls(arch=name, cfg=cfg, device=resolve_device(device),
                    capacity=capacity, seed=seed, params=params,
-                   kv_layout=kv_layout, kv_dtype=kv_dtype)
+                   kv_layout=kv_layout, kv_dtype=kv_dtype,
+                   shape_kind=shape_kind, seq_len=seq_len,
+                   param_dtype=param_dtype)
 
     # -- params -------------------------------------------------------------
 
@@ -122,7 +173,7 @@ class Runtime:
         from the reference by ``repro_torch.bridge``."""
         if self._params is None:
             self._params = init_params(self.specs, self.seed,
-                                       self.cfg.param_dtype, self.device)
+                                       self.param_dtype, self.device)
         return self._params
 
     @params.setter
@@ -132,6 +183,45 @@ class Runtime:
     @property
     def num_params(self) -> int:
         return count_params(self.specs)
+
+    # -- training -----------------------------------------------------------
+
+    def init_train_state(self, seed: Optional[int] = None):
+        """A fresh ``TrainState`` on this Runtime's device: params drawn
+        from ``seed`` (default: the Runtime's) in ``param_dtype``, and
+        zero AdamW moments."""
+        return train_state_mod.init_train_state(
+            self.specs, self.seed if seed is None else seed,
+            self.param_dtype, self.device)
+
+    def make_train_step(self, *, schedule=None, opt_cfg=None,
+                        microbatches: int = 1):
+        """step(state, batch) -> (state, metrics); the schedule defaults
+        to a constant 3e-4 and the optimizer to ``AdamWConfig()``."""
+        return train_steps.make_train_step(
+            self.cfg, schedule=schedule, opt_cfg=opt_cfg,
+            microbatches=microbatches, ce_chunk=self.ce_chunk)
+
+    def compile_train_step(self, *, schedule=None, opt_cfg=None,
+                           microbatches: int = 1):
+        """The reference jits and donates its step here; the port runs
+        eagerly and updates the state in place, so this is
+        :meth:`make_train_step`."""
+        return self.make_train_step(schedule=schedule, opt_cfg=opt_cfg,
+                                    microbatches=microbatches)
+
+    @property
+    def train_step(self):
+        """The default train step (constant 3e-4 schedule)."""
+        if self._train_step is None:
+            self._train_step = self.compile_train_step()
+        return self._train_step
+
+    def loss(self, batch: dict, *, params=None):
+        """(loss, metrics) of ``batch`` at ``params`` (default: the
+        Runtime's)."""
+        return registry.model_loss(self.params if params is None else params,
+                                   batch, self.cfg, ce_chunk=self.ce_chunk)
 
     # -- steps --------------------------------------------------------------
 
@@ -206,6 +296,12 @@ class Runtime:
             f"  caps      : {self.caps.summary}",
             f"  kernels   : flash_attention fused_ffn {decode} "
             f"({'Hopper CUDA' if self.device.type == 'cuda' else 'plain'})",
+            f"  train     : seq_len={self.seq_len} "
+            f"ce_chunk={self.ce_chunk} remat={self.cfg.remat_policy} "
+            f"param_dtype={self.param_dtype} kernels: flash_attention + "
+            f"flash_attention_bwd_dq/_dkv, fused_ffn + fused_ffn_bwd_dx/_dw "
+            f"(torch.autograd.Function; "
+            f"{'Hopper CUDA' if self.device.type == 'cuda' else 'plain'})",
             f"  serve     : capacity={self.capacity} "
             f"kv_layout={self.kv_layout} kv_dtype={self.kv_dtype} "
             f"kv_bytes/stream={self.kv_bytes_per_stream():,} "

@@ -6,6 +6,18 @@ reference's (tests/test_kernels.py, tests/test_paged.py): flash 2e-5 f32 /
 2e-2 bf16, decode 2e-5, paged decode 1e-5, FFN 1e-5 f32 / 3e-2 bf16; the
 plain paged versions are held against the reference in
 tests/test_torch_paged.py.
+
+The backward versions are held in f32 at 1e-5 against ``jax.vjp`` of the
+reference's Pallas ops (interpret mode) and against ``torch.autograd`` of
+the plain forwards.  On the card the backward kernels are held against
+them at the reference's grad tolerances in f32 (tests/test_kernels.py:
+115-180: flash 2e-4, FFN 1e-4) and at its forward tolerances in bf16
+(flash 2e-2, FFN 3e-2: both sides accumulate in f32 and round the grads
+to bf16 once, so they differ by about one bf16 step).  The reference set
+its 1e-4 at <= 256 rows; the weight grads sum over all N rows, and the f32
+rounding of such a sum grows as sqrt(N) (at 4096 rows the CPU's own f32
+product is 1.02x that 1e-4 away from its f64 value), so the f32 weight
+grads are held to 1e-4 * max(1, sqrt(N / 256)).
 """
 import numpy as np
 import pytest
@@ -20,7 +32,16 @@ from repro_torch.kernels import paged_attention as pa_kernel
 TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "decode": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "paged": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
-       "ffn": {torch.float32: 1e-5, torch.bfloat16: 3e-2}}
+       "ffn": {torch.float32: 1e-5, torch.bfloat16: 3e-2},
+       "flash_bwd": {torch.float32: 2e-4, torch.bfloat16: 2e-2},
+       "ffn_bwd": {torch.float32: 1e-4, torch.bfloat16: 3e-2}}
+PLAIN_BWD_TOL = 1e-5
+
+
+def _dw_tol(N, dtype):
+    """The FFN weight grads' tolerance at N rows (see the docstring)."""
+    tol = TOL["ffn_bwd"][dtype]
+    return tol * max(1.0, (N / 256) ** 0.5) if dtype == torch.float32 else tol
 
 
 def _rand(shape, seed, scale=1.0):
@@ -130,6 +151,104 @@ def test_ffn_plain_matches_pallas(jref, dtype):
     _close(got.float(), oracle, TOL["ffn"][dtype], "vs jnp oracle")
 
 
+# -- plain backward versions against the reference (CPU) --------------------
+
+
+def _torch_grads(fwd, inputs, cot):
+    """torch.autograd of a plain forward for the cotangent ``cot``."""
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    out = fwd(*leaves)
+    return torch.autograd.grad(out, leaves, cot)
+
+
+@pytest.mark.parametrize("S,T,H,Hkv,causal,window", [
+    (72, 72, 12, 4, True, 0), (72, 72, 12, 4, True, 24),
+    (40, 72, 4, 4, False, 0), (72, 72, 6, 2, True, 0)])
+def test_flash_bwd_plain_matches_pallas_vjp(jref, S, T, H, Hkv, causal,
+                                            window):
+    """ref_attention_bwd == jax.vjp through the Pallas flash kernel (grouped
+    K/V repeated as the reference's model does, so dK/dV sum over each
+    group) and == torch.autograd of ref_attention; S and T are not
+    multiples of the port's 64-row tile."""
+    jax = pytest.importorskip("jax")
+    jnp = jref["jnp"]
+    G = H // Hkv
+    q, do = _rand((2, H, S, 16), 40), _rand((2, H, S, 16), 41)
+    k, v = _rand((2, Hkv, T, 16), 42), _rand((2, Hkv, T, 16), 43)
+
+    def fwd(q, k, v):
+        return jref["flash"].flash_attention(
+            q, jnp.repeat(k, G, axis=1), jnp.repeat(v, G, axis=1),
+            causal=causal, window=window, interpret=True)
+
+    _, vjp = jax.vjp(fwd, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = ref.ref_attention(tq, tk, tv, causal=causal, window=window)
+    got = ref.ref_attention_bwd(tq, tk, tv, out, lse, tdo, causal=causal,
+                                window=window)
+    auto = _torch_grads(
+        lambda a, b, c: ref.ref_attention(a, b, c, causal=causal,
+                                          window=window)[0],
+        (tq, tk, tv), tdo)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, auto):
+        assert g.shape == a.shape
+        _close(g, w, PLAIN_BWD_TOL, f"{name} vs Pallas vjp")
+        _close(g, a, PLAIN_BWD_TOL, f"{name} vs torch.autograd")
+
+
+def test_ffn_bwd_plain_matches_pallas_vjp(jref):
+    """ref_swiglu_ffn_bwd == jax.vjp through the Pallas fused FFN and ==
+    torch.autograd of ref_swiglu_ffn, for every operand."""
+    jax = pytest.importorskip("jax")
+    jnp = jref["jnp"]
+    N, D, F = 96, 64, 256
+    arrs = (_rand((N, D), 44), _rand((D, F), 45, 0.05),
+            _rand((D, F), 46, 0.05), _rand((F, D), 47, 0.05))
+    dy = _rand((N, D), 48)
+    _, vjp = jax.vjp(lambda *a: jref["ffn"].swiglu_ffn(*a, br=32, bf=64,
+                                                       interpret=True),
+                     *(jnp.asarray(a) for a in arrs))
+    want = vjp(jnp.asarray(dy))
+    ts = [torch.from_numpy(a) for a in arrs]
+    got = ref.ref_swiglu_ffn_bwd(*ts, torch.from_numpy(dy))
+    auto = _torch_grads(ref.ref_swiglu_ffn, ts, torch.from_numpy(dy))
+    for name, g, w, a in zip(("dx", "dw_gate", "dw_up", "dw_down"), got,
+                             want, auto):
+        _close(g, w, PLAIN_BWD_TOL, f"{name} vs Pallas vjp")
+        _close(g, a, PLAIN_BWD_TOL, f"{name} vs torch.autograd")
+
+
+@pytest.mark.parametrize("op", ["flash", "ffn"])
+def test_autograd_functions_take_plain_backward_on_cpu(op):
+    """With grad, ops.flash_attention / ops.swiglu_ffn go through their
+    autograd Functions, whose CPU backward is the plain one; without grad
+    they are the plain forward and build no graph."""
+    if op == "flash":
+        q, k, v = (torch.from_numpy(_rand(sh, 50 + i)) for i, sh in
+                   enumerate([(1, 6, 20, 16), (1, 2, 20, 16),
+                              (1, 2, 20, 16)]))
+        args, cls = (q, k, v), ops.FlashAttention
+        call = lambda *a: ops.flash_attention(*a, window=8)[0]  # noqa: E731
+    else:
+        args = tuple(torch.from_numpy(_rand(sh, 60 + i, 0.1)) for i, sh in
+                     enumerate([(12, 16), (16, 32), (16, 32), (32, 16)]))
+        cls, call = ops.SwiGLUFFN, ops.swiglu_ffn
+    assert call(*args).grad_fn is None
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = call(*leaves)
+    assert type(out.grad_fn).__name__ == f"{cls.__name__}Backward"
+    cot = torch.from_numpy(_rand(tuple(out.shape), 70))
+    got = torch.autograd.grad(out, leaves, cot)
+    if op == "flash":
+        o, lse = ref.ref_attention(*args, window=8)
+        want = ref.ref_attention_bwd(*args, o, lse, cot, window=8)
+    else:
+        want = ref.ref_swiglu_ffn_bwd(*args, cot)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # -- dispatch, checks and the build (CPU) ------------------------------------
 
 
@@ -144,7 +263,11 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
     assert ops.launch_counts() == {"flash_attention": 0, "fused_ffn": 0,
                                    "decode_attention": 0,
                                    "paged_decode_attention": 0,
-                                   "paged_decode_attention_q8": 0}
+                                   "paged_decode_attention_q8": 0,
+                                   "flash_attention_bwd_dq": 0,
+                                   "flash_attention_bwd_dkv": 0,
+                                   "fused_ffn_bwd_dx": 0,
+                                   "fused_ffn_bwd_dw": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -156,6 +279,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa_kernel.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         ffn_kernel.swiglu_ffn(x, w, w, w.t().contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention_bwd(q, q, q, q, torch.zeros(1, 1, 8), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        ffn_kernel.swiglu_ffn_bwd(x, w, w, w.t().contiguous(), x)
     with pytest.raises(ValueError, match="CUDA"):
         da_kernel.decode_attention(torch.zeros(1, 2, 64),
                                    torch.zeros(1, 8, 1, 64),
@@ -169,6 +296,12 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_every_cuda_source_is_built():
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    with pytest.raises(KeyError, match="no kernel source"):
+        _build.library("flash_attention_fwd")
 
 
 def test_build_is_keyed_by_sources():
@@ -185,6 +318,20 @@ def test_ffn_plan_splits_f_only_when_rows_leave_sms_idle(N, expect_splits):
     assert (splits > 1) == expect_splits
     if expect_splits:
         assert -(-N // br) * splits <= 132
+
+
+@pytest.mark.parametrize("N,D,F,splits", [(4096, 768, 2048, 1),
+                                           (64, 768, 512, 2), (200, 768, 512, 4),
+                                           (300, 3072, 8192, 1)])
+def test_ffn_dw_plan_tiles_fit_and_split_rows(N, D, F, splits):
+    bf, rows_per_split, n_splits = ffn_kernel.plan_dw(N, D, F, num_sms=132)
+    chunk = ffn_kernel.DW_CHUNK_X_BF // bf
+    assert 12 * D * bf + 12 * ffn_kernel.DW_CHUNK_X_BF \
+        <= ffn_kernel.DW_SMEM_BYTES
+    assert rows_per_split % chunk == 0
+    assert n_splits == splits and rows_per_split * n_splits >= N
+    assert rows_per_split * (n_splits - 1) < N          # no empty split
+    assert ffn_kernel.plan_dx(N, D) * D <= ffn_kernel.SMEM_ROWS_X_D
 
 
 # -- Hopper kernels against their plain versions (CUDA only) -----------------
@@ -297,3 +444,84 @@ def test_ffn_kernel_matches_plain(cuda, dtype, N):
     want = ref.ref_swiglu_ffn(x, wg, wu, wd)
     torch.cuda.synchronize()
     _close(got.float().cpu(), want.float().cpu(), TOL["ffn"][dtype])
+
+
+def _flash_bwd_case(cuda, dtype, B, H, Hkv, S, T, D, causal, window, seed):
+    """Seeded q/k/v/dO in the model's [B,S,H,D] -> [B,H,S,D] views and the
+    forward's (out, lse) from the plain version, on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=gen, device=cuda).transpose(1, 2)
+    k = torch.randn(B, T, Hkv, D, generator=gen, device=cuda).transpose(1, 2)
+    v = torch.randn(B, T, Hkv, D, generator=gen, device=cuda).transpose(1, 2)
+    do = torch.randn(B, H, S, D, generator=gen, device=cuda)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    out, lse = ref.ref_attention(q, k, v, causal=causal, window=window)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 4, 64), (12, 4, 64),
+                                     (24, 8, 128), (6, 2, 128)])
+@pytest.mark.parametrize("S,T,causal,window", [
+    (256, 256, True, 0), (200, 200, True, 0), (256, 256, True, 100),
+    (130, 70, False, 0), (100, 150, True, 0)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, H, Hkv, D, S, T, causal,
+                                       window):
+    q, k, v, out, lse, do = _flash_bwd_case(cuda, dtype, 2, H, Hkv, S, T, D,
+                                            causal, window, seed=80)
+    got = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+    want = ref.ref_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g.float().cpu(), w.float().cpu(), TOL["flash_bwd"][dtype],
+               name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,F", [(1, 256, 512), (16, 256, 512),
+                                   (300, 256, 512), (4096, 768, 2048),
+                                   (40, 3072, 1024)])
+def test_ffn_bwd_kernels_match_plain(cuda, dtype, N, D, F):
+    gen = torch.Generator(device=cuda).manual_seed(81)
+    x = torch.randn(N, D, generator=gen, device=cuda)
+    ws = [torch.randn(D, F, generator=gen, device=cuda) * D ** -0.5,
+          torch.randn(D, F, generator=gen, device=cuda) * D ** -0.5,
+          torch.randn(F, D, generator=gen, device=cuda) * F ** -0.5]
+    dy = torch.randn(N, D, generator=gen, device=cuda)
+    args = [t.to(dtype) for t in [x] + ws + [dy]]
+    got = ffn_kernel.swiglu_ffn_bwd(*args)
+    want = ref.ref_swiglu_ffn_bwd(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        tol = TOL["ffn_bwd"][dtype] if name == "dx" else _dw_tol(N, dtype)
+        _close(g.float().cpu(), w.float().cpu(), tol, name)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_backward_kernels(cuda):
+    """On the card the Functions' backward launches the backward kernels:
+    one dq and one dkv launch per attention backward, one dx and one or two
+    dw launches per FFN backward."""
+    ops.reset_launch_counts()
+    q, k, v, _, _, do = _flash_bwd_case(cuda, torch.float32, 1, 6, 2, 96, 96,
+                                        64, True, 0, seed=82)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out, _ = ops.flash_attention(*leaves)
+    torch.autograd.grad(out, leaves, do)
+    x = torch.randn(64, 64, device=cuda, requires_grad=True)
+    w = torch.randn(64, 128, device=cuda, requires_grad=True)
+    y = ops.swiglu_ffn(x, w, w, w.t().contiguous())
+    torch.autograd.grad(y.sum(), [x, w])
+    counts = ops.launch_counts()
+    # 64 rows leave SMs idle: the forward splits F (kernel + reduce)
+    assert counts["flash_attention"] == 1 and counts["fused_ffn"] == 2
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    assert counts["fused_ffn_bwd_dx"] == 1
+    assert counts["fused_ffn_bwd_dw"] in (1, 2)
