@@ -7,15 +7,17 @@
 Phases, in order, each printing one line:
 
   gpu      the card's name and power limit, as nvidia-smi reports them;
-  build    builds the six kernel sources (nine kernels) from
+  build    builds the seven kernel sources (ten kernels) from
            src/repro_torch/csrc, one nvcc each, all started together;
   kernels  holds each kernel against its plain PyTorch version on the card
            at its path's shapes (serving; for the four backward kernels,
-           training at batch 8 x 512), in f32 and bf16 (the paged kernels
-           also with int8 pools; the paged and backward attention kernels
-           also at llama3.2-3b's head dim 128 with 24 / 8 heads), and
-           times the kernel, the plain version and a PyTorch library
-           yardstick for the same function (the port never calls it);
+           training at batch 8 x 512; the mLSTM scan at xlstm-125m's
+           prefill, q [4,4,1024,384], chunk 256, f32), in f32 and bf16 (the
+           paged kernels also with int8 pools; the paged and backward
+           attention kernels also at llama3.2-3b's head dim 128 with 24 / 8
+           heads), and times the kernel, the plain version and a PyTorch
+           library yardstick for the same function where one call computes
+           it (the port never calls it);
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -24,6 +26,14 @@ Phases, in order, each printing one line:
            serves 32 seeded requests in bf16, once cold as a warm-up and
            once warm on a fresh engine, with every kernel's launch counter
            zeroed just before the warm run and read just after;
+  xlstm    xlstm-125m at full width with seeded weights: in f32, prefill
+           logits of 2 prompts x 600 tokens (not a multiple of the 256
+           chunk) and four decode ticks, the mLSTM kernel on the card
+           against the plain path on the CPU; then
+           Runtime.create("xlstm-125m", capacity=2048).engine(num_slots=16)
+           serves the serve phase's 32 requests in bf16, cold and then warm
+           with every launch counter zeroed just before, and fails unless
+           mlstm_scan launched 9 times per prefill call;
   paged    the same 32 requests, those of 16-23 that are 256 tokens long
            opening with prompt 0's first 256 tokens, served dense,
            kv_layout="paged" and paged with kv_dtype="int8"
@@ -44,6 +54,11 @@ Phases, in order, each printing one line:
 
   train_profile  torch.profiler over three more bf16 train steps: device
            time per step by kernel group and the device's idle share.
+  xlstm_profile  where an xlstm-125m bf16 prefill (16 x 1024) and a decode
+           tick (16 slots) spend their time: host wall of one mLSTM and one
+           sLSTM layer, and torch.profiler over the whole prefill call and
+           8 ticks (device time by kernel group, kernels launched, idle
+           share against the unprofiled wall).
 
 One more phase runs only when named: int8_cpu (the int8 pool's token
 agreement on the card and through the plain versions on the CPU).
@@ -61,13 +76,14 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "model", "serve", "paged", "train",
-          "train_profile")                          # the build always runs
+PHASES = ("kernels", "model", "serve", "paged", "xlstm", "train",
+          "train_profile", "xlstm_profile")         # the build always runs
 
-# NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s and bf16 tensor-core
-# FLOP/s.  Rates assume the full 700 W power limit.
+# NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor-core FLOP/s
+# and f32 FLOP/s outside the tensor cores (f32 work in f32: TF32 would
+# round it).  Rates assume the full 700 W power limit.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # Tolerances: the reference's own (tests/test_kernels.py,
 # tests/test_paged.py).  Backward kernels: in f32 the reference's grad
@@ -90,8 +106,13 @@ TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "flash_attention_bwd_dq": {"float32": 2e-4, "bfloat16": 2e-2},
        "flash_attention_bwd_dkv": {"float32": 2e-4, "bfloat16": 2e-2},
        "fused_ffn_bwd_dx": {"float32": 1e-4, "bfloat16": 3e-2},
-       "fused_ffn_bwd_dw": {"float32": 1e-4, "bfloat16": 3e-2}}
+       "fused_ffn_bwd_dw": {"float32": 1e-4, "bfloat16": 3e-2},
+       "mlstm_scan": {"float32": 2e-4}}
 BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The mLSTM scan (f32 only): the reference's kernel tolerance
+# (tests/test_kernels.py:69, 2e-4) on y and on the final carry, and
+# ||err|| / ||want|| <= 1e-4 on each, as tests/test_torch_kernels.py holds it.
+MLSTM_REL_TOL = 1e-4
 MODEL_LOGITS_TOL = 1e-3
 # The train phase's f32 step against the CPU: the reference's fast-path
 # bounds (tests/test_train_fastpath.py:71-76), atol + rtol.  At full width
@@ -138,6 +159,8 @@ SOURCES = {
                          "src/repro/kernels/fused_ffn.py:108"),
     "fused_ffn_bwd_dw": ("src/repro_torch/csrc/fused_ffn_bwd.cu",
                          "src/repro/kernels/fused_ffn.py:131"),
+    "mlstm_scan": ("src/repro_torch/csrc/mlstm_scan.cu",
+                   "src/repro/kernels/mlstm_scan.py:21"),
 }
 TRAIN_KERNELS = ("flash_attention", "fused_ffn", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "fused_ffn_bwd_dx",
@@ -347,7 +370,58 @@ def kernels_phase(torch, timer) -> dict:
         library="torch.nn.functional.scaled_dot_product_attention")
     out.update(paged_kernels(torch, timer))
     out.update(backward_kernels(torch, timer))
+    out.update(mlstm_kernel(torch, timer))
     return out
+
+
+def mlstm_kernel(torch, timer) -> dict:
+    """#13 against its plain version at xlstm-125m's prefill shape (4
+    prompts x 1024 tokens, 4 heads of dh 384, chunk 256, f32; the reference
+    test's inputs: k scaled by dh^-0.5, f_log = log_sigmoid(N(0,1) + 2)):
+    y and the final (C, n, m), then times.  The bound counts each input
+    and output once and the operations these inputs need: q·k and P·v
+    over the causal pairs of each chunk, the carry's q·Cᵀ and q·n in every
+    chunk but the first (its carry is zero), and the C and n updates of
+    every chunk, at f32's rate.  No single PyTorch call computes a
+    chunkwise mLSTM, so there is no library yardstick."""
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, H, S, dh, L = 4, 4, 1024, 384, 256
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q, v = randn(B, H, S, dh), randn(B, H, S, dh)
+    k = randn(B, H, S, dh) * dh ** -0.5
+    ig = randn(B, H, S)
+    fl = torch.nn.functional.logsigmoid(randn(B, H, S) + 2.0)
+    args = (q, k, v, ig, fl)
+    y, carry = ml.mlstm_scan(*args, chunk=L)
+    wy, wcarry = ref.ref_mlstm_scan(*args, chunk=L)
+    errs, rels = {}, {}
+    for name, g, w in zip(("y", "C", "n", "m"), (y,) + carry,
+                          (wy,) + wcarry):
+        errs[name] = check("mlstm_scan", g, w, "float32", name)
+        rels[name] = rel_err(g, w)
+        if not rels[name] <= MLSTM_REL_TOL:
+            raise AssertionError(f"mlstm_scan {name}: ||err|| / ||want|| "
+                                 f"{rels[name]:.3g} over {MLSTM_REL_TOL}")
+    pairs = B * H * (S // L) * L * (L + 1) / 2
+    flops = (4 * dh * pairs                           # q·k, P·v
+             + 2 * B * H * (S - L) * (dh * dh + dh)   # q·Cᵀ, q·n
+             + 2 * B * H * S * (dh * dh + dh))        # C, n updates
+    b_ms, b_by = bound(nbytes(*args, y, *carry), flops, "float32")
+    return {ml.NAME: dict(
+        shape=f"q/k/v [{B},{H},{S},{dh}], chunk {L}, f32; final carry "
+              f"C [{B},{H},{dh},{dh}]",
+        max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
+        rel_err_by_output=rels,
+        ms=timer.ms(lambda: ml.mlstm_scan(*args, chunk=L)),
+        plain_ms=timer.ms(lambda: ref.ref_mlstm_scan(*args, chunk=L)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes a chunkwise mLSTM",
+        flops_counted=flops)}
 
 
 def paged_case(torch, KV: int, G: int, D: int, seed: int, B: int = 16,
@@ -701,6 +775,20 @@ PROFILE_GROUPS = (
 )
 
 
+def device_events(prof) -> tuple[dict, int]:
+    """Device microseconds by kernel name in a profile (user annotations
+    left out: a trace may hold device-side copies of them, which span the
+    kernels they enclose) and the number of device events."""
+    from torch.autograd import DeviceType
+    per, count = {}, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.is_user_annotation():
+            continue
+        per[ev.name()] = per.get(ev.name(), 0) + ev.duration_ns() / 1e3
+        count += 1
+    return per, count
+
+
 def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
     """``torch.profiler`` over ``steps`` bf16 train
     steps (exanode-100m, batch 8 x 512, after one warm-up step): the
@@ -728,16 +816,11 @@ def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
-    per = {}           # kernel name -> device microseconds in the window
-    notes = 0.0        # device-side annotations' microseconds, left out
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != DeviceType.CUDA:
-            continue
-        us = ev.duration_ns() / 1e3
-        if not ev.is_user_annotation():
-            per[ev.name()] = per.get(ev.name(), 0) + us
-        else:
-            notes += us
+    per, _ = device_events(prof)   # kernel name -> device us
+    notes = sum(ev.duration_ns() / 1e3    # device-side annotations' us
+                for ev in prof.profiler.kineto_results.events()
+                if ev.device_type() == DeviceType.CUDA
+                and ev.is_user_annotation())
     total = sum(per.values())
     if not total:
         raise AssertionError("train_profile: the profiler recorded no "
@@ -765,6 +848,119 @@ def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
             + "; top kernels: " + "; ".join(
                 f"{k[:60]} {us / steps / 1e3:.2f} ms" for k, us in top)
             + f" [{gpu}]")
+
+
+XLSTM_PROFILE_GROUPS = (
+    ("mlstm_scan", ("mlstm_scan_kernel",)),
+    ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
+)
+
+
+def xlstm_profile_phase(torch, gpu: str, ticks: int = 8) -> str:
+    """Where an xlstm-125m bf16 prefill and decode tick spend their time,
+    on the engine's serving params (16 slots, capacity 2048):
+
+    * host wall (synchronized, best of a few calls) of one mLSTM layer and
+      one sLSTM layer, at the serve run's largest prefill batch (16 x 1024)
+      and in one decode step over 16 slots, and the mLSTM kernel's own time
+      in that prefill (CUDA events);
+    * torch.profiler over one whole prefill call (16 x 1024) and over
+      ``ticks`` decode ticks: device time by kernel group, device kernels
+      launched, and the idle share 1 - device time / wall, the wall taken
+      without the profiler (whose per-op cost inflates a host-bound
+      loop)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.models import ssm
+    from repro_torch.models.blocks import STATE_LEAVES, layer
+    from repro_torch.runtime import Runtime
+    rt = Runtime.create("xlstm-125m", capacity=2048)
+    eng = rt.engine(num_slots=16)
+    cfg, xl = rt.cfg, rt.cfg.xlstm
+    lp = layer(eng.params["groups"][0], 0)
+    B, S = 16, 1024
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(B, S, cfg.d_model, generator=gen,
+                    device="cuda").to(cfg.dtype)
+
+    def wall(fn, n: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    state = {kind: tuple(eng.caches[0][sub][n][0] for n in STATE_LEAVES[kind])
+             for kind, sub in (("mlstm", "sub0"), ("slstm", "sub3"))}
+    mix = {"mlstm": lp["sub0"]["mixer"], "slstm": lp["sub3"]["mixer"]}
+    layer_s = {
+        ("prefill", "mlstm"): wall(lambda: ssm.mlstm(x, mix["mlstm"], cfg,
+                                                     xl), 3),
+        ("prefill", "slstm"): wall(lambda: ssm.slstm(x, mix["slstm"], cfg,
+                                                     xl), 1),
+        ("tick", "mlstm"): wall(lambda: ssm.mlstm_decode(
+            x[:, :1], mix["mlstm"], cfg, xl, state["mlstm"]), 20),
+        ("tick", "slstm"): wall(lambda: ssm.slstm_decode(
+            x[:, :1], mix["slstm"], cfg, xl, state["slstm"]), 20)}
+    dh = int(xl.mlstm_proj_factor * cfg.d_model) // cfg.num_heads
+    q = torch.randn(B, cfg.num_heads, S, dh, generator=gen, device="cuda")
+    ig = torch.randn(B, cfg.num_heads, S, generator=gen, device="cuda")
+    fl = torch.nn.functional.logsigmoid(ig + 2.0)
+    kernel_ms = Timer(torch, 5).ms(lambda: ml.mlstm_scan(
+        q, q * dh ** -0.5, q, ig, fl, chunk=xl.chunk))
+
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)).to("cuda")
+    batch = {"tokens": toks,
+             "lengths": torch.full((B,), S, dtype=torch.int32,
+                                   device="cuda")}
+    runs = {"prefill": (lambda: eng._prefill(eng.params, batch), 1),
+            "tick": (lambda: eng._decode(eng.params, eng._tok, eng.caches,
+                                         eng._pos), ticks)}
+    parts = []
+    for name, (fn, n) in runs.items():
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / n)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        per, count = device_events(prof)
+        total = sum(per.values()) / n
+        groups = {g: 0.0 for g, _ in XLSTM_PROFILE_GROUPS}
+        groups["other"] = 0.0
+        for key, us in per.items():
+            g = next((g for g, subs in XLSTM_PROFILE_GROUPS
+                      if any(x in key for x in subs)), "other")
+            groups[g] += us / n
+        w = min(walls)
+        if not total:
+            raise AssertionError(f"xlstm_profile: no device time in {name}")
+        parts.append(
+            f"{name}: wall {w * 1e3:.2f} ms (unprofiled, best of 2), device "
+            f"time {total / 1e3:.2f} ms, idle share {1 - total / 1e3 / (w * 1e3):.4f}"
+            f", {count / n:.0f} device kernels; by group " + ", ".join(
+                f"{g} {us / 1e3:.2f} ms" for g, us in groups.items()))
+    return (f"xlstm_profile: xlstm-125m bf16, slots 16; one layer's host "
+            f"wall: prefill 16 x 1024 mLSTM "
+            f"{layer_s[('prefill', 'mlstm')] * 1e3:.2f} ms (its mlstm_scan "
+            f"kernel {kernel_ms:.3f} ms by CUDA events), sLSTM "
+            f"{layer_s[('prefill', 'slstm')] * 1e3:.2f} ms; decode step "
+            f"mLSTM {layer_s[('tick', 'mlstm')] * 1e3:.3f} ms, sLSTM "
+            f"{layer_s[('tick', 'slstm')] * 1e3:.3f} ms (x 9 and x 3 a "
+            f"model); " + "; ".join(parts) + f" [{gpu}]")
 
 
 def model_phase(torch) -> str:
@@ -962,6 +1158,75 @@ def serve_phase(torch, gpu: str) -> tuple[str, dict]:
     return line, launches
 
 
+XLSTM_PROMPT = 600       # 2 x 256 + 88: the last chunk is padded
+
+
+def xlstm_phase(torch, gpu: str) -> tuple[str, dict]:
+    """xlstm-125m at full width: (a) in f32, prefill logits of two
+    600-token prompts at every position and four decode ticks, the
+    mLSTM kernel on the card against the plain path on the CPU, within
+    MODEL_LOGITS_TOL; (b) the serve phase's 32 requests served in bf16 on
+    ``Runtime.create("xlstm-125m", capacity=2048).engine(num_slots=16)``,
+    cold and then warm, every launch counter zeroed just before the warm
+    run.  Fails unless mlstm_scan launched 9 times (once per mLSTM layer)
+    per prefill call of the warm run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_params, tree_map
+    from repro_torch.models.registry import model_specs
+    from repro_torch.runtime import Runtime
+    cfg = get_config("xlstm-125m").scaled(dtype=torch.float32)
+    cpu_params = init_params(model_specs(cfg), seed=0)
+    sides = {dev: Runtime.create(cfg, capacity=2048, device=dev, params=p)
+             for dev, p in (("cpu", cpu_params),
+                            ("cuda", tree_map(lambda t: t.to("cuda"),
+                                              cpu_params)))}
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                             (2, XLSTM_PROMPT), dtype=np.int32)
+    logits, caches = {}, {}
+    for dev, rt in sides.items():
+        logits[dev], caches[dev] = rt.prefill(torch.from_numpy(toks).to(dev))
+    errs = [float((logits["cuda"].cpu() - logits["cpu"]).abs().max())]
+    nxt = logits["cpu"][:, -1].argmax(-1).to(torch.int32)[:, None]
+    pos = torch.full((2,), XLSTM_PROMPT, dtype=torch.int32)
+    for _ in range(4):
+        for dev, rt in sides.items():
+            logits[dev] = rt.decode_step(nxt.to(dev), caches[dev],
+                                         pos.to(dev))
+        errs.append(float((logits["cuda"].cpu() - logits["cpu"]).abs()
+                          .max()))
+        nxt = logits["cpu"][:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = pos + 1
+    del sides, logits, caches
+    fmt = [float(f"{e:.3g}") for e in errs]
+    failed = []
+    if not max(errs) <= MODEL_LOGITS_TOL:
+        failed.append(f"f32 logits max abs err {fmt} over "
+                      f"{MODEL_LOGITS_TOL}")
+
+    rt = Runtime.create("xlstm-125m", capacity=2048)
+    prompts, new = serve_prompts(rt.cfg.vocab_size), 64
+    cold = serve_run(torch, rt, prompts, new)
+    warm = serve_run(torch, rt, prompts, new)
+    eng, launches = warm["eng"], warm["launches"]
+    calls = eng.stats.prefill_calls
+    if launches["mlstm_scan"] != 9 * calls or not calls:
+        failed.append(f"mlstm_scan launched {launches['mlstm_scan']} times "
+                      f"over {calls} prefill calls, not 9 per call")
+    line = (f"xlstm: xlstm-125m f32, 2 prompts x {XLSTM_PROMPT} tokens; max "
+            f"abs logits err prefill (every position) {fmt[0]}, decode "
+            f"ticks {fmt[1:]} (tol {MODEL_LOGITS_TOL}); serve bf16 "
+            f"capacity=2048 slots=16, {len(prompts)} requests x {new} new "
+            f"tokens, prompts 64-1024 ({eng.stats.summary}); warm run after "
+            f"one identical cold run (cold: wall {cold['wall']:.3f} s, "
+            f"prefill {cold['prefill']:.3f} s); {run_figures(warm)}; state "
+            f"bytes {eng.kv_cache_bytes()}; launches {launches} [{gpu}]")
+    if failed:
+        raise AssertionError(line + "\nxlstm phase failed: "
+                             + "; ".join(failed))
+    return line, launches
+
+
 def match_share(a: dict, b: dict) -> float:
     """Share of token positions (every request, every new token) where two
     runs' greedy streams agree."""
@@ -1099,7 +1364,9 @@ def main() -> int:
         entries = kernels_phase(torch, Timer(torch, args.iters))
         print("kernels: " + "; ".join(
             f"{n} {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
-            f"{e['library_ms']:.3f}, bound {e['bound_ms']:.4f} "
+            + ("none" if e["library_ms"] is None
+               else f"{e['library_ms']:.3f}")
+            + f", bound {e['bound_ms']:.4f} "
             f"{e['bound_by']}) err {e['max_abs_err']:.3g}"
             for n, e in entries.items()) + f"; tolerances {TOL} [{gpu}]",
             flush=True)
@@ -1107,7 +1374,7 @@ def main() -> int:
         print(model_phase(torch), flush=True)
     by_path = {}       # path -> that run's launch counts
     for path, run in (("serve", serve_phase), ("paged", paged_phase),
-                      ("train", train_phase)):
+                      ("xlstm", xlstm_phase), ("train", train_phase)):
         if path in phases:
             line, by_path[path] = run(torch, gpu)
             print(line, flush=True)
@@ -1115,6 +1382,8 @@ def main() -> int:
         print(int8_cpu_phase(torch, gpu), flush=True)
     if "train_profile" in phases:
         print(train_profile_phase(torch, gpu), flush=True)
+    if "xlstm_profile" in phases:
+        print(xlstm_profile_phase(torch, gpu), flush=True)
     if entries:
         print(json.dumps({"kernels": [
             dict(name=n, route="cuda", source=SOURCES[n][0],

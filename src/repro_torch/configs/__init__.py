@@ -12,6 +12,7 @@ import importlib
 ARCHS = {
     "exanode-100m": "exanode_100m",
     "llama3.2-3b": "llama3_2_3b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 

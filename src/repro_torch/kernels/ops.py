@@ -16,7 +16,9 @@ the plain forward and backward (``ref_attention_bwd``,
 saves (q, k, v, out, lse) and the FFN (x, w_gate, w_up, w_down): nothing
 [S, T]- or [N, F]-shaped.  Without grad (serving) they are the plain
 forward calls they were: the Functions are entered only when an input
-needs a gradient.
+needs a gradient.  The mLSTM scan has no backward kernel (the reference
+differentiates its jnp chunk math): on the card it refuses inputs that
+need a gradient.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ffn as _ffn
+from repro_torch.kernels import mlstm_scan as _ml
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
@@ -35,7 +38,8 @@ KERNELS = {_fa.NAME: (_fa, "launches"), _ffn.NAME: (_ffn, "launches"),
            _fa.NAME_BWD_DQ: (_fa, "launches_dq"),
            _fa.NAME_BWD_DKV: (_fa, "launches_dkv"),
            _ffn.NAME_BWD_DX: (_ffn, "launches_dx"),
-           _ffn.NAME_BWD_DW: (_ffn, "launches_dw")}
+           _ffn.NAME_BWD_DW: (_ffn, "launches_dw"),
+           _ml.NAME: (_ml, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -151,3 +155,18 @@ def paged_decode_attention_q8(q, k_pool, v_pool, k_scale, v_scale, pos_pool,
             q, k_pool, v_pool, k_scale, v_scale, pos_pool, block_table, pos)
     return _pa.paged_decode_attention_q8(q, k_pool, v_pool, k_scale, v_scale,
                                          pos_pool, block_table, pos)
+
+
+def mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256, state=None):
+    """q/k/v [B,H,S,dh] (k pre-scaled); i_gate/f_log [B,H,S], f32 ->
+    (y [B,H,S,dh], (C, n, m)) with the final carry; ``state`` starts the
+    carry (default zero).  On the card an input that needs a gradient
+    raises: xLSTM training is not ported."""
+    if q.device.type == "cpu":
+        return ref.ref_mlstm_scan(q, k, v, i_gate, f_log, chunk=chunk,
+                                  state=state)
+    if _needs_grad(q, k, v, i_gate, f_log, *(state or ())):
+        raise NotImplementedError(
+            "mlstm_scan has no backward kernel: training an xLSTM on the "
+            "card is not ported yet (ROADMAP queue 1, item 11)")
+    return _ml.mlstm_scan(q, k, v, i_gate, f_log, chunk=chunk, state=state)

@@ -186,3 +186,76 @@ def ref_swiglu_ffn_bwd(x, w_gate, w_up, w_down, dy):
     return (dx.to(x.dtype), (xf.t() @ dg).to(w_gate.dtype),
             (xf.t() @ du).to(w_up.dtype),
             ((silu * u).t() @ dyf).to(w_down.dtype))
+
+
+def ref_mlstm_chunk(q, k, v, i_gate, f_log, C0, n0, m0):
+    """Sequential mLSTM (the reference's oracle ``ref_mlstm_chunk``, the
+    recurrence of ``models/ssm.py::_mlstm_cell``): q/k/v [B,S,H,dh] (k
+    pre-scaled), i_gate/f_log [B,S,H] (f already log-sigmoid), carry
+    (C [B,H,dh,dh], n [B,H,dh], m [B,H]) -> (y [B,S,H,dh], (C, n, m)).
+    Each step is stabilized by m' = max(f + m, i)."""
+    C, n, m = C0, n0, m0
+    ys = []
+    for t in range(q.shape[1]):
+        qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], i_gate[:, t], \
+            f_log[:, t]
+        m_new = torch.maximum(ft + m, it)
+        i_ = torch.exp(it - m_new)
+        f_ = torch.exp(ft + m - m_new)
+        C = f_[..., None, None] * C + i_[..., None, None] * torch.einsum(
+            "bhv,bhk->bhvk", vt, kt)
+        n = f_[..., None] * n + i_[..., None] * kt
+        num = torch.einsum("bhvk,bhk->bhv", C, qt)
+        den = torch.einsum("bhk,bhk->bh", n, qt).abs().clamp(min=1.0)
+        ys.append(num / den[..., None])
+        m = m_new
+    return torch.stack(ys, dim=1), (C, n, m)
+
+
+def ref_mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256,
+                   state=None):
+    """The chunkwise-parallel mLSTM (``models/ssm.py::_mlstm_chunk``
+    scanned over chunks; the function of the Pallas ``_mlstm_kernel``),
+    in f32: q/k/v [B,H,S,dh] (k pre-scaled by dh^-0.5), i_gate/f_log
+    [B,H,S] (f already log-sigmoid), S a multiple of L = min(chunk, S) ->
+    (y [B,H,S,dh], (C [B,H,dh,dh], n [B,H,dh], m [B,H])).
+
+    The carry starts at ``state`` = (C, n, m) or at zero (C = 0, n = 0,
+    m = -inf).  Per chunk, g = cumsum(f_log), a = i - g and
+    M_t = max(m_prev, max_{s<=t} a_s); the causal [L,L] scores q·kᵀ are
+    weighted by e^{a_s - M_t}, the carry enters as e^{m_prev - M_t}·q·Cᵀ,
+    y = num / max(|den|, 1), and the carry becomes
+    C' = Σ_s e^{a_s - M_L} v_s k_sᵀ + e^{m_prev - M_L} C, n' likewise,
+    m' = g_L + M_L."""
+    B, H, S, dh = q.shape
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {L}")
+    q, k, v, i_gate, f_log = (t.float() for t in (q, k, v, i_gate, f_log))
+    if state is None:
+        C = q.new_zeros(B, H, dh, dh)
+        n = q.new_zeros(B, H, dh)
+        m = q.new_full((B, H), float("-inf"))
+    else:
+        C, n, m = (t.float() for t in state[:3])
+    causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    ys = []
+    for c0 in range(0, S, L):
+        qc, kc, vc = (t[:, :, c0:c0 + L] for t in (q, k, v))
+        g = torch.cumsum(f_log[:, :, c0:c0 + L], dim=-1)          # [B,H,L]
+        a = i_gate[:, :, c0:c0 + L] - g
+        M = torch.maximum(torch.cummax(a, dim=-1).values, m[..., None])
+        w = torch.exp(a[..., None, :] - M[..., :, None])          # [B,H,L,L]
+        scores = torch.where(causal, (qc @ kc.transpose(-1, -2)) * w, 0.0)
+        inter = torch.exp(m[..., None] - M)                       # [B,H,L]
+        num = scores @ vc + inter[..., None] * (qc @ C.transpose(-1, -2))
+        den = scores.sum(-1) + inter * (qc @ n[..., None])[..., 0]
+        ys.append(num / den.abs().clamp(min=1.0)[..., None])
+        M_L, g_L = M[..., -1], g[..., -1]
+        wc = torch.exp(a - M_L[..., None])                        # [B,H,L]
+        decay = torch.exp(m - M_L)
+        C = (vc * wc[..., None]).transpose(-1, -2) @ kc \
+            + decay[..., None, None] * C
+        n = (wc[..., None] * kc).sum(-2) + decay[..., None] * n
+        m = g_L + M_L
+    return torch.cat(ys, dim=2), (C, n, m)

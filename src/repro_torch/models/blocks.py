@@ -1,11 +1,18 @@
 """Block assembly over stacked layer parameters (port of
-``repro.models.blocks``, the ``attn`` kind only).
+``repro.models.blocks``, the ``attn``, ``mlstm`` and ``slstm`` kinds).
 
 A group's parameters are stacked along a leading "layers" axis, as in the
 reference, so a reference parameter tree carries over leaf for leaf.  The
 reference's ``jax.lax.scan`` over that axis (``blocks.py:195``) becomes a
-Python loop over layer views; decode caches are stacked the same way and
-each layer's view is updated in place.
+Python loop over layer views, each layer walking the group's pattern of
+kinds in order (xlstm-125m: mlstm, mlstm, mlstm, slstm); decode caches are
+stacked the same way and each layer's view is updated in place (the K/V
+entry of an attention layer, the whole recurrent state of an xLSTM one).
+
+Block kinds
+  attn    RMSNorm, GQA attention; RMSNorm, SwiGLU FFN
+  mlstm   RMSNorm, mLSTM mixer (its FFN is built into the projections)
+  slstm   RMSNorm, sLSTM mixer with its gated FFN
 
 Remat (the reference's ``_remat_wrap``, ``blocks.py:159``) wraps each
 layer of a differentiated forward in ``torch.utils.checkpoint``:
@@ -24,6 +31,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.models import ssm
 from repro_torch.models.attention import (attention, attention_decode,
                                           attention_decode_paged,
                                           attention_specs)
@@ -33,12 +41,24 @@ from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_specs
 
 
+# the state leaves of a recurrent block's cache, in the order its mixer
+# returns them
+STATE_LEAVES = {"mlstm": ("C", "n", "m", "conv"),
+                "slstm": ("c", "n", "m", "h")}
+
+
 def block_specs(kind: str, cfg: ModelConfig) -> dict:
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
     D = cfg.d_model
-    return {"norm1": rmsnorm_spec(D), "attn": attention_specs(cfg),
-            "norm2": rmsnorm_spec(D), "ffn": mlp_specs(cfg)}
+    if kind == "attn":
+        return {"norm1": rmsnorm_spec(D), "attn": attention_specs(cfg),
+                "norm2": rmsnorm_spec(D), "ffn": mlp_specs(cfg)}
+    if kind == "mlstm":
+        return {"norm1": rmsnorm_spec(D),
+                "mixer": ssm.mlstm_specs(cfg, cfg.xlstm)}
+    if kind == "slstm":
+        return {"norm1": rmsnorm_spec(D),
+                "mixer": ssm.slstm_specs(cfg, cfg.xlstm)}
+    raise NotImplementedError(f"block kind {kind!r} is not ported")
 
 
 def stack_specs(specs, n: int):
@@ -57,13 +77,20 @@ def layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
-def block_forward(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+def block_forward(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig, *,
                   collect_cache: bool = False):
-    """One ``attn`` block over the standard positions 0..S-1.
+    """One block of ``kind`` over the standard positions 0..S-1.
     Returns (x, cache or None); the cache is the grouped (k, v)
-    [B,S,KV,Dh] for prefill."""
+    [B,S,KV,Dh] of an ``attn`` block, or the final recurrent state of an
+    ``mlstm`` (C, n, m, conv) / ``slstm`` (c, n, m, h) block."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     cache = None
+    if kind in STATE_LEAVES:
+        mixer = ssm.mlstm if kind == "mlstm" else ssm.slstm
+        m, st = mixer(h, p["mixer"], cfg, cfg.xlstm)
+        if collect_cache:
+            cache = dict(zip(STATE_LEAVES[kind], st))
+        return x + m, cache
     if collect_cache:
         a, (k, v) = attention(h, p["attn"], cfg, return_kv=True)
         cache = {"k": k, "v": v}
@@ -107,8 +134,9 @@ def unstack(tree, n: int) -> list:
 
 def run_groups(x: torch.Tensor, group_params: list, cfg: ModelConfig, *,
                collect_cache: bool = False):
-    """All layer groups in order.  Returns (x, caches): per group, the
-    layers' prefill (k, v) stacked to [L,B,S,KV,Dh] (None without
+    """All layer groups in order.  Returns (x, caches): per group, each
+    sub-layer's prefill cache leaves stacked over the layers ((k, v) to
+    [L,B,S,KV,Dh], recurrent states to [L,B,...]; None without
     ``collect_cache``).  ``cfg.remat_policy`` applies to each layer when a
     gradient will be taken (grad enabled and x or a parameter requiring
     it); a prefill that collects caches, or any forward without grad,
@@ -123,8 +151,8 @@ def run_groups(x: torch.Tensor, group_params: list, cfg: ModelConfig, *,
             x.requires_grad or any(t.requires_grad for t in tree_leaves(gp)))
 
         def body(xx, lp, group=group):
-            for j in range(len(group.pattern)):
-                xx, _ = block_forward(xx, lp[f"sub{j}"], cfg)
+            for j, kind in enumerate(group.pattern):
+                xx, _ = block_forward(kind, xx, lp[f"sub{j}"], cfg)
             return xx
 
         step = _remat_wrap(body, policy) if differentiated else body
@@ -133,24 +161,34 @@ def run_groups(x: torch.Tensor, group_params: list, cfg: ModelConfig, *,
             if not collect_cache:
                 x = step(x, lp)
                 continue
-            for j in range(len(group.pattern)):
-                x, c = block_forward(x, lp[f"sub{j}"], cfg,
+            for j, kind in enumerate(group.pattern):
+                x, c = block_forward(kind, x, lp[f"sub{j}"], cfg,
                                      collect_cache=True)
                 per[j].append(c)
         caches.append({
-            f"sub{j}": {n: torch.stack([c[n] for c in cs]) for n in ("k", "v")}
+            f"sub{j}": {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
             for j, cs in enumerate(per)} if collect_cache else None)
     return x, caches
 
 
-def block_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict, *,
-                 pos: torch.Tensor, write_idx: torch.Tensor,
+def block_decode(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig,
+                 cache: dict, *, pos: torch.Tensor, write_idx: torch.Tensor,
                  paged=None) -> torch.Tensor:
-    """One ``attn`` block, one token; ``cache`` (this layer's views) is
-    updated in place.  ``paged`` = {"block_table": [B,M], "write_bids":
-    [B]} switches the cache to the pooled paged layout (its leaves are then
-    this layer's block pools; int8 pools carry ``k_scale``/``v_scale``)."""
+    """One block of ``kind``, one token; ``cache`` (this layer's views of
+    the stacked caches) is updated in place: an ``attn`` block writes the
+    token's K/V entry, a recurrent block copies its new state into every
+    leaf.  ``paged`` = {"block_table": [B,M], "write_bids": [B]} switches
+    an attention cache to the pooled paged layout (its leaves are then this
+    layer's block pools; int8 pools carry ``k_scale``/``v_scale``)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    if kind in STATE_LEAVES:
+        step = ssm.mlstm_decode if kind == "mlstm" else ssm.slstm_decode
+        names = STATE_LEAVES[kind]
+        m, st = step(h, p["mixer"], cfg, cfg.xlstm,
+                     tuple(cache[n] for n in names))
+        for n, t in zip(names, st):
+            cache[n].copy_(t)
+        return x + m
     if paged is not None:
         a = attention_decode_paged(
             h, p["attn"], cfg, k_pool=cache["k"], v_pool=cache["v"],
@@ -171,13 +209,19 @@ def run_groups_decode(x: torch.Tensor, group_params: list, caches: list,
                       write_idx: torch.Tensor, paged=None) -> torch.Tensor:
     """One-token step through all groups.  Where the reference threads the
     caches through a scan and returns new ones, the port writes each
-    layer's new K/V entry into the stacked caches in place.  ``paged``
+    layer's new K/V entry or state into the stacked caches in place.  ``paged``
     (block table + this tick's write plan) applies to every layer: one
     table serves all layers' pools."""
     for group, gp, gc in zip(cfg.groups, group_params, caches):
         for i in range(group.repeats):
             lp, lc = layer(gp, i), layer(gc, i)
-            for j in range(len(group.pattern)):
-                x = block_decode(x, lp[f"sub{j}"], cfg, lc[f"sub{j}"],
+            for j, kind in enumerate(group.pattern):
+                x = block_decode(kind, x, lp[f"sub{j}"], cfg, lc[f"sub{j}"],
                                  pos=pos, write_idx=write_idx, paged=paged)
     return x
+
+
+def kind_cache_key(kind: str) -> str:
+    """The cache family of a block kind: "attn" (K/V entries at positions)
+    or "ssm" (a recurrent state)."""
+    return "attn" if kind.startswith("attn") else "ssm"

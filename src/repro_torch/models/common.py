@@ -18,6 +18,17 @@ import torch
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    """mLSTM / sLSTM widths (the reference's ``XLSTMConfig``): the xLSTM
+    paper's projection factors, the mLSTM's causal-conv window and its scan
+    chunk."""
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 4.0 / 3.0
+    conv_window: int = 4
+    chunk: int = 256
+
+
+@dataclass(frozen=True)
 class LayerGroup:
     pattern: tuple[str, ...]
     repeats: int
@@ -31,9 +42,10 @@ class LayerGroup:
 class ModelConfig:
     """Field-for-field mirror of ``repro.models.common.ModelConfig``.
 
-    The MoE / SSM / xLSTM / encoder sub-configs are kept as opaque values:
-    no ported config sets them, and ``models.registry.check_supported``
-    rejects any config that does."""
+    ``xlstm`` is the reference's ``XLSTMConfig``.  The MoE / SSM (Mamba) /
+    encoder sub-configs are kept as opaque values: no ported config sets
+    them, and ``models.registry.check_supported`` rejects any config that
+    does."""
     name: str
     family: str
     num_layers: int
@@ -56,7 +68,7 @@ class ModelConfig:
     mlp_act: str = "silu"
     moe: Optional[Any] = None
     ssm: Optional[Any] = None
-    xlstm: Optional[Any] = None
+    xlstm: Optional[XLSTMConfig] = None
     encoder: Optional[Any] = None
     frontend: Optional[str] = None
     frontend_len: int = 0

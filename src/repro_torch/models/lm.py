@@ -50,7 +50,8 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``last_only`` projects the final position only ([B,1,Vp]);
     ``last_index`` [B] picks a per-row position instead (right-padded
     batched prefill).  ``caches`` is ``run_groups``' per-group stacked
-    prefill (k, v) with ``collect_cache``, else a list of None."""
+    prefill caches ((k, v), or the final recurrent states of xLSTM
+    blocks) with ``collect_cache``, else a list of None."""
     x = _embed(params, tokens, cfg)
     x, caches = run_groups(x, params["groups"], cfg,
                            collect_cache=collect_cache)
@@ -92,8 +93,9 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
 def lm_decode_step(params: dict, token: torch.Tensor, caches: list,
                    cfg: ModelConfig, *, pos: torch.Tensor,
                    write_idx: torch.Tensor, paged=None) -> torch.Tensor:
-    """token [B,1] -> logits [B,1,Vp].  The token's K/V entries are written
-    into ``caches`` in place (the reference returns new caches).
+    """token [B,1] -> logits [B,1,Vp].  The token's K/V entries (or the
+    xLSTM blocks' new states) are written into ``caches`` in place (the
+    reference returns new caches).
     ``paged`` = {"block_table", "write_bids"} switches the caches to the
     pooled paged layout (``serve/blockpool.py``)."""
     x = _embed(params, token, cfg)

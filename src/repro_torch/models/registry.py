@@ -14,30 +14,37 @@ import torch
 
 from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
 from repro_torch.models import lm
+from repro_torch.models.blocks import kind_cache_key
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve import kvcache
 
 _LATER = "ROADMAP queue 1, item 11 (remaining families)"
 
 
+PORTED_KINDS = ("attn", "mlstm", "slstm")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside this slice:
-    dense decoder-only ``attn`` stacks with RoPE and SwiGLU only."""
+    """Raise ``NotImplementedError`` for a config outside the port: dense
+    decoder-only ``attn`` stacks with RoPE and SwiGLU, and xLSTM stacks of
+    ``mlstm`` / ``slstm`` blocks (xlstm-125m)."""
+    kinds = {k for g in cfg.groups for k in g.pattern}
     unsupported = {
         "sliding-window attention (ring-buffer KV)":
             cfg.sliding_window is not None,
         "attention logit softcap": cfg.attn_logit_softcap is not None,
         "final logit softcap": cfg.logit_softcap is not None,
         "mixture of experts": cfg.moe is not None,
-        "SSM blocks": cfg.ssm is not None,
-        "xLSTM blocks": cfg.xlstm is not None,
+        "Mamba (SSM) blocks": cfg.ssm is not None,
+        "xLSTM blocks without an xlstm config": cfg.xlstm is None and bool(
+            kinds & {"mlstm", "slstm"}),
         "encoder-decoder": cfg.encoder is not None,
         "frontend embeddings": bool(cfg.frontend),
         "learned positions": cfg.pos_emb != "rope" or not cfg.use_rope,
         "scaled embeddings": cfg.scale_embeddings,
         f"{cfg.mlp_act} gating (only SwiGLU)": cfg.mlp_act != "silu",
-        "block kinds other than 'attn'": any(
-            k != "attn" for g in cfg.groups for k in g.pattern),
+        f"block kinds {sorted(kinds - set(PORTED_KINDS))}": bool(
+            kinds - set(PORTED_KINDS)),
     }
     missing = [what for what, hit in unsupported.items() if hit]
     if missing:
@@ -49,12 +56,15 @@ def check_supported(cfg: ModelConfig) -> None:
 @dataclass(frozen=True)
 class Capabilities:
     """The subset of the reference's flags the slices read: ``swa``
-    selects exact-length admission buckets; the kernel flags say which
+    selects exact-length admission buckets; ``subquadratic`` marks a
+    recurrent stack whose decode state is O(1) per stream (the
+    reference's flag, set by the config); the kernel flags say which
     Hopper kernels can express the config (``supports_flash_train``: the
     flash forward and backward kernels, which the training path needs on
     the card); ``supports_paged_decode`` / ``supports_quantized_kv`` gate
     the pooled KV layout and its int8 pool."""
     swa: bool
+    subquadratic: bool
     supports_flash_train: bool
     supports_fused_ffn: bool
     supports_flash_decode: bool
@@ -63,7 +73,8 @@ class Capabilities:
 
     @property
     def summary(self) -> str:
-        return ",".join(n for n in ("swa", "supports_flash_train",
+        return ",".join(n for n in ("swa", "subquadratic",
+                                    "supports_flash_train",
                                     "supports_fused_ffn",
                                     "supports_flash_decode",
                                     "supports_paged_decode",
@@ -76,12 +87,14 @@ def capabilities(cfg: ModelConfig) -> Capabilities:
     # reference's structural law).  The port has no plain gather route on
     # the card, so the paged kernel's own limit (no logit softcap, the
     # reference's ``paged_pallas_supported``) is part of the capability;
-    # the int8 pool shares both.
+    # the int8 pool shares both.  Recurrent (xLSTM) states are O(1) per
+    # slot: there is nothing to page, so their stacks are not paged.
     paged = (cfg.sliding_window is None
              and cfg.attn_logit_softcap is None
              and all(k == "attn" for g in cfg.groups for k in g.pattern))
     return Capabilities(
         swa=cfg.sliding_window is not None,
+        subquadratic=cfg.subquadratic,
         supports_flash_train=(cfg.attn_logit_softcap is None
                               and cfg.head_dim in BWD_HEAD_DIMS),
         supports_fused_ffn=cfg.mlp_act == "silu",
@@ -108,9 +121,14 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig):
 
 def _decode_write_index(cfg: ModelConfig, caches: list,
                         pos: torch.Tensor) -> torch.Tensor:
-    """Write indices from the first attention layer's cache length."""
-    cache_len = caches[0]["sub0"]["k"].shape[2]
-    return kvcache.write_index(cfg, pos, cache_len)
+    """Write indices from the first attention layer's cache length; the
+    absolute positions where no layer has an attention cache."""
+    for g, gc in zip(cfg.groups, caches):
+        for j, kind in enumerate(g.pattern):
+            if kind_cache_key(kind) == "attn":
+                return kvcache.write_index(cfg, pos, gc[f"sub{j}"]["k"]
+                                           .shape[2])
+    return pos
 
 
 def model_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -127,7 +145,8 @@ def model_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
 def model_decode_step(params, token: torch.Tensor, caches: list,
                       cfg: ModelConfig, *, pos: torch.Tensor) -> torch.Tensor:
     """token [B,1]; pos [B] absolute positions -> logits [B,1,Vp];
-    ``caches`` take the token's K/V in place."""
+    ``caches`` take the token's K/V (or the new recurrent states) in
+    place."""
     widx = _decode_write_index(cfg, caches, pos)
     return lm.lm_decode_step(params, token, caches, cfg, pos=pos,
                              write_idx=widx)

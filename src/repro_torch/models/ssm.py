@@ -1,0 +1,250 @@
+"""xLSTM blocks: the mLSTM and sLSTM mixers with their one-token decode
+steps (port of the xLSTM half of ``repro.models.ssm``; Mamba waits for
+its slice).
+
+The mLSTM keeps a matrix memory C [B,H,dh,dh] with a normalizer n and a
+stabilizer m.  Its prefill runs the chunkwise-parallel form through
+``kernels.ops.mlstm_scan`` (the Hopper kernel on the card, the plain
+``ref_mlstm_scan`` on the CPU), which also returns the final state; its
+decode step is the sequential cell in plain PyTorch, as the reference's
+is jnp.  The sLSTM is a sequential recurrence (R·h_{t-1} has no parallel
+form) in plain PyTorch, one step per token.  Matrix products of the
+projections are ``torch.matmul``; layouts and the order of operations
+follow the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ref_mlstm_chunk
+from repro_torch.models.common import ModelConfig, PSpec, XLSTMConfig
+
+# parameters the reference reads in f32 whatever the activation dtype
+# (``.astype(jnp.float32)``): the serve engine keeps them in f32
+F32_PARAMS = frozenset({"b_if", "r_rec", "bias"})
+PAD_GATE = -1e30      # i-gate of a pad step: it weighs e^-1e30 = 0
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv by shifted adds in x's dtype. x [B,S,Di],
+    w [K,Di]."""
+    K, S = w.shape[0], x.shape[1]
+    out = torch.zeros_like(x)
+    for k in range(K):
+        shift = K - 1 - k
+        xk = x if shift == 0 else F.pad(x, (0, 0, shift, 0))[:, :S]
+        out = out + xk * w[k].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B,S,E] · w [E,H,dh] -> [B,S,H,dh] in f32 (the product in x's
+    dtype, as the reference's einsum then ``astype(f32)``)."""
+    E, H, dh = w.shape
+    y = x @ w.to(x.dtype).reshape(E, H * dh)
+    return y.view(*x.shape[:-1], H, dh).float()
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def _mlstm_widths(cfg: ModelConfig, xl: XLSTMConfig) -> tuple[int, int]:
+    Di = int(xl.mlstm_proj_factor * cfg.d_model)
+    return Di, Di // cfg.num_heads
+
+
+def mlstm_specs(cfg: ModelConfig, xl: XLSTMConfig) -> dict:
+    D, H = cfg.d_model, cfg.num_heads
+    Di, dh = _mlstm_widths(cfg, xl)
+    return {
+        "up_proj": PSpec((D, 2 * Di), init=f"scaled:{D}"),
+        "conv_w": PSpec((xl.conv_window, Di), init=f"scaled:{xl.conv_window}"),
+        "conv_b": PSpec((Di,), init="zeros"),
+        "wq": PSpec((Di, H, dh), init=f"scaled:{Di}"),
+        "wk": PSpec((Di, H, dh), init=f"scaled:{Di}"),
+        "wv": PSpec((Di, H, dh), init=f"scaled:{Di}"),
+        "w_if": PSpec((Di, 2 * H), init=f"scaled:{Di}"),
+        "b_if": PSpec((2 * H,), init="zeros"),
+        "out_norm": PSpec((Di,), init="ones"),
+        "down_proj": PSpec((Di, D), init=f"scaled:{Di}"),
+    }
+
+
+def _mlstm_gates(xc: torch.Tensor, p: dict):
+    """(i_gate, log-sigmoid f) [B,S,H] in f32 from the conv branch."""
+    gates = (xc @ p["w_if"].to(xc.dtype)).float() + p["b_if"].float()
+    i_gate, f_gate = gates.chunk(2, dim=-1)
+    return i_gate, F.logsigmoid(f_gate)
+
+
+def _mlstm_cell(q, k, v, i_gate, f_log, C0, n0, m0):
+    """The sequential mLSTM recurrence (the reference's ``_mlstm_cell``):
+    q/k/v [B,S,H,dh] with k not yet scaled, gates [B,S,H] f32 -> (y
+    [B,S,H,dh], (C, n, m)); k is scaled by dh^-0.5 inside."""
+    return ref_mlstm_chunk(q, k * q.shape[-1] ** -0.5, v, i_gate, f_log,
+                           C0, n0, m0)
+
+
+def _mlstm_out(y: torch.Tensor, z: torch.Tensor, p: dict) -> torch.Tensor:
+    """Per-channel out norm, the z gate and the down projection."""
+    y = y * p["out_norm"].to(y.dtype)
+    y = y * F.silu(z)
+    return y @ p["down_proj"].to(y.dtype)
+
+
+def mlstm(x: torch.Tensor, p: dict, cfg: ModelConfig, xl: XLSTMConfig,
+          state=None):
+    """mLSTM mixer over a sequence, chunkwise-parallel. x [B,S,D] ->
+    (out [B,S,D], (C, n, m, conv_buf)): the final state, with the last
+    K-1 rows of the conv input (f32) as the decode step's conv buffer.
+    ``state`` = (C, n, m, ...) starts the scan (default: zero); the conv
+    starts from zeros either way, as in the reference.
+
+    S is padded to a multiple of L = min(chunk, S) with pad steps that
+    weigh nothing (i = -1e30, f_log = 0, zero q/k/v)."""
+    B, S, _ = x.shape
+    Di, dh = _mlstm_widths(cfg, xl)
+    dt = x.dtype
+    xz = x @ p["up_proj"].to(dt)
+    x_in, z = xz.chunk(2, dim=-1)
+    xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
+    q, k, v = _heads(xc, p["wq"]), _heads(xc, p["wk"]), _heads(x_in, p["wv"])
+    k = k * dh ** -0.5
+    i_gate, f_log = _mlstm_gates(xc, p)
+
+    L = min(xl.chunk, S)
+    pad = (-S) % L
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        i_gate = F.pad(i_gate, (0, 0, 0, pad), value=PAD_GATE)
+        f_log = F.pad(f_log, (0, 0, 0, pad))
+    heads = lambda t: t.transpose(1, 2).contiguous()     # noqa: E731
+    y, (C, n, m) = ops.mlstm_scan(
+        heads(q), heads(k), heads(v), heads(i_gate), heads(f_log), chunk=L,
+        state=None if state is None else tuple(state[:3]))
+    y = y.transpose(1, 2).reshape(B, S + pad, Di)[:, :S].to(dt)
+    K = xl.conv_window
+    buf = F.pad(x_in, (0, 0, max(0, (K - 1) - S), 0))[:, -(K - 1):]
+    return _mlstm_out(y, z, p), (C, n, m, buf.float())
+
+
+def mlstm_init_state(cfg: ModelConfig, xl: XLSTMConfig, batch: int,
+                     device="cpu") -> tuple:
+    """Zero state: C, n zero, m = -inf, conv buffer zero (all f32)."""
+    H = cfg.num_heads
+    Di, dh = _mlstm_widths(cfg, xl)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros(batch, H, dh, dh, **f32),
+            torch.zeros(batch, H, dh, **f32),
+            torch.full((batch, H), float("-inf"), **f32),
+            torch.zeros(batch, xl.conv_window - 1, Di, **f32))
+
+
+def mlstm_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                 xl: XLSTMConfig, state):
+    """One-token mLSTM step. x [B,1,D]; state = (C, n, m, conv_buf) ->
+    (out [B,1,D], new state)."""
+    B = x.shape[0]
+    C0, n0, m0, conv_buf = state
+    Di, _ = _mlstm_widths(cfg, xl)
+    dt = x.dtype
+    xz = x @ p["up_proj"].to(dt)
+    x_in, z = xz.chunk(2, dim=-1)
+    window = torch.cat([conv_buf.to(dt), x_in], dim=1)            # [B,K,Di]
+    xc = torch.einsum("bke,ke->be", window, p["conv_w"].to(dt))
+    xc = F.silu(xc + p["conv_b"].to(dt))[:, None]
+    q, k, v = _heads(xc, p["wq"]), _heads(xc, p["wk"]), _heads(x_in, p["wv"])
+    i_gate, f_log = _mlstm_gates(xc, p)
+    y, (C, n, m) = _mlstm_cell(q, k, v, i_gate, f_log, C0, n0, m0)
+    y = y.reshape(B, 1, Di).to(dt)
+    return _mlstm_out(y, z, p), (C, n, m, window[:, 1:].float())
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_specs(cfg: ModelConfig, xl: XLSTMConfig) -> dict:
+    D, H = cfg.d_model, cfg.num_heads
+    dh = D // H
+    Fd = int(xl.slstm_proj_factor * D)
+    return {
+        "w_in": PSpec((D, 4, H, dh), init=f"scaled:{D}"),     # z, i, f, o
+        "r_rec": PSpec((4, H, dh, dh), init=f"scaled:{dh}"),  # per head
+        "bias": PSpec((4, H, dh), init="zeros"),
+        "out_norm": PSpec((D,), init="ones"),
+        "ffn_gate": PSpec((D, Fd), init=f"scaled:{D}"),
+        "ffn_up": PSpec((D, Fd), init=f"scaled:{D}"),
+        "ffn_down": PSpec((Fd, D), init=f"scaled:{Fd}"),
+    }
+
+
+def _slstm_cell(zx, ix, fx, ox, r_rec, bias, state):
+    """The sequential sLSTM (the reference's ``_slstm_cell``; its chunked
+    remat changes memory, not numbers): zx..ox [B,S,H,dh] input
+    pre-activations, r_rec [4,H,dh,dh] per-head recurrent weights, bias
+    [4,H,dh], state (c, n, m, h) [B,H,dh] -> (h_t stacked [B,S,H,dh],
+    final state).  One host step per token."""
+    c, n, m, h = state
+    B, S, H, dh = zx.shape
+    # rec[g,b,h,i] = Σ_j r[g,h,i,j] h[b,h,j] as one [H] batch of
+    # [B,dh] x [dh,4·dh] products
+    r = r_rec.permute(1, 3, 0, 2).reshape(H, dh, 4 * dh)
+    ys = []
+    for t in range(S):
+        rec = torch.bmm(h.transpose(0, 1), r).view(H, B, 4, dh) \
+            .permute(2, 1, 0, 3)                                 # [4,B,H,dh]
+        z_ = torch.tanh(zx[:, t] + rec[0] + bias[0])
+        i_ = ix[:, t] + rec[1] + bias[1]
+        f_ = fx[:, t] + rec[2] + bias[2]
+        o_ = torch.sigmoid(ox[:, t] + rec[3] + bias[3])
+        f_log = F.logsigmoid(f_)
+        m_new = torch.maximum(f_log + m, i_)
+        i_e = torch.exp(i_ - m_new)
+        f_e = torch.exp(f_log + m - m_new)
+        c = f_e * c + i_e * z_
+        n = f_e * n + i_e
+        h = o_ * c / n.clamp(min=1.0)
+        m = m_new
+        ys.append(h)
+    return torch.stack(ys, dim=1), (c, n, m, h)
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int, device="cpu") -> tuple:
+    """Zero state: c, n, h zero and m = -inf, [B,H,dh] f32 each."""
+    shape = (batch, cfg.num_heads, cfg.d_model // cfg.num_heads)
+    z = torch.zeros(shape, dtype=torch.float32, device=device)
+    return (z, z, torch.full(shape, float("-inf"), device=device), z)
+
+
+def slstm(x: torch.Tensor, p: dict, cfg: ModelConfig, xl: XLSTMConfig,
+          state=None):
+    """sLSTM block: the cell, the out norm and the GeLU-gated FFN.
+    x [B,S,D] -> (out [B,S,D], (c, n, m, h))."""
+    B, S, D = x.shape
+    H = cfg.num_heads
+    dh = D // H
+    dt = x.dtype
+    pre = (x @ p["w_in"].to(dt).reshape(D, 4 * H * dh)).view(
+        B, S, 4, H, dh).permute(2, 0, 1, 3, 4).float()           # [4,B,S,H,dh]
+    if state is None:
+        state = slstm_init_state(cfg, B, x.device)
+    ys, state = _slstm_cell(pre[0], pre[1], pre[2], pre[3],
+                            p["r_rec"].float(), p["bias"].float(), state)
+    y = ys.reshape(B, S, D).to(dt) * p["out_norm"].to(dt)
+    g = y @ p["ffn_gate"].to(dt)
+    u = y @ p["ffn_up"].to(dt)
+    out = (F.gelu(g, approximate="tanh") * u) @ p["ffn_down"].to(dt)
+    return out, state
+
+
+def slstm_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                 xl: XLSTMConfig, state):
+    """One-token sLSTM step: the block over S = 1 from ``state``."""
+    return slstm(x, p, cfg, xl, state)

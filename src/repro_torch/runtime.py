@@ -11,6 +11,8 @@
     rt = Runtime.create("exanode-100m", shape_kind="train", seq_len=512)
     state = rt.init_train_state()
     state, metrics = rt.train_step(state, batch)          # in place
+    rt = Runtime.create("xlstm-125m", capacity=2048)      # recurrent stack
+    engine = rt.engine(num_slots=16)                      # mLSTM/sLSTM states
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without a GPU ``create`` raises rather than carrying on on the CPU.  Pass
@@ -24,7 +26,9 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import registry
+from repro_torch.models.blocks import STATE_LEAVES
 from repro_torch.models.common import ModelConfig, count_params, init_params
+from repro_torch.serve import kvcache
 from repro_torch.serve import steps as serve_steps
 from repro_torch.train import state as train_state_mod
 from repro_torch.train import steps as train_steps
@@ -72,6 +76,18 @@ def resolve_device(device) -> torch.device:
                 "versions of its kernels on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def recurrent_kinds(cfg: ModelConfig) -> dict[str, int]:
+    """Layers of each recurrent (xLSTM) block kind in ``cfg``, e.g.
+    ``{"mlstm": 9, "slstm": 3}`` for xlstm-125m; empty for an attention
+    stack."""
+    out: dict[str, int] = {}
+    for g in cfg.groups:
+        for k in g.pattern:
+            if k in STATE_LEAVES:
+                out[k] = out.get(k, 0) + g.repeats
+    return out
 
 
 class Runtime:
@@ -129,9 +145,13 @@ class Runtime:
         blocks) and ``kv_dtype`` the paged pool's storage ("f32" is the
         working dtype, "int8" quantized blocks with per-(block, kv head)
         scales, paged only); bad values raise ``ValueError`` here.  A
-        config outside this slice (any family but the dense decoder-only
-        ``attn`` stack) raises ``NotImplementedError`` naming the ROADMAP
-        item that will bring it."""
+        config outside the port (any family but the dense decoder-only
+        ``attn`` stack and the xLSTM stack) raises ``NotImplementedError``
+        naming the ROADMAP item that will bring it.  An xLSTM config (xlstm-125m) serves over
+        the dense layout only (its states are O(1) per stream: the paged
+        layout raises the reference's ``ValueError``), and a train shape
+        for it raises ``NotImplementedError``: xLSTM training is not
+        ported."""
         if isinstance(arch, ModelConfig):
             if smoke:
                 raise ValueError("smoke=True only applies when arch is a "
@@ -153,6 +173,11 @@ class Runtime:
             raise ValueError("grad_sync='hierarchical_int8' needs a pod axis "
                              "and its error-feedback residual; the port runs "
                              "on one device (ROADMAP queue 1, item 9)")
+        if shape_kind == "train" and recurrent_kinds(cfg):
+            raise NotImplementedError(
+                f"training {cfg.name!r} (xLSTM blocks) on the port is not "
+                f"ported yet (ROADMAP queue 1, item 11: xLSTM training on "
+                f"the card)")
         if shape_kind == "train" and not caps.supports_flash_train:
             raise ValueError(f"arch {cfg.name!r} cannot train through the "
                              f"flash kernels (caps: {caps.summary})")
@@ -286,27 +311,39 @@ class Runtime:
         where = (torch.cuda.get_device_name(self.device)
                  if self.device.type == "cuda"
                  else "cpu (plain PyTorch versions of the kernels)")
-        decode = {("dense", "f32"): "decode_attention",
-                  ("paged", "f32"): "paged_decode_attention",
-                  ("paged", "int8"): "paged_decode_attention_q8"}[
-                      (self.kv_layout, self.kv_dtype)]
-        return "\n".join([
-            f"runtime[{self.cfg.name}] params={self.num_params:,} "
-            f"device={self.device} ({where})",
-            f"  caps      : {self.caps.summary}",
-            f"  kernels   : flash_attention fused_ffn {decode} "
-            f"({'Hopper CUDA' if self.device.type == 'cuda' else 'plain'})",
-            f"  train     : seq_len={self.seq_len} "
-            f"ce_chunk={self.ce_chunk} remat={self.cfg.remat_policy} "
-            f"param_dtype={self.param_dtype} kernels: flash_attention + "
-            f"flash_attention_bwd_dq/_dkv, fused_ffn + fused_ffn_bwd_dx/_dw "
-            f"(torch.autograd.Function; "
-            f"{'Hopper CUDA' if self.device.type == 'cuda' else 'plain'})",
-            f"  serve     : capacity={self.capacity} "
-            f"kv_layout={self.kv_layout} kv_dtype={self.kv_dtype} "
-            f"kv_bytes/stream={self.kv_bytes_per_stream():,} "
-            f"dtype={self.cfg.dtype} scheduler=off",
-        ])
+        impl = "Hopper CUDA" if self.device.type == "cuda" else "plain"
+        rec = recurrent_kinds(self.cfg)
+        lines = [f"runtime[{self.cfg.name}] params={self.num_params:,} "
+                 f"device={self.device} ({where})",
+                 f"  caps      : {self.caps.summary}"]
+        if rec:
+            lines += [
+                f"  family    : {self.cfg.family} (recurrent: " + ", ".join(
+                    f"{k} x{n}" for k, n in rec.items())
+                + f"; state bytes/stream="
+                  f"{kvcache.state_bytes_per_stream(self.cfg):,})",
+                f"  kernels   : mlstm_scan (mLSTM prefill; sLSTM, the mLSTM "
+                f"decode step and the projections in plain PyTorch) "
+                f"({impl})",
+                "  train     : not ported for xLSTM blocks (ROADMAP queue 1,"
+                " item 11)"]
+        else:
+            decode = {("dense", "f32"): "decode_attention",
+                      ("paged", "f32"): "paged_decode_attention",
+                      ("paged", "int8"): "paged_decode_attention_q8"}[
+                          (self.kv_layout, self.kv_dtype)]
+            lines += [
+                f"  kernels   : flash_attention fused_ffn {decode} ({impl})",
+                f"  train     : seq_len={self.seq_len} "
+                f"ce_chunk={self.ce_chunk} remat={self.cfg.remat_policy} "
+                f"param_dtype={self.param_dtype} kernels: flash_attention + "
+                f"flash_attention_bwd_dq/_dkv, fused_ffn + "
+                f"fused_ffn_bwd_dx/_dw (torch.autograd.Function; {impl})"]
+        lines.append(f"  serve     : capacity={self.capacity} "
+                     f"kv_layout={self.kv_layout} kv_dtype={self.kv_dtype} "
+                     f"kv_bytes/stream={self.kv_bytes_per_stream():,} "
+                     f"dtype={self.cfg.dtype} scheduler=off")
+        return "\n".join(lines)
 
     def __repr__(self) -> str:
         return f"Runtime({self.cfg.name!r}, device={self.device})"

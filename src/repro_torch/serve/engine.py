@@ -58,6 +58,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models.ssm import F32_PARAMS
 from repro_torch.runtime import check_kv_layout
 from repro_torch.serve import blockpool, kvcache
 
@@ -441,29 +442,37 @@ class ServeEngine:
 
 
     def kv_cache_bytes(self) -> int:
-        """Bytes of K/V storage as allocated: the dense per-slot slabs or
-        the paged pool, int8 scale pools included."""
-        return sum(sub[n].numel() * sub[n].element_size()
+        """Bytes of decode-state storage as allocated: the dense per-slot
+        K/V slabs or the paged pool (int8 scale pools included), and the
+        xLSTM layers' recurrent states; the attention positions are not
+        counted.  (The reference counts K/V only, so for an xLSTM stack
+        its figure is 0.)"""
+        return sum(t.numel() * t.element_size()
                    for gc in self.caches for sub in gc.values()
-                   for n in ("k", "v", "k_scale", "v_scale") if n in sub)
+                   for n, t in sub.items() if n != "pos")
 
     def kv_cache_f32_equiv_bytes(self) -> int:
         """Bytes the same K/V entries would take in the working dtype (no
-        scale pools); equals :meth:`kv_cache_bytes` unless the pool is
-        int8."""
+        scale pools), plus the recurrent states as allocated; equals
+        :meth:`kv_cache_bytes` unless the pool is int8."""
         itemsize = self.cfg.dtype.itemsize
-        return sum(sub[n].numel() * itemsize
+        return sum(t.numel() * (itemsize if n in ("k", "v")
+                                else t.element_size())
                    for gc in self.caches for sub in gc.values()
-                   for n in ("k", "v"))
+                   for n, t in sub.items()
+                   if n not in ("pos", "k_scale", "v_scale"))
 
 
 def serving_params(params, dtype: torch.dtype):
     """The parameter tree with every matrix cast once to ``dtype``;
-    RMSNorm scales (any key containing "norm") stay f32."""
+    RMSNorm scales (any key containing "norm") and the xLSTM parameters
+    the reference reads in f32 (``models.ssm.F32_PARAMS``: gate biases,
+    sLSTM recurrent weights) stay f32."""
     def cast(tree, key=""):
         if isinstance(tree, dict):
             return {k: cast(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [cast(v, key) for v in tree]
-        return tree if "norm" in key else tree.to(dtype)
+        keep = "norm" in key or key in F32_PARAMS
+        return tree if keep else tree.to(dtype)
     return cast(params)

@@ -56,7 +56,8 @@ def make_decode_step(cfg: ModelConfig, *,
     """(params, token [B,1], caches, pos [B]) -> (next [B], caches).
 
     ``pos`` is the absolute position of the incoming token.  ``caches``
-    take the token's K/V in place and come back as the same object.  With
+    take the token's K/V (or the new recurrent states) in place and come
+    back as the same object.  With
     ``advance_pos`` the step returns ``(next [B,1], caches, pos + 1)``: the
     engine's device-resident hot-loop contract (every slot advances;
     inactive slots' writes are overwritten at re-admission)."""

@@ -27,6 +27,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import fused_ffn as ffn_kernel
+from repro_torch.kernels import mlstm_scan as ml_kernel
 from repro_torch.kernels import paged_attention as pa_kernel
 
 TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
@@ -267,7 +268,8 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
                                    "flash_attention_bwd_dq": 0,
                                    "flash_attention_bwd_dkv": 0,
                                    "fused_ffn_bwd_dx": 0,
-                                   "fused_ffn_bwd_dw": 0}
+                                   "fused_ffn_bwd_dw": 0,
+                                   "mlstm_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -283,6 +285,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa_kernel.flash_attention_bwd(q, q, q, q, torch.zeros(1, 1, 8), q)
     with pytest.raises(ValueError, match="CUDA"):
         ffn_kernel.swiglu_ffn_bwd(x, w, w, w.t().contiguous(), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        ml_kernel.mlstm_scan(q, q, q, torch.zeros(1, 1, 8),
+                             torch.zeros(1, 1, 8))
     with pytest.raises(ValueError, match="CUDA"):
         da_kernel.decode_attention(torch.zeros(1, 2, 64),
                                    torch.zeros(1, 8, 1, 64),
@@ -525,3 +530,96 @@ def test_autograd_functions_launch_backward_kernels(cuda):
     assert counts["flash_attention_bwd_dkv"] == 1
     assert counts["fused_ffn_bwd_dx"] == 1
     assert counts["fused_ffn_bwd_dw"] in (1, 2)
+
+
+# -- the mLSTM scan (#13) ----------------------------------------------------
+
+# the reference's own shapes (tests/test_kernels.py:53-55), xlstm-125m's
+# full width (dh 1536 / 4 = 384, chunk 256), one row of it, a single chunk
+MLSTM_SHAPES = [(2, 4, 512, 64, 128), (1, 2, 256, 128, 64),
+                (2, 2, 512, 32, 256), (4, 4, 1024, 384, 256),
+                (1, 4, 256, 384, 256), (2, 2, 128, 64, 256)]
+MLSTM_TOL, MLSTM_REL_TOL = 2e-4, 1e-4
+
+
+def _mlstm_inputs(B, H, S, dh, seed=0):
+    """The reference test's recipe: q, k·dh^-0.5, v, i ~ N(0, 1) and
+    f_log = log_sigmoid(N(0, 1) + 2), in [B,H,S,dh] / [B,H,S]."""
+    q = _rand((B, H, S, dh), seed + 1)
+    k = _rand((B, H, S, dh), seed + 2) * dh ** -0.5
+    v = _rand((B, H, S, dh), seed + 3)
+    ig = _rand((B, H, S), seed + 4)
+    fl = torch.nn.functional.logsigmoid(
+        torch.from_numpy(_rand((B, H, S), seed + 5) + 2.0)).numpy()
+    return q, k, v, ig, fl
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm())
+
+
+def test_mlstm_op_dispatches_cpu_tensors_to_plain_version():
+    ops.reset_launch_counts()
+    ins = [torch.from_numpy(a) for a in _mlstm_inputs(1, 2, 16, 8)]
+    y, (C, n, m) = ops.mlstm_scan(*ins, chunk=8)
+    want, _ = ref.ref_mlstm_scan(*ins, chunk=8)
+    assert torch.equal(y, want) and tuple(C.shape) == (1, 2, 8, 8)
+    assert ops.launch_counts()["mlstm_scan"] == 0
+
+
+def _mlstm_check(got, want, what):
+    """y and the carry (C, n, m) of the kernel against the plain version:
+    within 2e-4 (atol = rtol) and 1e-4 in ||err|| / ||want||."""
+    torch.cuda.synchronize()
+    y, (C, n, m) = got
+    wy, (wC, wn, wm) = want
+    for name, g, w in (("y", y, wy), ("C", C, wC), ("n", n, wn),
+                       ("m", m, wm)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _close(g.cpu(), w.cpu(), MLSTM_TOL, f"{what} {name}")
+        assert _rel(g.cpu(), w.cpu()) <= MLSTM_REL_TOL, f"{what} {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,dh,chunk", MLSTM_SHAPES)
+def test_mlstm_kernel_matches_plain(cuda, B, H, S, dh, chunk):
+    ins = [torch.from_numpy(a).to(cuda) for a in _mlstm_inputs(B, H, S, dh)]
+    ops.reset_launch_counts()
+    got = ops.mlstm_scan(*ins, chunk=chunk)
+    assert ops.launch_counts()["mlstm_scan"] == 1
+    _mlstm_check(got, ref.ref_mlstm_scan(*ins, chunk=chunk),
+                 f"{B}x{H}x{S}x{dh} chunk {chunk}")
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_continues_from_a_state_and_pads(cuda):
+    """A carry handed over from a first call, and pad steps (i = -1e30,
+    f_log = 0, zero q/k/v) as ``models.ssm.mlstm`` appends them."""
+    ins = [torch.from_numpy(a).to(cuda)
+           for a in _mlstm_inputs(2, 4, 512, 96, seed=50)]
+    first = ml_kernel.mlstm_scan(*(t[:, :, :256].contiguous() for t in ins),
+                                 chunk=128)
+    rest = [t[:, :, 256:].contiguous() for t in ins]
+    _mlstm_check(ml_kernel.mlstm_scan(*rest, chunk=128, state=first[1]),
+                 ref.ref_mlstm_scan(*rest, chunk=128, state=first[1]),
+                 "from a state")
+    padded = [t.clone() for t in ins]
+    for t in padded[:3]:
+        t[:, :, 450:] = 0.0
+    padded[3][:, :, 450:] = -1e30
+    padded[4][:, :, 450:] = 0.0
+    _mlstm_check(ml_kernel.mlstm_scan(*padded, chunk=256),
+                 ref.ref_mlstm_scan(*padded, chunk=256), "padded tail")
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_refuses_grads_and_other_dtypes(cuda):
+    ins = [torch.from_numpy(a).to(cuda) for a in _mlstm_inputs(1, 1, 8, 8)]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.mlstm_scan(ins[0].requires_grad_(), *ins[1:], chunk=8)
+    with pytest.raises(ValueError, match="f32"):
+        ops.mlstm_scan(*(t.detach().to(torch.bfloat16) for t in ins),
+                       chunk=8)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.mlstm_scan(*(t.detach() for t in ins), chunk=3)
