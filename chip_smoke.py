@@ -7,7 +7,7 @@
 Phases, in order, each printing one line:
 
   gpu      the card's name and power limit, as nvidia-smi reports them;
-  build    builds the seven kernel sources (ten kernels) from
+  build    builds the eight kernel sources (thirteen kernels) from
            src/repro_torch/csrc, one nvcc each, all started together;
   kernels  holds each kernel against its plain PyTorch version on the card
            at its path's shapes (serving; for the four backward kernels,
@@ -15,9 +15,11 @@ Phases, in order, each printing one line:
            prefill, q [4,4,1024,384], chunk 256, f32), in f32 and bf16 (the
            paged kernels also with int8 pools; the paged and backward
            attention kernels also at llama3.2-3b's head dim 128 with 24 / 8
-           heads), and times the kernel, the plain version and a PyTorch
-           library yardstick for the same function where one call computes
-           it (the port never calls it);
+           heads; the int8 kernels #10, #11 and the int8 pool write at the
+           admission splice's tiles, the chunk append's gather and a decode
+           tick, exactly), and times the kernel, the plain version and a
+           PyTorch library yardstick for the same function where one call
+           computes it (the port never calls it);
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -39,7 +41,20 @@ Phases, in order, each printing one line:
            kv_layout="paged" and paged with kv_dtype="int8"
            (.engine(num_slots=16, block_size=16)), each cold and then warm;
            prints each run's figures and the share of token positions
-           where paged matches dense and int8 matches paged;
+           where paged matches dense and int8 matches paged; fails unless
+           the int8 run launched #10 (admission splice) and the int8 pool
+           write;
+  sched    the chunked-prefill scheduler: in f32 at full width a 600-token
+           prompt through model_chunk_prefill in chunks of 32 on dense,
+           paged and int8 pools, logits on the card against the plain path
+           on the CPU and the monolithic prefill; then
+           Runtime.create("exanode-100m", capacity=2048, scheduler=True)
+           .engine(num_slots=16) with the reference's default knobs serves
+           the paged phase's 32 requests in bf16, dense, paged and int8,
+           cold and then warm, beside the monolithic engine's warm run of
+           each layout; fails unless no monolithic prefill ran, the pools
+           drained and each layout's kernels launched (int8: the pool
+           write and #11);
   train    exanode-100m at full width: in f32, one step's loss and every
            grad leaf with the kernels on the card against the plain path
            on the CPU, from the same seeded params and batch (2 x 512);
@@ -59,6 +74,10 @@ Phases, in order, each printing one line:
            sLSTM layer, and torch.profiler over the whole prefill call and
            8 ticks (device time by kernel group, kernels launched, idle
            share against the unprofiled wall).
+  sched_profile  where a scheduler tick spends its time on each layout:
+           the unprofiled wall of 8 mixed ticks of the sched phase's
+           serving, and torch.profiler over 8 more (device time by kernel
+           group, kernels a tick, idle share).
 
 One more phase runs only when named: int8_cpu (the int8 pool's token
 agreement on the card and through the plain versions on the CPU).
@@ -70,14 +89,16 @@ device, or without the repository beside it, the script fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "model", "serve", "paged", "xlstm", "train",
-          "train_profile", "xlstm_profile")         # the build always runs
+PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "train",
+          "train_profile", "xlstm_profile", "sched_profile")         # the build always runs
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor-core FLOP/s
 # and f32 FLOP/s outside the tensor cores (f32 work in f32: TF32 would
@@ -107,7 +128,12 @@ TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "flash_attention_bwd_dkv": {"float32": 2e-4, "bfloat16": 2e-2},
        "fused_ffn_bwd_dx": {"float32": 1e-4, "bfloat16": 3e-2},
        "fused_ffn_bwd_dw": {"float32": 1e-4, "bfloat16": 3e-2},
-       "mlstm_scan": {"float32": 2e-4}}
+       "mlstm_scan": {"float32": 2e-4},
+       # the int8 kernels compute what their plain versions compute, with
+       # the same f32 roundings: exact
+       "quantize_int8": {"float32": 0.0},
+       "dequantize_int8": {"float32": 0.0},
+       "quantized_block_write": {"float32": 0.0}}
 BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # The mLSTM scan (f32 only): the reference's kernel tolerance
 # (tests/test_kernels.py:69, 2e-4) on y and on the final carry, and
@@ -161,6 +187,14 @@ SOURCES = {
                          "src/repro/kernels/fused_ffn.py:131"),
     "mlstm_scan": ("src/repro_torch/csrc/mlstm_scan.cu",
                    "src/repro/kernels/mlstm_scan.py:21"),
+    "quantize_int8": ("src/repro_torch/csrc/quant.cu",
+                      "src/repro/kernels/quant.py:39"),
+    "dequantize_int8": ("src/repro_torch/csrc/quant.cu",
+                        "src/repro/kernels/quant.py:48"),
+    # the int8 pool write runs #10's row math; it computes the reference's
+    # jnp write, src/repro/models/attention.py:378 _quantized_block_write
+    "quantized_block_write": ("src/repro_torch/csrc/quant.cu",
+                              "src/repro/kernels/quant.py:39"),
 }
 TRAIN_KERNELS = ("flash_attention", "fused_ffn", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "fused_ffn_bwd_dx",
@@ -371,6 +405,7 @@ def kernels_phase(torch, timer) -> dict:
     out.update(paged_kernels(torch, timer))
     out.update(backward_kernels(torch, timer))
     out.update(mlstm_kernel(torch, timer))
+    out.update(quant_kernels(torch, timer))
     return out
 
 
@@ -422,6 +457,163 @@ def mlstm_kernel(torch, timer) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library="none: no single PyTorch call computes a chunkwise mLSTM",
         flops_counted=flops)}
+
+
+def quant_kernels(torch, timer) -> dict:
+    """The int8 kernels against their plain versions, exactly (tolerance
+    0), at the serving path's shapes, then timed in bf16:
+
+    * #10 quantize_int8 at [nb, 256] (nb 64 and 256, f32) and at the int8
+      pool's admission splice: the (block column, kv head) tiles of one
+      layer stack's prefill caches for a 16 x 1024 bucket, x [12, 16, 2048,
+      4, 64] bf16, 64 columns of 16 (timed there);
+    * #11 dequantize_int8 at [256, 256] and as the chunk append's gather,
+      one row of 128 blocks x 16 of a [2050, 16, 4, 64] pool to bf16
+      (timed there);
+    * the int8 pool write at a decode tick (16 rows, ten slots on their
+      own blocks, six inactive rows colliding on the trash block; timed
+      there) and at a 32-token chunk, K and V in one launch, three writes
+      in a row; the trash block's payload is left out (its colliding
+      writes land in no fixed order in the plain version's scatter).
+
+    Each bound counts the bytes the function needs once: #10 the tiles'
+    entries read and the payload and scales written; #11 the table's
+    blocks and scales read and the gather written; the write the new
+    entries, bids and offsets read, and each touched block's payload and
+    scales read and written.  Library yardsticks: #11 one torch.mul of
+    the same 128 blocks' payload by their scales, stored contiguously (the
+    function without the table's indirection); none for #10 and the write:
+    no single PyTorch call computes a per-row max-abs int8 quantization."""
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def same(name, got, want, what):
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            check(name, g, w, "float32", what)
+        return 0.0
+
+    # #10
+    for nb in (64, 256):
+        x = torch.randn(nb, 256, generator=gen, device="cuda") \
+            * torch.logspace(-3, 2, nb, device="cuda")[:, None]
+        same(qt.NAME_QUANT, qt.quantize_rows(x), ref.ref_quantize_rows(x),
+             f"[{nb}, 256] f32")
+    R, B, T, KV, D, bs, nb = 12, 16, 2048, 4, 64, 16, 64
+    x = torch.randn(R, B, T, KV, D, generator=gen, device="cuda").to(bf16)
+    for n in (nb, 3):
+        same(qt.NAME_QUANT, qt.quantize_rows(x, block_size=bs, nb=n),
+             ref.ref_quantize_kv_tiles(x, bs, n), f"splice tiles nb={n}")
+    used = R * B * nb * bs * KV * D
+    b_ms, b_by = bound(used * 2 + used + R * B * nb * KV * 4,
+                       3 * used, "float32")
+    out[qt.NAME_QUANT] = dict(
+        shape=f"prefill caches x [{R},{B},{T},{KV},{D}] bf16 -> {nb} "
+              f"columns of {bs}: q int8 [{R},{B},{nb * bs},{KV},{D}], "
+              f"scale [{R},{B},{nb},{KV}] (one leaf of a 16 x 1024 "
+              f"admission splice); also [64|256, 256] f32",
+        max_abs_err=0.0,
+        ms=timer.ms(lambda: qt.quantize_rows(x, block_size=bs, nb=nb)),
+        plain_ms=timer.ms(lambda: ref.ref_quantize_kv_tiles(x, bs, nb)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes a per-row max-abs "
+                "int8 quantization")
+
+    # #11
+    q = torch.randint(-127, 128, (256, 256), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(256, generator=gen, device="cuda") * 0.05
+    same(qt.NAME_DEQUANT, qt.dequantize_rows(q, s),
+         ref.ref_dequantize_rows(q, s), "[256, 256]")
+    N, M = 2050, 128
+    pool = torch.randint(-127, 128, (N, bs, KV, D), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    scale = torch.rand(N, KV, generator=gen, device="cuda") * 0.05
+    table = (torch.randperm(N - 2, generator=gen, device="cuda")[:M] + 2) \
+        .to(torch.int32)[None].contiguous()
+    for dt in (torch.float32, bf16):
+        same(qt.NAME_DEQUANT, qt.dequantize_rows(pool, scale, table, dt),
+             ref.ref_dequantize_gather(pool, scale, table, dt),
+             f"gather to {dt}")
+    blocks = pool[table[0].long()].contiguous()
+    bscale = scale[table[0].long()][:, None, :, None].contiguous()
+    b_ms, b_by = bound(M * (bs * KV * D + KV * 4) + M * 4
+                       + M * bs * KV * D * 2, M * bs * KV * D, "float32")
+    out[qt.NAME_DEQUANT] = dict(
+        shape=f"pool [{N},{bs},{KV},{D}] int8 + scales [{N},{KV}], table "
+              f"[1,{M}] -> [1,{M * bs},{KV},{D}] bf16 (the int8 chunk "
+              f"append's gather, capacity 2048); also [256, 256] -> f32",
+        max_abs_err=0.0,
+        ms=timer.ms(lambda: qt.dequantize_rows(pool, scale, table, bf16)),
+        plain_ms=timer.ms(
+            lambda: ref.ref_dequantize_gather(pool, scale, table, bf16)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer.ms(lambda: torch.mul(blocks, bscale)),
+        library="torch.mul of the same 128 blocks, stored contiguously, by "
+                "their scales (no table indirection)")
+
+    # the int8 pool write
+    keep = torch.arange(N, device="cuda") != 1
+    cases = {}
+    for kind in ("decode", "chunk"):
+        if kind == "decode":
+            bids = [5, 9, 13, 17, 21, 25, 29, 33, 37, 41] + [1] * 6
+            off = [0, 3, 15, 7, 0, 1, 2, 9, 11, 14, 0, 5, 5, 0, 8, 5]
+        else:
+            p = list(range(124, 152))
+            bids = [1] * 4 + [40 + t // bs for t in p[4:]] + [1] * 4
+            off = [t % bs for t in p] + [0] * 4
+        bids_t = torch.tensor(bids, dtype=torch.int32, device="cuda")
+        off_t = torch.tensor(off, dtype=torch.int32, device="cuda")
+        pools = [torch.randint(-127, 128, (N, bs, KV, D), generator=gen,
+                               device="cuda", dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand(N, KV, generator=gen, device="cuda") * 0.05
+                  for _ in range(2)]
+        plain_p = [t.clone() for t in pools]
+        plain_s = [t.clone() for t in scales]
+        news = [(torch.randn(len(bids), KV, D, generator=gen,
+                             device="cuda") * 4).to(bf16) for _ in range(2)]
+        for _ in range(3):
+            qt.quantized_block_write(pools, scales, news, bids_t, off_t)
+            for pp, ss, nn in zip(plain_p, plain_s, news):
+                ref.ref_quantized_block_write(pp, ss, nn, bids_t, off_t)
+            for i in range(2):
+                check(qt.NAME_WRITE, pools[i][keep], plain_p[i][keep],
+                      "float32", f"{kind} payload")
+                check(qt.NAME_WRITE, scales[i], plain_s[i], "float32",
+                      f"{kind} scales")
+        cases[kind] = (pools, scales, news, bids_t, off_t,
+                       len(set(bids) | {b for b, o in zip(bids, off)
+                                        if o == 0} | {1}))
+    pools, scales, news, bids_t, off_t, touched = cases["decode"]
+    rows = bids_t.numel()
+    b_ms, b_by = bound(2 * (nbytes(news[0]) + touched * (2 * bs * KV * D
+                                                         + 2 * KV * 4))
+                       + nbytes(bids_t, off_t),
+                       2 * 4 * rows * KV * D, "float32")
+
+    def plain_write():
+        for pp, ss, nn in zip(pools, scales, news):
+            ref.ref_quantized_block_write(pp, ss, nn, bids_t, off_t)
+
+    out[qt.NAME_WRITE] = dict(
+        shape=f"K and V: {rows} new entries [{rows},{KV},{D}] bf16 into int8 "
+              f"pools [{N},{bs},{KV},{D}] + scales [{N},{KV}], {touched} "
+              f"distinct blocks touched (a decode tick, 16 slots); also a "
+              f"32-token chunk",
+        max_abs_err=0.0,
+        ms=timer.ms(lambda: qt.quantized_block_write(pools, scales, news,
+                                                     bids_t, off_t)),
+        plain_ms=timer.ms(plain_write), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+        library="none: no single PyTorch call computes the int8 pool write",
+        computes="the int8 pool write, src/repro/models/attention.py:378 "
+                 "_quantized_block_write, on #10's row math")
+    return out
 
 
 def paged_case(torch, KV: int, G: int, D: int, seed: int, B: int = 16,
@@ -1245,9 +1437,10 @@ def paged_prompts(vocab: int) -> list:
     return prompts
 
 
-def paged_phase(torch, gpu: str) -> tuple[str, dict]:
+def paged_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
     """``paged_prompts`` served dense, paged and paged int8, each once cold
-    and once warm on a fresh engine.  The warm paged runs' launch counts
+    and once warm on a fresh engine; the warm runs are kept in ``mono``
+    by layout for the sched phase.  The warm paged runs' launch counts
     are the paged kernels'.  A failed gate raises with every run's
     figures in its message."""
     from repro_torch.runtime import Runtime
@@ -1263,7 +1456,8 @@ def paged_phase(torch, gpu: str) -> tuple[str, dict]:
                             params=base.params, **kv)
         engine_kw = dict(block_size=16) if kv else {}
         cold = serve_run(torch, rt, prompts, new, **engine_kw)
-        warm = runs[way] = serve_run(torch, rt, prompts, new, **engine_kw)
+        warm = runs[way] = mono[way] = serve_run(torch, rt, prompts, new,
+                                                 **engine_kw)
         eng, launches = warm["eng"], warm["launches"]
         hits = eng.pool.prefix_hits if eng.paged else 0
         lines.append(f"{way}: cold wall {cold['wall']:.3f} s prefill "
@@ -1287,10 +1481,14 @@ def paged_phase(torch, gpu: str) -> tuple[str, dict]:
     if not int8_paged >= INT8_MATCH_MIN:
         failed.append(f"int8 matches paged on {int8_paged:.4f} of token "
                       f"positions, below {INT8_MATCH_MIN}")
+    for n in ("quantize_int8", "quantized_block_write"):
+        if not runs["int8"]["launches"][n]:
+            failed.append(f"int8: {n} never launched")
     launches = {n: sum(r["launches"][n] for r in (runs["paged"],
                                                    runs["int8"]))
                 for n in ("paged_decode_attention",
-                          "paged_decode_attention_q8")}
+                          "paged_decode_attention_q8", "quantize_int8",
+                          "quantized_block_write")}
     line = (f"paged: exanode-100m bf16 capacity=2048 slots=16 block_size=16,"
             f" {len(prompts)} requests x {new} new tokens (requests 16-23 "
             f"open with prompt 0's first 256 tokens where that long); "
@@ -1303,6 +1501,293 @@ def paged_phase(torch, gpu: str) -> tuple[str, dict]:
         raise AssertionError(line + "\npaged phase failed: "
                              + "; ".join(failed))
     return line, launches
+
+
+SCHED_PROMPT, SCHED_CAPACITY = 600, 640  # f32 check: 19 chunks, last padded
+SCHED_CHUNK = 32                         # the reference's default chunk
+# per layout: the kernels a scheduler run must launch (the chunk attends in
+# plain torch, as the reference's is jnp, so flash_attention does not run)
+SCHED_KERNELS = {"dense": ("fused_ffn", "decode_attention"),
+                 "paged": ("fused_ffn", "paged_decode_attention"),
+                 "int8": ("fused_ffn", "paged_decode_attention_q8",
+                          "quantized_block_write", "dequantize_int8")}
+SCHED_LAYOUTS = {"dense": {}, "paged": dict(kv_layout="paged"),
+                 "int8": dict(kv_layout="paged", kv_dtype="int8")}
+
+
+def chunked_logits(torch, params, cfg, toks, layout: str, device) -> object:
+    """``toks`` [1, S] through ``model_chunk_prefill`` in chunks of
+    SCHED_CHUNK (the last padded with PAD_POS) into empty caches of
+    SCHED_CAPACITY entries (paged: block size 16, the chain's blocks taken
+    in reverse pool order); returns each chunk's last-token logits
+    [chunks, Vp] on the CPU, and the caches."""
+    import numpy as np
+    from repro_torch.models.attention import PAD_POS
+    from repro_torch.models.registry import model_chunk_prefill
+    from repro_torch.serve import blockpool as bp
+    from repro_torch.serve import kvcache
+    S, C, bs = toks.shape[1], SCHED_CHUNK, 16
+    M = SCHED_CAPACITY // bs
+    if layout == "dense":
+        caches = kvcache.init_cache(cfg, 1, SCHED_CAPACITY, device=device)
+    else:
+        caches = bp.init_paged_cache(
+            cfg, M + bp.NUM_RESERVED, bs,
+            "int8" if layout == "int8" else "f32", device=device)
+        table = np.arange(M + bp.NUM_RESERVED - 1, bp.NUM_RESERVED - 1, -1,
+                          dtype=np.int32)[None]
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    out = []
+    for start in range(0, S, C):
+        n = min(C, S - start)
+        tok = np.zeros((1, C), np.int32)
+        pos = np.full((1, C), PAD_POS, np.int32)
+        tok[0, :n] = toks[0, start:start + n]
+        pos[0, :n] = np.arange(start, start + n)
+        paged = None
+        if layout != "dense":
+            bids = np.full((1, C), bp.TRASH_BLOCK, np.int32)
+            bids[0, :n] = table[0, pos[0, :n] // bs]
+            paged = {"block_table": dev(table), "write_bids": dev(bids)}
+        logits = model_chunk_prefill(
+            params, dev(tok), caches, cfg, positions=dev(pos),
+            reset=torch.tensor([start == 0], device=device),
+            last_index=dev(np.array([n - 1], np.int32)), paged=paged)
+        out.append(logits[0, 0].float().cpu())
+    return torch.stack(out), caches
+
+
+@contextlib.contextmanager
+def plain_int8_ops():
+    """Inside: the int8 pool write and the dequantizing gather run their
+    plain versions whatever the device (``kernels.ops`` dispatches CUDA
+    tensors to the kernels), so the kernel path can be held against the
+    plain path on the card itself."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.quantized_block_write, ops.dequantize_gather
+
+    def write(pools, scale_pools, news, write_bids, off):
+        for pool, scale, new in zip(pools, scale_pools, news):
+            ref.ref_quantized_block_write(pool, scale, new, write_bids, off)
+
+    ops.quantized_block_write = write
+    ops.dequantize_gather = ref.ref_dequantize_gather
+    try:
+        yield
+    finally:
+        ops.quantized_block_write, ops.dequantize_gather = saved
+
+
+def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
+    """The chunked-prefill scheduler.  (a) exanode-100m at full width in
+    f32: a SCHED_PROMPT-token prompt through ``model_chunk_prefill`` in
+    chunks of 32 over dense, paged and int8 pools; each chunk's last-token
+    logits on the card within MODEL_LOGITS_TOL of the plain path on the
+    CPU and of the monolithic prefill on the card at the same positions
+    (dense, paged).  The int8 pool's logits are held within
+    MODEL_LOGITS_TOL of the plain int8 path on the card, and its pools
+    within one int8 code of the CPU's; their distances to the CPU's logits
+    and to the monolithic prefill are printed (card and CPU products
+    differ in the last bits, which moves some values to the next code).
+    (b) ``Runtime.create("exanode-100m", capacity=2048,
+    scheduler=True).engine(num_slots=16)`` with the reference's default
+    knobs (token budget 256, chunk 32) serves the paged phase's 32
+    requests in bf16, dense, paged and int8 at block size 16, each cold
+    and then warm with every launch counter zeroed just before; beside
+    each, the monolithic engine's warm run of the same layout (``mono``:
+    the paged phase's, else run here) and the share of token positions
+    where the two streams agree.  Fails unless every request finishes, no
+    monolithic prefill runs, the pools drain and every kernel of each
+    layout's path launched (int8: the pool write and #11)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_params, tree_map
+    from repro_torch.models.registry import model_specs
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import blockpool as bp
+    t_phase = time.perf_counter()
+    cfg = get_config("exanode-100m").scaled(dtype=torch.float32)
+    params = {"cpu": init_params(model_specs(cfg), seed=0)}
+    params["cuda"] = tree_map(lambda t: t.to("cuda"), params["cpu"])
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                             (1, SCHED_PROMPT),
+                                             dtype=np.int32)
+    full, _ = Runtime.create(cfg, capacity=SCHED_CAPACITY,
+                             params=params["cuda"]).prefill(
+        torch.from_numpy(toks).to("cuda"))
+    ends = [min(s + SCHED_CHUNK, SCHED_PROMPT) - 1
+            for s in range(0, SCHED_PROMPT, SCHED_CHUNK)]
+    full = full[0, ends].float().cpu()
+    failed, f32 = [], {}
+    for layout in SCHED_LAYOUTS:
+        got, caches = {}, {}
+        for dev, p in params.items():
+            got[dev], caches[dev] = chunked_logits(torch, p, cfg, toks,
+                                                   layout, dev)
+        f32[layout] = [float((got["cuda"] - got["cpu"]).abs().max()),
+                       float((got["cuda"] - full).abs().max())]
+        if layout == "int8":
+            # the card's f32 products differ from the CPU's in the last
+            # bits, and a K/V value that close to a rounding boundary
+            # takes the next int8 code, which every later chunk attends
+            # to: hold the kernels against the plain int8 versions on the
+            # card (same products, so the same codes), and the card's
+            # payloads within one code of the CPU's
+            with plain_int8_ops():
+                plain, _ = chunked_logits(torch, params["cuda"], cfg, toks,
+                                          layout, "cuda")
+            f32[layout].append(float((got["cuda"] - plain).abs().max()))
+            keep = torch.arange(caches["cpu"][0]["sub0"]["k"].shape[1]) \
+                != bp.TRASH_BLOCK
+            # the trash block holds the pads' entries, computed at
+            # PAD_POS, whose RoPE angles (~1e9 rad) the two devices'
+            # sin/cos round apart: junk no query reads, left out
+            steps = max(
+                int((g[leaf].cpu().int() - c[leaf].int())[:, keep]
+                    .abs().max())
+                for gg, cc in zip(caches["cuda"], caches["cpu"])
+                for g, c in zip(gg.values(), cc.values())
+                for leaf in ("k", "v"))
+            f32[layout].append(steps)
+            checks = [(f32[layout][2], "the plain int8 path on the card")]
+            if steps > 1:
+                failed.append(f"int8: pools {steps} codes from the CPU's")
+        else:
+            checks = [(f32[layout][0], "the CPU's"),
+                      (f32[layout][1], "the monolithic prefill")]
+        for err, what in checks:
+            if not err <= MODEL_LOGITS_TOL:
+                failed.append(f"{layout}: chunked logits {err:.3g} from "
+                              f"{what}")
+    del params, full
+    f32_s = time.perf_counter() - t_phase
+
+    base = Runtime.create("exanode-100m", capacity=2048)
+    prompts, new = paged_prompts(base.cfg.vocab_size), 64
+    lines, launches = [], {}
+    for layout, kv in SCHED_LAYOUTS.items():
+        engine_kw = dict(block_size=16) if kv else {}
+        if layout not in mono:
+            rt = Runtime.create("exanode-100m", capacity=2048,
+                                params=base.params, **kv)
+            serve_run(torch, rt, prompts, new, **engine_kw)
+            mono[layout] = serve_run(torch, rt, prompts, new, **engine_kw)
+        rt = Runtime.create("exanode-100m", capacity=2048,
+                            params=base.params, scheduler=True, **kv)
+        cold = serve_run(torch, rt, prompts, new, **engine_kw)
+        warm = serve_run(torch, rt, prompts, new, **engine_kw)
+        eng, counts = warm["eng"], warm["launches"]
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        share = match_share(warm["streams"], mono[layout]["streams"])
+        lines.append(
+            f"{layout}: cold wall {cold['wall']:.3f} s; warm "
+            f"{eng.stats.summary}, {run_figures(warm)}; monolithic "
+            f"({mono[layout]['eng'].stats.summary}) "
+            f"{run_figures(mono[layout])}; streams equal to monolithic on "
+            f"{share:.4f} of token positions; launches {counts}")
+        if eng.stats.prefill_calls or not eng.stats.chunk_ticks:
+            failed.append(f"{layout}: prefill_calls "
+                          f"{eng.stats.prefill_calls}, chunk_ticks "
+                          f"{eng.stats.chunk_ticks}")
+        if eng.paged and eng.pool.used_blocks:
+            failed.append(f"{layout}: {eng.pool.used_blocks} pool blocks "
+                          f"still used")
+        missing = [n for n in SCHED_KERNELS[layout] if not counts[n]]
+        if missing:
+            failed.append(f"{layout}: kernels of its path never launched: "
+                          f"{missing}")
+    line = (f"sched: exanode-100m f32, 1 prompt x {SCHED_PROMPT} tokens in "
+            f"chunks of {SCHED_CHUNK}: max abs logits err against the CPU / "
+            f"the monolithic prefill on the card: "
+            + ", ".join(f"{k} {e[0]:.3g} / {e[1]:.3g}" for k, e in f32.items())
+            + f"; int8 against the plain int8 path on the card "
+              f"{f32['int8'][2]:.3g}, pools within {f32['int8'][3]} code(s) "
+              f"of the CPU's (tol {MODEL_LOGITS_TOL}; int8 is held to the "
+              f"plain path on the card and to one code) "
+              f"[{f32_s:.1f} s]; serve bf16 capacity=2048 slots=16 "
+              f"scheduler token_budget=256 chunk_size={SCHED_CHUNK}, "
+              f"{len(prompts)} paged-phase requests x {new} new tokens; "
+            + "; ".join(lines)
+            + f"; phase wall {time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    if failed:
+        raise AssertionError(line + "\nsched phase failed: "
+                             + "; ".join(failed))
+    return line, launches
+
+
+SCHED_PROFILE_GROUPS = (
+    ("fused_ffn", ("ffn_fwd_kernel", "ffn_reduce_kernel")),
+    ("decode attention", ("decode_kernel", "paged_kernel")),
+    ("int8 kernels", ("quantize_rows_kernel", "dequantize_rows_kernel",
+                      "block_write_kernel")),
+    ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
+)
+
+
+def sched_profile_phase(torch, gpu: str, warm: int = 120,
+                        ticks: int = 8) -> str:
+    """Where a scheduler tick spends its time, per layout (dense, paged,
+    int8 at block size 16), on ``Runtime.create("exanode-100m",
+    capacity=2048, scheduler=True).engine(num_slots=16)`` serving the
+    paged phase's requests in bf16: after ``warm`` ticks (a prompt in
+    chunked prefill, some slots decoding), the wall of ``ticks`` ticks
+    without the profiler (best of 2 windows), then torch.profiler over
+    ``ticks`` more: device time by kernel group, device kernels a tick and
+    the idle share 1 - device time / wall.  Every profiled tick is a mixed
+    tick (decode + one 32-token chunk) while prompts wait."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve.engine import Request
+    base = Runtime.create("exanode-100m", capacity=2048)
+    prompts = paged_prompts(base.cfg.vocab_size)
+    parts = []
+    for layout, kv in SCHED_LAYOUTS.items():
+        rt = Runtime.create("exanode-100m", capacity=2048,
+                            params=base.params, scheduler=True, **kv)
+        eng = rt.engine(num_slots=16, **(dict(block_size=16) if kv else {}))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=64))
+        for _ in range(warm):
+            eng.tick()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                eng.tick()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / ticks)
+        chunk0, decoding = eng.stats.chunk_ticks, sum(
+            eng._decoding(s) for s in range(eng.num_slots))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(ticks):
+                eng.tick()
+            torch.cuda.synchronize()
+        mixed = eng.stats.chunk_ticks - chunk0
+        per, count = device_events(prof)
+        total = sum(per.values()) / ticks
+        if not total:
+            raise AssertionError(f"sched_profile: no device time ({layout})")
+        groups = {g: 0.0 for g, _ in SCHED_PROFILE_GROUPS}
+        groups["other"] = 0.0
+        for key, us in per.items():
+            g = next((g for g, subs in SCHED_PROFILE_GROUPS
+                      if any(x in key for x in subs)), "other")
+            groups[g] += us / ticks
+        w = min(walls)
+        parts.append(
+            f"{layout}: {mixed} of {ticks} profiled ticks mixed, "
+            f"{decoding} slots decoding; wall {w * 1e3:.2f} ms a tick "
+            f"(unprofiled, best of 2), device time {total / 1e3:.2f} ms, "
+            f"idle share {1 - total / 1e3 / (w * 1e3):.4f}, "
+            f"{count / ticks:.0f} device kernels a tick; by group "
+            + ", ".join(f"{g} {us / 1e3:.2f} ms" for g, us in groups.items()))
+    return (f"sched_profile: exanode-100m bf16 capacity=2048 slots=16 "
+            f"scheduler token_budget=256 chunk_size={SCHED_CHUNK}, after "
+            f"{warm} ticks of the paged phase's requests; "
+            + "; ".join(parts) + f" [{gpu}]")
 
 
 def int8_cpu_phase(torch, gpu: str, n_req: int = 8) -> str:
@@ -1373,7 +1858,10 @@ def main() -> int:
     if "model" in phases:
         print(model_phase(torch), flush=True)
     by_path = {}       # path -> that run's launch counts
-    for path, run in (("serve", serve_phase), ("paged", paged_phase),
+    mono = {}          # layout -> the paged phase's warm run, for sched
+    for path, run in (("serve", serve_phase),
+                      ("paged", functools.partial(paged_phase, mono=mono)),
+                      ("sched", functools.partial(sched_phase, mono=mono)),
                       ("xlstm", xlstm_phase), ("train", train_phase)):
         if path in phases:
             line, by_path[path] = run(torch, gpu)
@@ -1384,6 +1872,8 @@ def main() -> int:
         print(train_profile_phase(torch, gpu), flush=True)
     if "xlstm_profile" in phases:
         print(xlstm_profile_phase(torch, gpu), flush=True)
+    if "sched_profile" in phases:
+        print(sched_profile_phase(torch, gpu), flush=True)
     if entries:
         print(json.dumps({"kernels": [
             dict(name=n, route="cuda", source=SOURCES[n][0],

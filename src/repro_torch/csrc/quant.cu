@@ -1,0 +1,276 @@
+// Max-abs int8 quantization of KV tiles, its inverse with an optional
+// block-table gather, and the int8 pool's fused entry write, for Hopper
+// sm_90a.
+//
+// Replaces: src/repro/kernels/quant.py:39 _quant_kernel (reached through
+// _quantize_int8:73, pallas_call at :77) and :48 _dequant_kernel
+// (_dequantize_int8:102, pallas_call at :106); the fused write computes
+// the int8 pool write of src/repro/models/attention.py:378
+// _quantized_block_write, which runs block_quant's row math (quant.py:52)
+// in jnp.
+//
+// What bounds them on this card: each is one pass over memory with a
+// handful of operations per byte (a max, a division and a rounding per
+// element), so all three are bound by the bytes they must move.
+//
+// What the design does about it:
+//  * quantize_rows (#10): one block per row.  A row is a [bs, D] tile of
+//    one kv head, read in place from the [.., T, KV, D] layout with its
+//    strides (the admission splice's (block, kv head) tiles; a [nb, 256]
+//    matrix is the case bs = 1, KV = 1), so the caller never gathers the
+//    tiles into a copy.  Entries past T read as zero, which is the
+//    plain version's zero padding of a short tail.  A block-wide max,
+//    then each element x / scale in IEEE f32 division, rintf (round half
+//    to even, as jnp.round) and a clip to +-127.  The TPU kernel moved
+//    64 rows of 256 through VMEM a grid step; here the rows are the grid.
+//  * dequantize_rows (#11): one block per row, q * scale in f32, written
+//    in the output type.  With a block table, row (b, m) is pool block
+//    table[b, m] and the output is the contiguous [B, M*bs, KV, D] gather
+//    the int8 chunk append attends over, cast to the activation dtype.
+//  * quantized_block_write: the write's four phases (clear the scales of
+//    blocks written at offset 0, grow each block's scale by the new
+//    entries' max, requantize the block's payload by round(q * old / new),
+//    write the entries) must each finish for a block before the next
+//    starts, and the written blocks repeat: inactive rows all write the
+//    trash block and a chunk's tokens share blocks.  One CUDA block owns
+//    each distinct pool block (the first occurrence in touched = [write
+//    blocks, cleared blocks]; later occurrences exit), so it runs the four
+//    phases for that block in order with __syncthreads between them and no
+//    other block touches its payload or scales.  A block is requantized
+//    exactly once, and an entry written twice (only ever in the trash
+//    block) takes the later row's value, as a sequential scatter does.
+//    K and V are the two rows of the grid's y axis: one launch per layer.
+//
+// No fast math: the build has no -use_fast_math, so division is IEEE
+// round-to-nearest and subnormal scales are kept, not flushed.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTrash = 1;  // TRASH_BLOCK: the junk-write sink
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  // max over the block's threads; every thread gets the result
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (blockDim.x >> 5) ? red[lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  v = red[0];
+  __syncthreads();
+  return v;
+}
+
+__device__ __forceinline__ int8_t quant1(float x, float safe) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(x / safe), -127.f), 127.f));
+}
+
+// x: n_outer rows of outer_stride elements, each [T, KV, D] (only the
+// first T_valid entries exist); row = (o, col, kv) -> tile of bs entries.
+// q: [n_outer, ncol * bs, KV, D] int8; scale: [n_outer, ncol, KV] f32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ scale, long long outer_stride,
+                     int ncol, int bs, int KV, int D, int T_valid) {
+  __shared__ float red[kThreads / 32];
+  const long long row = blockIdx.x;
+  const int kv = static_cast<int>(row % KV);
+  const int col = static_cast<int>((row / KV) % ncol);
+  const long long o = row / (static_cast<long long>(KV) * ncol);
+  const int n = bs * D;
+  const T* xo = x + o * outer_stride;
+  float m = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int t = col * bs + i / D;
+    if (t < T_valid)
+      m = fmaxf(m, fabsf(to_f32(xo[(static_cast<long long>(t) * KV + kv) * D
+                                   + i % D])));
+  }
+  m = block_max(m, red);
+  const float s = m / 127.f;
+  const float safe = s > 0.f ? s : 1.f;
+  int8_t* qo = q + o * static_cast<long long>(ncol) * bs * KV * D;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int t = col * bs + i / D;
+    const float v = t < T_valid
+        ? to_f32(xo[(static_cast<long long>(t) * KV + kv) * D + i % D]) : 0.f;
+    qo[(static_cast<long long>(t) * KV + kv) * D + i % D] = quant1(v, safe);
+  }
+  if (threadIdx.x == 0) scale[row] = s;
+}
+
+// q: [N, bs, KV, D] int8 blocks, scale [N, KV]; row r reads block
+// table[r] (r itself without a table); out: [rows, bs * KV * D].
+template <typename OT>
+__global__ void __launch_bounds__(kThreads)
+dequantize_rows_kernel(const int8_t* __restrict__ q,
+                       const float* __restrict__ scale,
+                       const int* __restrict__ table, OT* __restrict__ out,
+                       int bs, int KV, int D) {
+  const long long r = blockIdx.x;
+  const long long blk = table != nullptr ? table[r] : r;
+  const int n = bs * KV * D;
+  const int8_t* src = q + blk * n;
+  const float* sc = scale + blk * KV;
+  OT* dst = out + r * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = from_f32<OT>(static_cast<float>(src[i]) * sc[(i / D) % KV]);
+}
+
+struct Leaf {
+  int8_t* pool;       // [N, bs, KV, D]
+  float* scale;       // [N, KV]
+  const void* fresh;  // [R, KV, D] new entries, f32 or bf16
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+block_write_kernel(Leaf k, Leaf v, const int* __restrict__ bids,
+                   const int* __restrict__ off, int R, int bs, int KV,
+                   int D) {
+  extern __shared__ float smem[];  // grown[KV], ratio[KV]
+  float* grown = smem;
+  float* ratio = smem + KV;
+  const Leaf L = blockIdx.y == 0 ? k : v;
+  const T* fresh = static_cast<const T*>(L.fresh);
+  // touched[j]: the write blocks, then the blocks each row clears (its
+  // write block at offset 0, else the trash block)
+  auto touched = [&](int j) {
+    return j < R ? bids[j] : (off[j - R] == 0 ? bids[j - R] : kTrash);
+  };
+  const int j = blockIdx.x;
+  const int b = touched(j);
+  for (int i = 0; i < j; ++i)
+    if (touched(i) == b) return;  // an earlier CUDA block owns b
+  bool cleared = false;
+  for (int i = R; i < 2 * R; ++i) cleared |= touched(i) == b;
+  const long long tile = static_cast<long long>(KV) * D;
+  // phases 1-2: the cleared or current scale, grown by the new entries'
+  // max / 127 (one warp per kv head at a time)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int h = warp; h < KV; h += blockDim.x >> 5) {
+    const float old = cleared ? 0.f : L.scale[static_cast<long long>(b) * KV + h];
+    float g = old;
+    for (int r = 0; r < R; ++r) {
+      if (bids[r] != b) continue;
+      float m = 0.f;
+      for (int d = lane; d < D; d += 32)
+        m = fmaxf(m, fabsf(to_f32(fresh[r * tile + h * D + d])));
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(~0u, m, o));
+      g = fmaxf(g, m / 127.f);
+    }
+    if (lane == 0) {
+      grown[h] = g;
+      ratio[h] = old / (g > 0.f ? g : 1.f);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < KV)
+    L.scale[static_cast<long long>(b) * KV + threadIdx.x] = grown[threadIdx.x];
+  // phase 3: requantize the block's payload once (a ratio of exactly 1
+  // leaves it as it is)
+  int8_t* blk = L.pool + static_cast<long long>(b) * bs * tile;
+  const long long n = bs * tile;
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
+    const float rt = ratio[(i / D) % KV];
+    if (rt != 1.f)
+      blk[i] = static_cast<int8_t>(rintf(static_cast<float>(blk[i]) * rt));
+  }
+  __syncthreads();
+  // phase 4: the entries, in row order (a repeated (block, offset) takes
+  // the later row's value); each thread writes the same elements of every
+  // row, so program order is the write order
+  for (int r = 0; r < R; ++r) {
+    if (bids[r] != b) continue;
+    int8_t* dst = blk + static_cast<long long>(off[r]) * tile;
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+      const float g = grown[i / D];
+      dst[i] = quant1(to_f32(fresh[r * tile + i]), g > 0.f ? g : 1.f);
+    }
+  }
+}
+
+}  // namespace
+
+// x: [n_outer, outer_stride] elements, each row of x a [T, KV, D] slab of
+// which the first T_valid entries are read; dtype 0 = f32, 1 = bf16.
+// q: [n_outer, ncol * bs, KV, D] int8; scale: [n_outer, ncol, KV] f32.
+extern "C" int repro_quantize_rows(const void* x, void* q, void* scale,
+                                   long long n_outer, long long outer_stride,
+                                   int ncol, int bs, int KV, int D,
+                                   int T_valid, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = n_outer * ncol * KV;
+  if (rows <= 0 || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(rows));
+  if (dtype == kF32)
+    quantize_rows_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(q),
+        static_cast<float*>(scale), outer_stride, ncol, bs, KV, D, T_valid);
+  else if (dtype == kBF16)
+    quantize_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
+        static_cast<float*>(scale), outer_stride, ncol, bs, KV, D, T_valid);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// q: [N, bs, KV, D] int8, scale: [N, KV] f32; table: [rows] int32 block
+// ids or null (row r reads block r); out: [rows, bs, KV, D] in dtype.
+extern "C" int repro_dequantize_rows(const void* q, const void* scale,
+                                     const void* table, void* out,
+                                     long long rows, int bs, int KV, int D,
+                                     int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(rows));
+  const int8_t* qq = static_cast<const int8_t*>(q);
+  const float* sc = static_cast<const float*>(scale);
+  const int* tb = static_cast<const int*>(table);
+  if (dtype == kF32)
+    dequantize_rows_kernel<float><<<grid, kThreads, 0, s>>>(
+        qq, sc, tb, static_cast<float*>(out), bs, KV, D);
+  else if (dtype == kBF16)
+    dequantize_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        qq, sc, tb, static_cast<__nv_bfloat16*>(out), bs, KV, D);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// pools: [N, bs, KV, D] int8 and scales [N, KV] f32 of one or two leaves
+// (K, V; nleaves 1 leaves the second set unused); fresh: [R, KV, D] new
+// entries in dtype; bids/off: [R] int32 write blocks and offsets.
+extern "C" int repro_quantized_block_write(
+    void* k_pool, void* k_scale, const void* k_new, void* v_pool,
+    void* v_scale, const void* v_new, const void* bids, const void* off,
+    int nleaves, int R, int bs, int KV, int D, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R <= 0 || nleaves < 1 || nleaves > 2 || KV > kThreads)
+    return cudaErrorInvalidValue;
+  Leaf k{static_cast<int8_t*>(k_pool), static_cast<float*>(k_scale), k_new};
+  Leaf v{static_cast<int8_t*>(v_pool), static_cast<float*>(v_scale), v_new};
+  dim3 grid(2 * R, nleaves);
+  const size_t smem = 2 * KV * sizeof(float);
+  const int* bi = static_cast<const int*>(bids);
+  const int* of = static_cast<const int*>(off);
+  if (dtype == kF32)
+    block_write_kernel<float><<<grid, kThreads, smem, s>>>(k, v, bi, of, R,
+                                                           bs, KV, D);
+  else if (dtype == kBF16)
+    block_write_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
+        k, v, bi, of, R, bs, KV, D);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}

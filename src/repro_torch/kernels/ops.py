@@ -18,7 +18,9 @@ saves (q, k, v, out, lse) and the FFN (x, w_gate, w_up, w_down): nothing
 forward calls they were: the Functions are entered only when an input
 needs a gradient.  The mLSTM scan has no backward kernel (the reference
 differentiates its jnp chunk math): on the card it refuses inputs that
-need a gradient.
+need a gradient.  The int8 ops (kernels #10 and #11 and the int8 pool's
+entry write) are bit for bit: their plain versions and kernels round the
+same f32 values the same way.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ffn as _ffn
 from repro_torch.kernels import mlstm_scan as _ml
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import quant as _qt
 from repro_torch.kernels import ref
 
 # kernel name -> (wrapper module, its launch counter attribute)
@@ -39,7 +42,10 @@ KERNELS = {_fa.NAME: (_fa, "launches"), _ffn.NAME: (_ffn, "launches"),
            _fa.NAME_BWD_DKV: (_fa, "launches_dkv"),
            _ffn.NAME_BWD_DX: (_ffn, "launches_dx"),
            _ffn.NAME_BWD_DW: (_ffn, "launches_dw"),
-           _ml.NAME: (_ml, "launches")}
+           _ml.NAME: (_ml, "launches"),
+           _qt.NAME_QUANT: (_qt, "launches_quant"),
+           _qt.NAME_DEQUANT: (_qt, "launches_dequant"),
+           _qt.NAME_WRITE: (_qt, "launches_write")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -170,3 +176,51 @@ def mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256, state=None):
             "mlstm_scan has no backward kernel: training an xLSTM on the "
             "card is not ported yet (ROADMAP queue 1, item 11)")
     return _ml.mlstm_scan(q, k, v, i_gate, f_log, chunk=chunk, state=state)
+
+
+def quantize_int8(x):
+    """x [nb, n] f32 -> (q int8 [nb, n], scale f32 [nb]): max-abs int8 per
+    row (the reference's ``quantize_int8``)."""
+    if x.device.type == "cpu":
+        return ref.ref_quantize_rows(x)
+    return _qt.quantize_rows(x)
+
+
+def quantize_kv_tiles(x, block_size: int, nb: int):
+    """Prefill caches x [R,B,T,KV,Dh] -> (q int8 [R,B,nb*bs,KV,Dh], scale
+    f32 [R,B,nb,KV]), one max-abs scale per (block column, kv head) tile
+    (the int8 pool's admission splice)."""
+    if x.device.type == "cpu":
+        return ref.ref_quantize_kv_tiles(x, block_size, nb)
+    return _qt.quantize_rows(x.contiguous(), block_size=block_size, nb=nb)
+
+
+def dequantize_int8(q, scale):
+    """int8 q [nb, n] x f32 scale [nb] -> f32 [nb, n] (the reference's
+    ``dequantize_int8``)."""
+    if q.device.type == "cpu":
+        return ref.ref_dequantize_rows(q, scale)
+    return _qt.dequantize_rows(q, scale)
+
+
+def dequantize_gather(pool, scale, block_table, dtype):
+    """int8 pool [N,bs,KV,Dh], f32 scales [N,KV], block_table [B,M] ->
+    each row's blocks [B, M*bs, KV, Dh] dequantized in f32 and rounded to
+    ``dtype`` (the reference's ``_dequantize_gather``)."""
+    if pool.device.type == "cpu":
+        return ref.ref_dequantize_gather(pool, scale, block_table, dtype)
+    return _qt.dequantize_rows(pool, scale, block_table, dtype)
+
+
+def quantized_block_write(pools, scale_pools, news, write_bids, off) -> None:
+    """In place, for each leaf i (K and V, or one of them): quantize
+    ``news[i]`` [R,KV,Dh] into the int8 pool ``pools[i]`` [N,bs,KV,Dh] at
+    (``write_bids``, ``off``) [R] against its per-(block, kv head) scales
+    ``scale_pools[i]`` [N,KV] (``ref.ref_quantized_block_write``)."""
+    if write_bids.device.type == "cpu":
+        for pool, scale, new in zip(pools, scale_pools, news):
+            ref.ref_quantized_block_write(pool, scale, new, write_bids, off)
+        return
+    _qt.quantized_block_write(pools, scale_pools, news,
+                              write_bids.to(torch.int32),
+                              off.to(torch.int32))

@@ -147,12 +147,101 @@ def ref_paged_decode_attention_q8(q, k_pool, v_pool, k_scale, v_scale,
 def dequantize_gather(pool, scale, block_table):
     """int8 pool [N,bs,KV,D] with f32 scales [N,KV] -> each row's blocks
     [B, M*bs, KV, D] in f32 (the reference's ``_dequantize_gather``, which
-    then casts to the activation dtype; the port stays in f32, as the
-    kernel does)."""
+    then casts to the activation dtype; the q8 decode oracle stays in f32,
+    as the decode kernel does)."""
     B, M = block_table.shape
     flat = block_table.reshape(-1).long()
     x = pool[flat].float() * scale[flat][:, None, :, None]
     return x.reshape(B, M * pool.shape[1], *pool.shape[2:])
+
+
+# -- int8 quantization (kernels #10, #11 and the int8 pool's entry write) ----
+
+
+def _div127(m):
+    """``m / 127`` in IEEE f32 division on every device.  (PyTorch's CUDA
+    division by a Python scalar multiplies by the rounded reciprocal,
+    which lands one ulp off for some values; a tensor divisor divides.)"""
+    return m / torch.full_like(m, 127.0)
+
+
+def ref_quantize_rows(x):
+    """x [..., n] -> (q int8 [..., n], scale f32 [...]): max-abs int8 over
+    the last axis, ``scale = max|x| / 127`` (0 for an all-zero row, which
+    then divides as 1), ``clip(round(x / scale), -127, 127)`` with round
+    half to even (``jnp.round``); the reference's ``block_quant``."""
+    x = x.float()
+    scale = _div127(x.abs().amax(dim=-1))
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(x / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def ref_quantize_kv_tiles(x, block_size: int, nb: int):
+    """Prefill caches x [R,B,T,KV,Dh] -> (q int8 [R,B,nb*bs,KV,Dh], scale
+    f32 [R,B,nb,KV]): :func:`ref_quantize_rows` over each (block column,
+    kv head) tile [bs, Dh] of the first ``nb * block_size`` entries, the
+    entries past T taken as zeros (the int8 pool's admission splice)."""
+    x = x.float()[:, :, :nb * block_size]
+    short = nb * block_size - x.shape[2]
+    if short > 0:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, short))
+    R, B, _, KV, Dh = x.shape
+    tiles = x.reshape(R, B, nb, block_size, KV, Dh).permute(0, 1, 2, 4, 3, 5)
+    q, scale = ref_quantize_rows(tiles.reshape(R, B, nb, KV,
+                                               block_size * Dh))
+    q = q.reshape(R, B, nb, KV, block_size, Dh).permute(0, 1, 2, 4, 3, 5)
+    return q.reshape(R, B, nb * block_size, KV, Dh), scale
+
+
+def ref_dequantize_rows(q, scale):
+    """int8 q [..., n] x f32 scale [...] -> f32 [..., n]: ``q * scale``, the
+    reference's ``block_dequant``."""
+    return q.float() * scale[..., None]
+
+
+def ref_dequantize_gather(pool, scale, block_table, dtype):
+    """As :func:`dequantize_gather`, rounded once to ``dtype`` afterwards:
+    the reference's ``_dequantize_gather`` (``attention.py:406``), which the
+    int8 chunk append attends over in the activation dtype."""
+    return dequantize_gather(pool, scale, block_table).to(dtype)
+
+
+def ref_quantized_block_write(pool, scale_pool, new, write_bids, off,
+                              trash_block: int = 1) -> None:
+    """In place: quantize the new K or V entries ``new`` [R,KV,Dh] into the
+    int8 ``pool`` [N,bs,KV,Dh] at (``write_bids``, ``off``) [R] against the
+    per-(block, kv head) ``scale_pool`` [N,KV] (max-abs / 127).
+
+    An offset-0 write lands in a fresh (recycled) block, so its stale scale
+    is cleared first (rows writing elsewhere clear the trash block instead)
+    and its stale payload is zeroed.  A new entry above its block's scale
+    grows the scale, and the block's payload is requantized by
+    ``round(q * old / new)``.  The reference requantizes the whole pool
+    with a ratio that is exactly 1.0 (or 0 over a zero payload) for every
+    block it did not clear or write; this touches only the written and
+    cleared blocks, with the same result bit for bit.  Rows may repeat a
+    block (a chunk's tokens, the trash block): the touched payload is
+    gathered before it is scattered back, so each block is requantized
+    once.  Rounding is half to even, as ``jnp.round``."""
+    new = new.float()
+    bids = write_bids.long()
+    clear = torch.where(off == 0, bids, torch.full_like(bids, trash_block))
+    scale_pool[clear] = 0.0
+    touched = torch.cat([bids, clear])
+    old = scale_pool[touched]
+    need = _div127(new.abs().amax(dim=-1))                # [R, KV]
+    scale_pool.scatter_reduce_(0, bids[:, None].expand_as(need), need,
+                               "amax")
+    grown = scale_pool[touched]
+    ones = torch.ones_like(grown)
+    ratio = old / torch.where(grown > 0, grown, ones)
+    pool[touched] = torch.round(pool[touched].float()
+                                * ratio[:, None, :, None]).to(torch.int8)
+    dest = grown[:bids.shape[0]]                          # bids' new scales
+    safe = torch.where(dest > 0, dest, ones[:bids.shape[0]])
+    pool[bids, off.long()] = torch.clamp(torch.round(new / safe[..., None]),
+                                         -127, 127).to(torch.int8)
 
 
 def ref_swiglu_ffn(x, w_gate, w_up, w_down):

@@ -32,7 +32,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import ssm
-from repro_torch.models.attention import (attention, attention_decode,
+from repro_torch.models.attention import (attention,
+                                          attention_chunk_append,
+                                          attention_chunk_append_paged,
+                                          attention_decode,
                                           attention_decode_paged,
                                           attention_specs)
 from repro_torch.models.common import (LayerGroup, ModelConfig, PSpec,
@@ -218,6 +221,50 @@ def run_groups_decode(x: torch.Tensor, group_params: list, caches: list,
             for j, kind in enumerate(group.pattern):
                 x = block_decode(kind, x, lp[f"sub{j}"], cfg, lc[f"sub{j}"],
                                  pos=pos, write_idx=write_idx, paged=paged)
+    return x
+
+
+def block_chunk(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig,
+                cache: dict, *, positions: torch.Tensor, reset: torch.Tensor,
+                paged=None) -> torch.Tensor:
+    """One block, one prompt chunk x [B,C,D] (the reference's
+    ``block_chunk``, ``blocks.py:307``); ``cache`` (this layer's views)
+    takes the chunk's K/V in place.  Self-attention blocks only, as in the
+    reference: a recurrent mixer would need the sequential in-chunk scan
+    that the full prefill already is.  ``paged`` = {"block_table": [B,M],
+    "write_bids": [B,C]} switches to the pooled layout."""
+    if kind != "attn":
+        raise ValueError(f"chunked prefill only supports self-attention "
+                         f"blocks; got block kind {kind!r}")
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    if paged is not None:
+        a = attention_chunk_append_paged(
+            h, p["attn"], cfg, k_pool=cache["k"], v_pool=cache["v"],
+            pos_pool=cache["pos"], block_table=paged["block_table"],
+            write_bids=paged["write_bids"], positions=positions,
+            k_scale_pool=cache.get("k_scale"),
+            v_scale_pool=cache.get("v_scale"))
+    else:
+        a = attention_chunk_append(
+            h, p["attn"], cfg, k_cache=cache["k"], v_cache=cache["v"],
+            kv_positions=cache["pos"], positions=positions, reset=reset)
+    x = x + a
+    return x + mlp(rmsnorm(x, p["norm2"], cfg.norm_eps), p["ffn"], cfg)
+
+
+def run_groups_chunk(x: torch.Tensor, group_params: list, caches: list,
+                     cfg: ModelConfig, *, positions: torch.Tensor,
+                     reset: torch.Tensor, paged=None) -> torch.Tensor:
+    """One prompt chunk through all groups, each layer's K/V written into
+    the stacked caches in place: the chunk analog of
+    :func:`run_groups_decode` (C queries instead of one)."""
+    for group, gp, gc in zip(cfg.groups, group_params, caches):
+        for i in range(group.repeats):
+            lp, lc = layer(gp, i), layer(gc, i)
+            for j, kind in enumerate(group.pattern):
+                x = block_chunk(kind, x, lp[f"sub{j}"], cfg, lc[f"sub{j}"],
+                                positions=positions, reset=reset,
+                                paged=paged)
     return x
 
 

@@ -6,6 +6,8 @@ forward, the training loss and the one-token decode step).
     lm_loss(params, batch, cfg, *, ce_chunk=0)     (loss, metrics)
     lm_decode_step(params, token, caches, cfg, ...)  logits; caches in place
                                                    (dense or paged)
+    lm_chunk_prefill(params, tokens, caches, cfg, ...)  one prompt chunk
+                                                   appended; last logits
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models.blocks import group_specs, run_groups, run_groups_decode
+from repro_torch.models.blocks import (group_specs, run_groups,
+                                      run_groups_chunk, run_groups_decode)
 from repro_torch.models.common import ModelConfig, PSpec
 from repro_torch.models.layers import (chunked_softmax_xent, cross_entropy,
                                        embedding_spec, lm_head, rmsnorm,
@@ -101,5 +104,26 @@ def lm_decode_step(params: dict, token: torch.Tensor, caches: list,
     x = _embed(params, token, cfg)
     x = run_groups_decode(x, params["groups"], caches, cfg, pos=pos,
                           write_idx=write_idx, paged=paged)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head(x, _unembed_table(params, cfg), cfg)
+
+
+def lm_chunk_prefill(params: dict, tokens: torch.Tensor, caches: list,
+                     cfg: ModelConfig, *, positions: torch.Tensor,
+                     reset: torch.Tensor, last_index: torch.Tensor,
+                     paged=None) -> torch.Tensor:
+    """tokens [B,C] (one prompt chunk; pads at ``attention.PAD_POS``) ->
+    logits [B,1,Vp] of each row's ``last_index`` [B] token (the reference's
+    ``lm_chunk_prefill``, ``lm.py:129``).  The chunk's K/V are appended to
+    the decode caches in place at the absolute ``positions`` [B,C], every
+    query attending with per-query positional masking; ``reset`` [B] bool
+    clears a dense row's positions before its first chunk (paged rows are
+    cleared through the pool).  ``paged`` as in :func:`lm_decode_step`,
+    with write_bids [B,C]."""
+    x = _embed(params, tokens, cfg)
+    x = run_groups_chunk(x, params["groups"], caches, cfg,
+                         positions=positions, reset=reset, paged=paged)
+    x = x[torch.arange(x.shape[0], device=x.device),
+          last_index.long()][:, None]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_head(x, _unembed_table(params, cfg), cfg)

@@ -62,7 +62,8 @@ class Capabilities:
     Hopper kernels can express the config (``supports_flash_train``: the
     flash forward and backward kernels, which the training path needs on
     the card); ``supports_paged_decode`` / ``supports_quantized_kv`` gate
-    the pooled KV layout and its int8 pool."""
+    the pooled KV layout and its int8 pool; ``supports_chunked_prefill``
+    the scheduler's chunk append."""
     swa: bool
     subquadratic: bool
     supports_flash_train: bool
@@ -70,6 +71,7 @@ class Capabilities:
     supports_flash_decode: bool
     supports_paged_decode: bool
     supports_quantized_kv: bool
+    supports_chunked_prefill: bool
 
     @property
     def summary(self) -> str:
@@ -78,6 +80,7 @@ class Capabilities:
                                     "supports_fused_ffn",
                                     "supports_flash_decode",
                                     "supports_paged_decode",
+                                    "supports_chunked_prefill",
                                     "supports_quantized_kv")
                         if getattr(self, n)) or "-"
 
@@ -100,7 +103,13 @@ def capabilities(cfg: ModelConfig) -> Capabilities:
         supports_fused_ffn=cfg.mlp_act == "silu",
         supports_flash_decode=cfg.attn_logit_softcap is None,
         supports_paged_decode=paged,
-        supports_quantized_kv=paged)
+        supports_quantized_kv=paged,
+        # the reference's structural law: pure self-attention stacks with
+        # absolute positions (a ring buffer would need ring-order chunk
+        # writes, a recurrent mixer a sequential in-chunk scan)
+        supports_chunked_prefill=(
+            cfg.sliding_window is None
+            and all(k == "attn" for g in cfg.groups for k in g.pattern)))
 
 
 def model_specs(cfg: ModelConfig):
@@ -162,3 +171,22 @@ def model_paged_decode_step(params, token: torch.Tensor, caches: list,
     return lm.lm_decode_step(
         params, token, caches, cfg, pos=pos, write_idx=pos,
         paged={"block_table": block_table, "write_bids": write_bids})
+
+
+def model_chunk_prefill(params, tokens: torch.Tensor, caches: list,
+                        cfg: ModelConfig, *, positions: torch.Tensor,
+                        reset: torch.Tensor, last_index: torch.Tensor,
+                        paged=None) -> torch.Tensor:
+    """Append one [B,C] prompt chunk into decode caches at absolute
+    ``positions`` [B,C] (pads at ``models.attention.PAD_POS``) and return
+    the logits [B,1,Vp] of each row's ``last_index`` token; the caches
+    take the chunk in place.  ``paged`` = {"block_table", "write_bids"}
+    ([B,M] / [B,C]) switches to the pooled KV layout.  Raises for a stack
+    without ``supports_chunked_prefill``, as the reference does."""
+    if not capabilities(cfg).supports_chunked_prefill:
+        raise ValueError(
+            f"config {cfg.name!r} has no chunked prefill step "
+            f"(caps.supports_chunked_prefill is False)")
+    return lm.lm_chunk_prefill(params, tokens, caches, cfg,
+                               positions=positions, reset=reset,
+                               last_index=last_index, paged=paged)

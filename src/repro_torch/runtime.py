@@ -13,6 +13,8 @@
     state, metrics = rt.train_step(state, batch)          # in place
     rt = Runtime.create("xlstm-125m", capacity=2048)      # recurrent stack
     engine = rt.engine(num_slots=16)                      # mLSTM/sLSTM states
+    rt = Runtime.create("exanode-100m", capacity=2048, scheduler=True)
+    engine = rt.engine(num_slots=16)                      # chunked prefill
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without a GPU ``create`` raises rather than carrying on on the CPU.  Pass
@@ -98,7 +100,8 @@ class Runtime:
                  capacity: int, seed: int, params=None,
                  kv_layout: str = "dense", kv_dtype: str = "f32",
                  shape_kind: str = "decode", seq_len: int = 128,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, scheduler: bool = False,
+                 sched_kw=None):
         self.arch = arch
         self.cfg = cfg
         self.caps = registry.capabilities(cfg)
@@ -108,6 +111,8 @@ class Runtime:
         self.seed = seed
         self.kv_layout = kv_layout      # serve KV layout: dense | paged
         self.kv_dtype = kv_dtype        # paged pool storage: f32 | int8
+        self.scheduler = scheduler      # chunked-prefill serve scheduler
+        self.sched_kw = dict(sched_kw or {})  # token_budget/chunk_size/...
         self.shape_kind = shape_kind    # train | prefill | decode
         self.seq_len = seq_len
         self.param_dtype = param_dtype
@@ -123,7 +128,8 @@ class Runtime:
                capacity: Optional[int] = None, seed: int = 0, params=None,
                device=None, kv_layout: str = "dense",
                kv_dtype: str = "f32", param_dtype=torch.float32,
-               grad_sync: str = "hierarchical") -> "Runtime":
+               grad_sync: str = "hierarchical", scheduler: bool = False,
+               sched_kw: Optional[dict] = None) -> "Runtime":
         """Build the chain for one config.
 
         ``arch`` is a registry name (``smoke`` selects the reduced config)
@@ -151,7 +157,13 @@ class Runtime:
         the dense layout only (its states are O(1) per stream: the paged
         layout raises the reference's ``ValueError``), and a train shape
         for it raises ``NotImplementedError``: xLSTM training is not
-        ported."""
+        ported.  ``scheduler`` turns on the engine's token-budget
+        chunked-prefill scheduler (``serve.scheduler``; it needs
+        ``caps.supports_chunked_prefill``, a pure self-attention stack
+        without a sliding window, and raises the reference's
+        ``ValueError`` here otherwise) and ``sched_kw`` carries its knobs
+        (``token_budget``, ``chunk_size``, ``class_weights``,
+        ``aging_ticks``)."""
         if isinstance(arch, ModelConfig):
             if smoke:
                 raise ValueError("smoke=True only applies when arch is a "
@@ -163,6 +175,11 @@ class Runtime:
         registry.check_supported(cfg)
         caps = registry.capabilities(cfg)
         check_kv_layout(caps, cfg.name, kv_layout, kv_dtype)
+        if scheduler and not caps.supports_chunked_prefill:
+            raise ValueError(
+                f"arch {cfg.name!r} does not support chunked prefill "
+                f"(caps: {caps.summary}); the serve scheduler needs a pure "
+                f"self-attention, non-SWA stack — use scheduler=False")
         if shape_kind not in SHAPE_KINDS:
             raise ValueError(f"unknown shape_kind {shape_kind!r}; valid "
                              f"choices: {', '.join(SHAPE_KINDS)}")
@@ -187,7 +204,8 @@ class Runtime:
                    capacity=capacity, seed=seed, params=params,
                    kv_layout=kv_layout, kv_dtype=kv_dtype,
                    shape_kind=shape_kind, seq_len=seq_len,
-                   param_dtype=param_dtype)
+                   param_dtype=param_dtype, scheduler=scheduler,
+                   sched_kw=sched_kw)
 
     # -- params -------------------------------------------------------------
 
@@ -259,6 +277,16 @@ class Runtime:
     def make_paged_decode_step(self):
         return serve_steps.make_paged_decode_step(self.cfg)
 
+    def make_mixed_step(self):
+        """The scheduler's mixed step (a decode tick plus one prompt
+        chunk) over the dense layout: ``serve.steps.make_mixed_step``."""
+        return serve_steps.make_mixed_step(self.cfg)
+
+    def make_paged_mixed_step(self):
+        """The scheduler's mixed step over the paged pool (f32 or int8):
+        ``serve.steps.make_paged_mixed_step``."""
+        return serve_steps.make_paged_mixed_step(self.cfg)
+
     def prefill(self, tokens: torch.Tensor, *, last_only: bool = False):
         """tokens [B,S] -> (logits, caches padded to ``capacity``)."""
         return registry.model_prefill(self.params, tokens, self.cfg,
@@ -278,8 +306,9 @@ class Runtime:
         """A continuous-batching ``ServeEngine`` over this Runtime.
         ``kv_layout`` / ``kv_dtype`` default to the Runtime's own;
         ``engine_kw`` forwards the paged pool's sizing (``block_size``,
-        ``num_blocks``, ``max_blocks_per_seq``) and the knobs of later
-        slices (which raise)."""
+        ``num_blocks``, ``max_blocks_per_seq``), the scheduler and its
+        knobs (defaulting to the Runtime's ``scheduler`` / ``sched_kw``)
+        and the knobs of later slices (which raise)."""
         from repro_torch.serve.engine import ServeEngine
         return ServeEngine(
             self, num_slots=num_slots,
@@ -330,8 +359,12 @@ class Runtime:
         else:
             decode = {("dense", "f32"): "decode_attention",
                       ("paged", "f32"): "paged_decode_attention",
-                      ("paged", "int8"): "paged_decode_attention_q8"}[
+                      ("paged", "int8"): "paged_decode_attention_q8 "
+                                         "quantized_block_write "
+                                         "quantize_int8"}[
                           (self.kv_layout, self.kv_dtype)]
+            if self.scheduler and self.kv_dtype == "int8":
+                decode += " dequantize_int8"
             lines += [
                 f"  kernels   : flash_attention fused_ffn {decode} ({impl})",
                 f"  train     : seq_len={self.seq_len} "
@@ -339,10 +372,15 @@ class Runtime:
                 f"param_dtype={self.param_dtype} kernels: flash_attention + "
                 f"flash_attention_bwd_dq/_dkv, fused_ffn + "
                 f"fused_ffn_bwd_dx/_dw (torch.autograd.Function; {impl})"]
+        sched = ("scheduler[" + ", ".join(
+            f"{k}={v}" for k, v in sorted(self.sched_kw.items()))
+            + ("]" if self.sched_kw else "defaults]")
+            if self.scheduler else "scheduler=off")
         lines.append(f"  serve     : capacity={self.capacity} "
                      f"kv_layout={self.kv_layout} kv_dtype={self.kv_dtype} "
                      f"kv_bytes/stream={self.kv_bytes_per_stream():,} "
-                     f"dtype={self.cfg.dtype} scheduler=off")
+                     f"dtype={self.cfg.dtype} {sched} chunked_prefill_ok="
+                     f"{self.caps.supports_chunked_prefill}")
         return "\n".join(lines)
 
     def __repr__(self) -> str:

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
 
 NULL_BLOCK = 0     # permanently empty; unused table entries point here
@@ -57,15 +58,21 @@ class _NullInstrument:
     def set(self, value) -> None:
         pass
 
+    def labels(self, **values) -> "_NullInstrument":
+        return self
+
 
 class _NullRegistry:
     """No-op stand-in for the reference's ``obs.metrics`` registry (the
-    observability layer is not ported yet)."""
+    observability layer is not ported yet); the block pool and the
+    scheduler record into it."""
 
-    def counter(self, name: str, help: str = "") -> _NullInstrument:
+    def counter(self, name: str, help: str = "",
+                labels: tuple = ()) -> _NullInstrument:
         return _NullInstrument()
 
-    def gauge(self, name: str, help: str = "") -> _NullInstrument:
+    def gauge(self, name: str, help: str = "",
+              labels: tuple = ()) -> _NullInstrument:
         return _NullInstrument()
 
 
@@ -368,25 +375,16 @@ def quantize_paged_part(part: list, block_size: int, nb: int) -> list:
     """Capacity-padded prefill caches -> the int8 + scales layout of an int8
     pool: per (bucket block column, kv head) max-abs over the [block_size,
     Dh] tile, scale = max / 127, payload ``clip(round(x / scale))`` (round
-    half to even, as ``jnp.round``).  Payload leaves come back with
+    half to even, as ``jnp.round``), through ``kernels.ops.quantize_kv_tiles``
+    (kernel #10 on the card).  Payload leaves come back with
     ``nb * block_size`` entries (zero-padded when the capacity is not
     block-aligned), scale leaves as [R, Bp, nb, KV]."""
-    def quant(x):                                      # [R, Bp, T, KV, Dh]
-        x = _pad_entries(x.float(), nb * block_size, 0.0)
-        R, Bp, _, KV, Dh = x.shape
-        x = x.reshape(R, Bp, nb, block_size, KV, Dh)
-        scale = x.abs().amax(dim=(3, 5)) / 127.0       # [R, Bp, nb, KV]
-        safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-        q = torch.clamp(torch.round(x / safe[:, :, :, None, :, None]),
-                        -127, 127).to(torch.int8)
-        return q.reshape(R, Bp, nb * block_size, KV, Dh), scale
-
     out = []
     for grp in part:
         per = {}
         for name, sub in grp.items():
-            qk, ks = quant(sub["k"])
-            qv, vs = quant(sub["v"])
+            qk, ks = ops.quantize_kv_tiles(sub["k"], block_size, nb)
+            qv, vs = ops.quantize_kv_tiles(sub["v"], block_size, nb)
             per[name] = {"k": qk, "v": qv, "k_scale": ks, "v_scale": vs,
                          "pos": sub["pos"]}
         out.append(per)

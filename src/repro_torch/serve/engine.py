@@ -1,6 +1,6 @@
 """Continuous-batching serve engine over the dense KV layout or the paged
-block pool (port of ``repro.serve.engine.ServeEngine``'s
-monolithic-admission path).
+block pool, with monolithic admission or the chunked-prefill scheduler
+(port of ``repro.serve.engine.ServeEngine``).
 
 A fixed pool of ``num_slots`` decode slots runs in lock-step, one decode
 step per tick.  Queued requests are admitted into free slots through
@@ -44,9 +44,25 @@ its EOS frees its slot.  The semantics are the reference's:
   are released at once; the prefix cache keeps their content until they
   are recycled.
 
-The reference's chunked-prefill scheduler, fault tolerance, integrity
-scrubbing and telemetry are later slices; their knobs raise
-``NotImplementedError`` here.
+* **Chunked-prefill scheduler** (``scheduler=True``,
+  ``serve.scheduler``).  Admission becomes part of the decode tick: the
+  scheduler picks the next waiting request (weighted round robin across
+  priority classes, with starvation aging) when a slot is free and no
+  prompt is in flight, reserves the slot (paged: the request's whole
+  chain, prefix-shared blocks included, through ``pool.admit`` with the
+  worst-case reservation, or ``requeue_front`` when the pool cannot hold
+  it yet), and each tick appends one [1, C] chunk of its prompt, sized by
+  the token budget left after the decoding slots, inside the mixed step
+  (``serve.steps.make_mixed_step``).  Non-decoding slots' positions are
+  parked at ``attention.PAD_POS``, so their decode writes are dropped
+  (dense) or go to the trash block (paged) and never touch the row being
+  built.  The final chunk's sampled token is the request's first, seeded
+  into the hot loop on the device and collected with the decode tokens
+  one tick later.  The chunk's inputs go to the device in one pinned,
+  double-buffered copy.
+
+The reference's fault tolerance, integrity scrubbing and telemetry are
+later slices; their knobs raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -58,9 +74,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models.attention import PAD_POS
 from repro_torch.models.ssm import F32_PARAMS
 from repro_torch.runtime import check_kv_layout
 from repro_torch.serve import blockpool, kvcache
+from repro_torch.serve.scheduler import Scheduler
 
 
 @dataclass
@@ -69,6 +87,8 @@ class Request:
     prompt: np.ndarray               # [S] int32
     max_new_tokens: int = 16
     eos_id: int = -1                 # -1 = never
+    priority: int = 0                # scheduler class (weights are per-class
+    #                                  knobs; lower id is not higher priority)
     # filled by the engine
     generated: list = field(default_factory=list)
     submitted_at: float = 0.0
@@ -86,12 +106,16 @@ class EngineStats:
     admitted: int = 0
     finished: int = 0
     prefill_calls: int = 0
+    chunk_ticks: int = 0     # scheduler: mixed (decode + chunk) ticks
 
     @property
     def summary(self) -> str:
-        return (f"ticks={self.ticks} tokens={self.tokens_out} "
-                f"admitted={self.admitted} finished={self.finished} "
-                f"prefills={self.prefill_calls}")
+        s = (f"ticks={self.ticks} tokens={self.tokens_out} "
+             f"admitted={self.admitted} finished={self.finished} "
+             f"prefills={self.prefill_calls}")
+        if self.chunk_ticks:
+            s += f" chunk_ticks={self.chunk_ticks}"
+        return s
 
 
 def percentile(values: Sequence[float], q: float) -> float:
@@ -117,14 +141,21 @@ class ServeEngine:
     hot loop.  Serving
     weights are cast once to the config's working dtype here (the
     reference casts every matrix to the activation dtype before each
-    product); RMSNorm scales stay f32."""
+    product); RMSNorm scales stay f32.  ``scheduler`` (default: the
+    Runtime's) selects chunked-prefill admission; ``token_budget``,
+    ``chunk_size``, ``class_weights`` and ``aging_ticks`` override the
+    Runtime's ``sched_kw`` and are refused without it."""
 
     def __init__(self, runtime, *, num_slots: int = 4,
                  kv_layout: str = "dense", kv_dtype: str = "f32",
                  block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  max_blocks_per_seq: Optional[int] = None,
-                 scheduler: bool = False, health_every: int = 0,
+                 scheduler: Optional[bool] = None,
+                 token_budget: Optional[int] = None,
+                 chunk_size: Optional[int] = None,
+                 class_weights: Optional[dict] = None,
+                 aging_ticks: Optional[int] = None, health_every: int = 0,
                  scrub_every: int = 0, injector=None):
         check_kv_layout(runtime.caps, runtime.cfg.name, kv_layout, kv_dtype)
         if kv_layout == "dense" and any(
@@ -134,9 +165,6 @@ class ServeEngine:
                 "block_size/num_blocks/max_blocks_per_seq size the paged "
                 "block pool; pass kv_layout='paged' (a dense engine would "
                 "silently ignore them)")
-        if scheduler:
-            _unsupported("the chunked-prefill scheduler",
-                         "ROADMAP queue 1, item 8")
         if health_every or scrub_every or injector is not None:
             _unsupported("fault tolerance / integrity scrubbing",
                          "ROADMAP queue 1, item 10")
@@ -144,6 +172,29 @@ class ServeEngine:
         self.cfg, self.caps, self.device = rt.cfg, rt.caps, rt.device
         self.num_slots = num_slots
         self.capacity = rt.capacity
+        self.scheduler = (scheduler if scheduler is not None
+                          else getattr(rt, "scheduler", False))
+        if self.scheduler and not self.caps.supports_chunked_prefill:
+            raise ValueError(
+                f"arch {self.cfg.name!r} does not support chunked prefill "
+                f"(caps: {self.caps.summary}); the scheduler needs a pure "
+                f"self-attention, non-SWA stack — use scheduler=False")
+        knobs = dict(token_budget=token_budget, chunk_size=chunk_size,
+                     class_weights=class_weights, aging_ticks=aging_ticks)
+        if not self.scheduler and any(v is not None for v in knobs.values()):
+            raise ValueError(
+                "token_budget/chunk_size/class_weights/aging_ticks tune the "
+                "chunked-prefill scheduler; pass scheduler=True (a "
+                "monolithic engine would silently ignore them)")
+        self.sched = None
+        if self.scheduler:
+            skw = dict(getattr(rt, "sched_kw", None) or {})
+            skw.update({k: v for k, v in knobs.items() if v is not None})
+            self.sched = Scheduler(**skw)
+            if self.sched.chunk_size > self.capacity:
+                raise ValueError(
+                    f"chunk_size={self.sched.chunk_size} exceeds the decode "
+                    f"capacity {self.capacity}")
         # bounded queue scan for admission grouping (see _admit_batch)
         self.admit_window = 4 * num_slots
         self.params = serving_params(rt.params, self.cfg.dtype)
@@ -153,6 +204,7 @@ class ServeEngine:
         # one capacity-padded prefill for both layouts: the paged splice
         # reads block columns out of the same caches the dense one splices
         self._prefill = rt.make_prefill_step()
+        M = 0
         if self.paged:
             bs = block_size if block_size is not None else 16
             M = (max_blocks_per_seq if max_blocks_per_seq is not None
@@ -196,7 +248,27 @@ class ServeEngine:
         # into one while step t-1's is read from the other
         self._host_tok = [torch.empty(num_slots, dtype=torch.int32,
                                       pin_memory=pin) for _ in range(2)]
-        self._inflight = None   # (host buffer, copy-done event, slot->req)
+        self._inflight = None   # (host buffer, copy-done event, slot->req,
+        #                          chunk-final (req, slot) | None)
+        # scheduler state: the one prompt mid-chunked-prefill (req, slot,
+        # consumed token count, paged per-column dst) and this tick's chunk
+        self._prefilling: Optional[dict] = None
+        self._chunk: Optional[dict] = None
+        if self.scheduler:
+            self._mixed = (rt.make_paged_mixed_step() if self.paged
+                           else rt.make_mixed_step())
+            # park every (free) slot: see _free
+            self._pos.fill_(PAD_POS)
+            # a chunk's tokens, positions, write blocks [C] each, its
+            # owner's table row [M], its last real index and its reset
+            # flag, staged like the write plan
+            C = self.sched.chunk_size
+            n = 3 * C + M + 2
+            self._host_chunk = [torch.empty(n, dtype=torch.int32,
+                                            pin_memory=pin)
+                                for _ in range(2)]
+            self._chunk_dev = torch.empty(n, dtype=torch.int32,
+                                          device=self.device)
 
     # -- admission ----------------------------------------------------------
 
@@ -223,7 +295,25 @@ class ServeEngine:
                     f"{self.pool.max_blocks_per_seq}; grow num_blocks / "
                     f"max_blocks_per_seq or shrink the request")
         req.submitted_at = time.perf_counter()
-        self.queue.append(req)
+        if self.scheduler:
+            self.sched.enqueue(req)
+        else:
+            self.queue.append(req)
+
+    def _decoding(self, s: int) -> bool:
+        """Slot ``s`` takes part in the decode tick: occupied, and not the
+        slot receiving prefill chunks (the scheduler reserves it when its
+        prompt starts)."""
+        return self.slot_req[s] is not None and (
+            self._prefilling is None or self._prefilling["slot"] != s)
+
+    def _backlog(self) -> int:
+        """Requests not yet decoding: queued, and the one mid-chunked-
+        prefill."""
+        n = len(self.queue)
+        if self.scheduler:
+            n += self.sched.pending + (self._prefilling is not None)
+        return n
 
     def _bucket_len(self, n: int) -> int:
         """Prefill padding bucket: next power of two (>= 8) capped at
@@ -239,21 +329,23 @@ class ServeEngine:
     def _admit_batch(self) -> int:
         """Admit queued requests through one padded batched prefill per
         group.  A group is the head request plus later requests of its
-        bucket within the first ``admit_window`` (4 x ``num_slots``) queue
-        entries, at most one per free slot; a full group ends the scan, and
-        so, under the paged layout, does the first request whose worst-case
-        chain no longer fits the unreserved pool, so no request is
-        overtaken by a look-alike submitted after it.  Returns the number
-        admitted."""
+        bucket and priority class within the first ``admit_window`` (4 x
+        ``num_slots``) queue entries, at most one per free slot; a full
+        group ends the scan, and so, under the paged layout, does the first
+        request whose worst-case chain no longer fits the unreserved pool,
+        so no request is overtaken by a look-alike of its class submitted
+        after it.  Returns the number admitted."""
         admitted = 0
         free = [s for s in range(self.num_slots) if self.slot_req[s] is None]
         while free and self.queue:
-            blen = self._bucket_len(len(self.queue[0].prompt))
+            head = self.queue[0]
+            blen = self._bucket_len(len(head.prompt))
             avail = self.pool.available_blocks if self.paged else 0
             need, idxs = 0, []
             for i in range(min(len(self.queue), self.admit_window)):
                 r = self.queue[i]
-                if i and self._bucket_len(len(r.prompt)) != blen:
+                if i and (r.priority != head.priority
+                          or self._bucket_len(len(r.prompt)) != blen):
                     continue
                 if len(idxs) >= len(free):
                     break
@@ -336,28 +428,149 @@ class ServeEngine:
         self.stats.finished += 1
         if self.paged:
             self.pool.release(slot)
+        if self.scheduler:
+            # park the slot: the lock-step decode keeps computing over it,
+            # but a parked lane's dense write falls past the cache and is
+            # dropped, so a row later built chunk by chunk in this slot is
+            # never clobbered (paged lanes of free slots write the trash
+            # block)
+            self._pos[slot] = PAD_POS
+            self.sched.forget(req.rid)
+
+    def _plan_chunk(self) -> Optional[dict]:
+        """The scheduler's host planning of this tick's prefill chunk.
+
+        Starts the next waiting request (``sched.select``) when no prompt
+        is in flight and a slot is free; a paged engine allocates its
+        whole chain here (``pool.admit``: prefix-shared blocks resolve now;
+        the worst-case reservation gates as in monolithic admission, and a
+        request the pool cannot hold yet goes back to the front of its
+        class).  Then sizes this tick's chunk under the token budget
+        (``sched.chunk_tokens``); a saturated tick returns None (decode
+        only).  Chunk progress advances in ``_dispatch``, after the step
+        ran."""
+        if self._prefilling is None and self.sched.pending:
+            free = next((s for s in range(self.num_slots)
+                         if self.slot_req[s] is None), None)
+            if free is not None:
+                req = self.sched.select()
+                if self.paged and \
+                        self._paged_reserve(req) > self.pool.available_blocks:
+                    self.sched.requeue_front([req])
+                else:
+                    req.admitted_at = time.perf_counter()
+                    self.slot_req[free] = req
+                    self.slot_pos[free] = 0
+                    dst = None
+                    if self.paged:
+                        nb = self.pool.blocks_needed(len(req.prompt))
+                        dst = self.pool.admit(
+                            free, req.prompt, nb,
+                            reserve_blocks=self._paged_reserve(req))
+                    self._prefilling = {"req": req, "slot": free,
+                                        "consumed": 0, "dst": dst}
+        pf = self._prefilling
+        if pf is None:
+            return None
+        req, slot = pf["req"], pf["slot"]
+        L = len(req.prompt)
+        active = sum(self._decoding(s) for s in range(self.num_slots))
+        n = self.sched.chunk_tokens(active, L - pf["consumed"])
+        if n == 0:
+            return None             # budget saturated: decode-only tick
+        start = pf["consumed"]
+        return {"req": req, "slot": slot, "start": start, "n": n,
+                "final": start + n >= L}
+
+    def _stage_chunk(self, ch: dict) -> dict:
+        """Stage ``ch``'s device inputs through one pinned buffer and one
+        non-blocking copy: tokens and positions [1,C] (pads at PAD_POS),
+        paged write blocks [1,C] (the admitted chain's column per token;
+        the trash block for prefix-shared columns, already written by
+        their first owner, and for pads) and the owner's table row [1,M],
+        the last real index [1] and the reset flag [1] (a dense row's
+        first chunk clears its stale positions)."""
+        req, start, n = ch["req"], ch["start"], ch["n"]
+        C = self.sched.chunk_size
+        M = self.pool.max_blocks_per_seq if self.paged else 0
+        host = self._host_chunk[self.stats.ticks % 2]
+        h = host.numpy()
+        h[:C] = 0
+        h[:n] = req.prompt[start:start + n]
+        h[C:2 * C] = PAD_POS
+        h[C:C + n] = np.arange(start, start + n, dtype=np.int32)
+        if self.paged:
+            bs, dst = self.pool.block_size, self._prefilling["dst"]
+            h[2 * C:3 * C] = blockpool.TRASH_BLOCK
+            h[2 * C:2 * C + n] = dst[np.arange(start, start + n) // bs]
+            h[3 * C:3 * C + M] = self.pool.table[ch["slot"]]
+        h[3 * C + M] = n - 1
+        h[3 * C + M + 1] = start == 0
+        dev = self._chunk_dev
+        dev.copy_(host, non_blocking=True)
+        return {"tok": dev[:C].view(1, C), "pos": dev[C:2 * C].view(1, C),
+                "bids": dev[2 * C:3 * C].view(1, C),
+                "table": dev[3 * C:3 * C + M].view(1, M),
+                "last": dev[3 * C + M:3 * C + M + 1],
+                "reset": dev[3 * C + M + 1:] != 0}
 
     # -- main loop ----------------------------------------------------------
 
     def _dispatch(self):
-        """Enqueue one decode step over every slot and a non-blocking copy
-        of its tokens to the host; returns what the next tick collects."""
-        reqs = list(self.slot_req)
+        """Enqueue one step over every slot and a non-blocking copy of its
+        tokens to the host; returns what the next tick collects.
+
+        With a chunk planned this tick the step is the mixed one (decode
+        over every slot, then the chunk appended into its slot's cache),
+        else the decode step.  Chunk progress advances here, after the
+        step; the final chunk seeds the slot's token and position on the
+        device, so its sampled first token travels in the copied token
+        lane of its slot.  The slot snapshot masks the prefilling slot:
+        its decode lane is parked junk, not stream output."""
+        ch = self._chunk
+        reqs = [self.slot_req[s] if self._decoding(s) else None
+                for s in range(self.num_slots)]
+        c_next = None
+        if ch is not None:
+            c = self._stage_chunk(ch)
         if self.paged:
-            self._tok, self.caches, self._pos = self._decode(
-                self.params, self._tok, self.caches, self._pos,
-                *self._write_plan(reqs))
+            plan = self._write_plan(reqs)
+            if ch is not None:
+                self._tok, self.caches, self._pos, c_next = self._mixed(
+                    self.params, self._tok, self.caches, self._pos, *plan,
+                    c["tok"], c["pos"], c["table"], c["bids"], c["last"])
+            else:
+                self._tok, self.caches, self._pos = self._decode(
+                    self.params, self._tok, self.caches, self._pos, *plan)
+        elif ch is not None:
+            self._tok, self.caches, self._pos, c_next = self._mixed(
+                self.params, self._tok, self.caches, self._pos, c["tok"],
+                c["pos"], ch["slot"], c["reset"], c["last"])
         else:
             self._tok, self.caches, self._pos = self._decode(
                 self.params, self._tok, self.caches, self._pos)
         self.stats.ticks += 1
+        chunk_final = None
+        if ch is not None:
+            self.stats.chunk_ticks += 1
+            self._prefilling["consumed"] = ch["start"] + ch["n"]
+            if ch["final"]:
+                req, slot = ch["req"], ch["slot"]
+                L = len(req.prompt)
+                # the chunk's sampled token at position L: the slot
+                # decodes from the next tick on
+                self._tok[slot] = c_next
+                self._pos[slot] = L
+                self.slot_pos[slot] = L
+                self._prefilling = None
+                chunk_final = (req, slot)
         host = self._host_tok[self.stats.ticks % 2]
         host.copy_(self._tok.view(-1), non_blocking=True)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
-        return host, done, reqs
+        return host, done, reqs, chunk_final
 
     def _write_plan(self, reqs: list):
         """This tick's paged write plan: plan each slot's write, apply the
@@ -381,8 +594,10 @@ class ServeEngine:
         return self._plan[:S * M].view(S, M), self._plan[S * M:]
 
     def _collect(self, inflight):
-        """Apply the previous tick's tokens (waits for their copy only)."""
-        host, done, reqs = inflight
+        """Apply the previous tick's tokens (waits for their copy only).  A
+        tick that ran a prompt's final chunk also carries that request's
+        first token, in its slot's lane."""
+        host, done, reqs, chunk_final = inflight
         if done is not None:
             done.synchronize()
         vals = host.numpy()
@@ -397,24 +612,44 @@ class ServeEngine:
             self.stats.tokens_out += 1
             if len(req.generated) >= req.max_new_tokens or tok == req.eos_id:
                 self._free(slot)
+        if chunk_final is not None:
+            req, slot = chunk_final
+            if not req.done:
+                tok = int(vals[slot])
+                req.generated.append(tok)
+                req.first_token_at = now
+                self.stats.admitted += 1
+                if len(req.generated) >= req.max_new_tokens \
+                        or tok == req.eos_id:
+                    self._free(slot)      # done at prefill
 
     def tick(self) -> bool:
-        """Dispatch one step, collect the previous one, admit.  Admissions
-        take effect in the next tick's step.  Returns whether anything
-        happened."""
+        """Plan (scheduler), dispatch one step, collect the previous one,
+        admit (monolithic).  Monolithic admissions take effect in the next
+        tick's step; the scheduler instead plans a prefill chunk before the
+        dispatch and runs it inside the mixed step.  Returns whether
+        anything happened or is still waiting."""
+        self._chunk = None
+        if self.scheduler:
+            self.sched.on_tick()
+            self._chunk = self._plan_chunk()
         dispatched = None
-        if any(r is not None for r in self.slot_req):
+        if self._chunk is not None or any(self._decoding(s)
+                                          for s in range(self.num_slots)):
             dispatched = self._dispatch()
         processed = self._inflight is not None
         if processed:
             self._collect(self._inflight)
         self._inflight = dispatched
+        if self.scheduler:
+            return (dispatched is not None or processed
+                    or self._backlog() > 0)
         admitted = self._admit_batch()
         return dispatched is not None or processed or admitted > 0
 
     def run_to_completion(self, max_ticks: int = 10_000) -> EngineStats:
         for _ in range(max_ticks):
-            if not self.tick() and not self.queue:
+            if not self.tick() and not self._backlog():
                 break
         return self.stats
 

@@ -113,6 +113,15 @@ def splice_slots(full: list, part: list, slots: Sequence[int]) -> list:
     return full
 
 
+def slot_rows(caches: list, slot: int) -> list:
+    """Views of one slot's row in every leaf ([L, 1, ...] of the
+    [L, num_slots, ...] caches).  The scheduler's chunk append writes
+    through them in place, where the reference slices the row out and
+    splices it back (``splice_slots``)."""
+    return [{name: {leaf: t.narrow(1, slot, 1) for leaf, t in c.items()}
+             for name, c in gc.items()} for gc in caches]
+
+
 def pad_prefill_cache(cfg: ModelConfig, caches: list, prefill_len: int,
                       capacity: int) -> list:
     """Prefill caches -> decode caches.  Attention (k, v) [L,B,S,KV,Dh]

@@ -29,6 +29,7 @@ from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import fused_ffn as ffn_kernel
 from repro_torch.kernels import mlstm_scan as ml_kernel
 from repro_torch.kernels import paged_attention as pa_kernel
+from repro_torch.kernels import quant as qt_kernel
 
 TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "decode": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
@@ -269,7 +270,10 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
                                    "flash_attention_bwd_dkv": 0,
                                    "fused_ffn_bwd_dx": 0,
                                    "fused_ffn_bwd_dw": 0,
-                                   "mlstm_scan": 0}
+                                   "mlstm_scan": 0,
+                                   "quantize_int8": 0,
+                                   "dequantize_int8": 0,
+                                   "quantized_block_write": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -294,6 +298,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    torch.zeros(1, 8, 1, 64),
                                    torch.zeros(1, 8, dtype=torch.int32),
                                    torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        qt_kernel.quantize_rows(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        qt_kernel.dequantize_rows(torch.zeros(4, 16, dtype=torch.int8),
+                                  torch.zeros(4))
+    idx = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        qt_kernel.quantized_block_write(
+            [torch.zeros(3, 4, 1, 8, dtype=torch.int8)], [torch.zeros(3, 1)],
+            [torch.zeros(2, 1, 8)], idx, idx)
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -623,3 +637,179 @@ def test_mlstm_kernel_refuses_grads_and_other_dtypes(cuda):
                        chunk=8)
     with pytest.raises(ValueError, match="multiple"):
         ops.mlstm_scan(*(t.detach() for t in ins), chunk=3)
+
+
+# -- int8 quantization (#10, #11) and the int8 pool write --------------------
+
+
+def _quant_rows(nb, seed):
+    """[nb, 256] rows of mixed magnitudes, one all-zero row, one row of
+    exact .5 quotients (round half to even) and one with a subnormal-free
+    tiny max."""
+    x = _rand((nb, 256), seed) * np.logspace(-3, 2, nb, dtype=np.float32)[
+        :, None]
+    x[1] = 0.0
+    x[2] = np.arange(256, dtype=np.float32) - 127.5      # scale 1.0039..
+    x[3, :] = 0.0
+    x[3, 7] = 1e-30
+    return x
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+def test_quant_plain_matches_pallas(jref, nb):
+    """The plain #10 and #11 against the reference's Pallas kernels in
+    interpret mode.  The port's scale is max / 127 in IEEE f32 division
+    (checked against numpy); XLA compiles the kernel's ``/ 127.0`` on the
+    CPU as a product with the rounded reciprocal, which lands one ulp away
+    on some rows (6 of 64 at nb 64), so the reference's scales are held to
+    one ulp, and its payload bit for bit on every row whose scale agrees
+    (within one code on the others).  Dequantization is a single product:
+    bit for bit on the reference's own payload and scales."""
+    from repro.kernels import quant as jquant
+    jnp = jref["jnp"]
+    x = _quant_rows(nb, seed=40 + nb)
+    q_j, s_j = (np.array(a) for a in
+                jquant.quantize_int8(jnp.asarray(x), interpret=True))
+    q, s = ops.quantize_int8(torch.from_numpy(x))
+    q, s = q.numpy(), s.numpy()
+    np.testing.assert_array_equal(
+        s, np.abs(x).max(axis=1).astype(np.float32) / np.float32(127))
+    np.testing.assert_array_max_ulp(s, s_j, maxulp=1)
+    same = s == s_j
+    assert same.mean() > 0.8
+    np.testing.assert_array_equal(q[same], q_j[same])
+    assert np.abs(q.astype(np.int32) - q_j.astype(np.int32)).max() <= 1
+    d_j = jquant.dequantize_int8(jnp.asarray(q_j), jnp.asarray(s_j),
+                                 interpret=True)
+    np.testing.assert_array_equal(
+        ops.dequantize_int8(torch.from_numpy(q_j),
+                            torch.from_numpy(s_j)).numpy(), np.asarray(d_j))
+
+
+def test_quant_kv_tiles_plain_equals_rows():
+    """The splice's tile form is the row form over each (block column, kv
+    head) tile, the entries past T taken as zeros."""
+    x = torch.from_numpy(_rand((2, 3, 20, 4, 8), 44))
+    q, s = ops.quantize_kv_tiles(x, 8, 3)
+    assert q.shape == (2, 3, 24, 4, 8) and s.shape == (2, 3, 3, 4)
+    pad = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 4))
+    tiles = pad.reshape(2, 3, 3, 8, 4, 8).permute(0, 1, 2, 4, 3, 5)
+    q2, s2 = ops.quantize_int8(tiles.reshape(-1, 64))
+    assert torch.equal(s.reshape(-1), s2)
+    assert torch.equal(q.reshape(2, 3, 3, 8, 4, 8).permute(0, 1, 2, 4, 3, 5)
+                       .reshape(-1, 64), q2)
+    assert not q[:, :, 20:].any()
+
+
+def _write_case(kind, seed, N=64, bs=16, KV=4, Dh=64):
+    """int8 pools (recycled storage: random payload and scales) and a write
+    plan: ``decode`` is 16 one-token rows (active slots on distinct blocks,
+    two at offset 0, six inactive rows on the trash block, colliding);
+    ``chunk`` is a 32-token chunk from position 124 (four trash writes of
+    a shared column, the rest filling the tail of one block, a whole block
+    and the head of a third, four pads on the trash block at offset 0)."""
+    rng = np.random.default_rng(seed)
+    pools = [rng.integers(-127, 128, (N, bs, KV, Dh)).astype(np.int8)
+             for _ in range(2)]
+    scales = [(rng.random((N, KV)) * 0.05).astype(np.float32)
+              for _ in range(2)]
+    if kind == "decode":
+        bids = [5, 9, 13, 17, 21, 25, 29, 33, 37, 41] + [1] * 6
+        off = [0, 3, 15, 7, 0, 1, 2, 9, 11, 14] + [0, 5, 5, 0, 8, 5]
+        mags = [0.1, 30.0, 1.0, 3.0, 0.5, 80.0, 1.0, 0.01, 2.0, 5.0] + [1] * 6
+    else:
+        pos = np.arange(124, 152)
+        bids = [1] * 4 + [int(c) for c in 40 + pos[4:] // bs] + [1] * 4
+        off = [int(p) % bs for p in pos] + [0] * 4
+        mags = [1.0] * 4 + list(np.linspace(0.2, 40.0, 24)) + [1.0] * 4
+    new = [(rng.standard_normal((len(bids), KV, Dh))
+            * np.asarray(mags)[:, None, None]).astype(np.float32)
+           for _ in range(2)]
+    return pools, scales, new, np.asarray(bids, np.int32), \
+        np.asarray(off, np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernels_match_plain(cuda, nb, dtype):
+    x = torch.from_numpy(_quant_rows(nb, 50)).to(cuda, dtype)
+    q, s = qt_kernel.quantize_rows(x)
+    qw, sw = ref.ref_quantize_rows(x)
+    assert torch.equal(q, qw) and torch.equal(s, sw)
+    d = qt_kernel.dequantize_rows(q, s)
+    assert torch.equal(d, ref.ref_dequantize_rows(q, s))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,nb", [(40, 3), (64, 4), (2048, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_tiles_kernel_matches_plain(cuda, T, nb, dtype):
+    """The admission splice's tiles read in place: a short tail (T = 40 <
+    3 x 16 entries), an exact fit and a 16 x 1024 bucket of a 2048 cache."""
+    B = 16 if T == 2048 else 3
+    x = torch.randn(2, B, T, 4, 64, device=cuda).to(dtype)
+    q, s = qt_kernel.quantize_rows(x, block_size=16, nb=nb)
+    qw, sw = ref.ref_quantize_kv_tiles(x, 16, nb)
+    assert torch.equal(q, qw) and torch.equal(s, sw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_gather_kernel_matches_plain(cuda, dtype):
+    """#11's block-table gather at the chunk append's shape: one row of
+    128 blocks of 16 over a 2050-block pool, NULL tail columns."""
+    gen = torch.Generator(device=cuda).manual_seed(60)
+    pool = torch.randint(-127, 128, (2050, 16, 4, 64), generator=gen,
+                         device=cuda, dtype=torch.int8)
+    scale = torch.rand(2050, 4, generator=gen, device=cuda) * 0.05
+    table = torch.zeros(1, 128, dtype=torch.int32, device=cuda)
+    table[0, :100] = torch.randperm(2048, generator=gen,
+                                    device=cuda)[:100] + 2
+    got = qt_kernel.dequantize_rows(pool, scale, table, dtype)
+    assert got.shape == (1, 2048, 4, 64) and got.dtype == dtype
+    assert torch.equal(got, ref.ref_dequantize_gather(pool, scale, table,
+                                                      dtype))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_block_write_kernel_matches_plain(cuda, kind, dtype):
+    """The fused write (K and V in one launch) against the plain write,
+    three times in a row on the same pools: every payload and scale bit
+    for bit, but the trash block's payload, whose colliding writes land in
+    no fixed order in the plain version's scatter."""
+    pools, scales, new, bids, off = _write_case(kind, seed=70)
+    dev = lambda a: torch.from_numpy(a).to(cuda)        # noqa: E731
+    kp, ks = [dev(p) for p in pools], [dev(s) for s in scales]
+    wp, ws = [t.clone() for t in kp], [t.clone() for t in ks]
+    keep = torch.arange(kp[0].shape[0], device=cuda) != 1
+    for step in range(3):
+        news = [(dev(x) * (1 + step)).to(dtype) for x in new]
+        qt_kernel.quantized_block_write(kp, ks, news, dev(bids), dev(off))
+        for p, s, x in zip(wp, ws, news):
+            ref.ref_quantized_block_write(p, s, x, dev(bids), dev(off))
+        torch.cuda.synchronize()
+        for i in range(2):
+            assert torch.equal(kp[i][keep], wp[i][keep]), (step, i)
+            assert torch.equal(ks[i], ws[i]), (step, i)
+
+
+@pytest.mark.cuda
+def test_quant_kernels_refuse_bad_inputs(cuda):
+    x = torch.zeros(4, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        qt_kernel.quantize_rows(x)
+    q = torch.zeros(4, 16, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="int8 q"):
+        qt_kernel.dequantize_rows(q.float(), torch.zeros(4, device=cuda))
+    idx = torch.zeros(2, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        qt_kernel.quantized_block_write(
+            [torch.zeros(3, 4, 1, 8, dtype=torch.int8, device=cuda)],
+            [torch.zeros(3, 1, device=cuda)],
+            [torch.zeros(2, 1, 8, device=cuda)], idx, idx)

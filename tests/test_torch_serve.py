@@ -224,9 +224,11 @@ def test_out_of_slice_requests_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PortRuntime.create(bad, device="cpu")
     rt = PortRuntime.create("exanode-100m", smoke=True, device="cpu")
-    for kw in ({"scheduler": True}, {"health_every": 1}, {"scrub_every": 2}):
+    for kw in ({"health_every": 1}, {"scrub_every": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rt.engine(**kw)
+    # the chunked-prefill scheduler is ported (tests/test_torch_sched.py)
+    assert rt.engine(scheduler=True).sched is not None
 
 
 def test_port_imports_neither_jax_nor_reference():
