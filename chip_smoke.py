@@ -7,12 +7,13 @@
 Phases, in order, each printing one line:
 
   gpu      the card's name and power limit, as nvidia-smi reports them;
-  build    builds the eight kernel sources (thirteen kernels) from
+  build    builds the nine kernel sources (fourteen kernels) from
            src/repro_torch/csrc, one nvcc each, all started together;
   kernels  holds each kernel against its plain PyTorch version on the card
            at its path's shapes (serving; for the four backward kernels,
            training at batch 8 x 512; the mLSTM scan at xlstm-125m's
-           prefill, q [4,4,1024,384], chunk 256, f32), in f32 and bf16 (the
+           prefill, q [4,4,1024,384], chunk 256, f32; the Mamba scan at
+           jamba-v0.1-52b's, dt/x [4,1024,8192], N 16), in f32 and bf16 (the
            paged kernels also with int8 pools; the paged and backward
            attention kernels also at llama3.2-3b's head dim 128 with 24 / 8
            heads; the int8 kernels #10, #11 and the int8 pool write at the
@@ -36,6 +37,17 @@ Phases, in order, each printing one line:
            serves the serve phase's 32 requests in bf16, cold and then warm
            with every launch counter zeroed just before, and fails unless
            mlstm_scan launched 9 times per prefill call;
+  jamba    jamba-v0.1-52b at full width with seeded weights drawn on the
+           card: in f32, a three-layer cut (mamba, mamba_moe, attn; about
+           4.0 B parameters), prefill logits of 2 prompts x 600 tokens and
+           four decode ticks, the kernels on the card against the plain
+           path on the CPU; then one 8-layer period (about 13.3 B
+           parameters) in bf16, Runtime.create(cfg, capacity=2048,
+           param_dtype=bf16).engine(num_slots=16), serves the serve
+           phase's 32 requests cold and then warm, every launch counter
+           zeroed just before the warm run, and fails unless ssm_scan
+           launched 7 times per prefill call and flash_attention,
+           fused_ffn and decode_attention launched;
   paged    the same 32 requests, those of 16-23 that are 256 tokens long
            opening with prompt 0's first 256 tokens, served dense,
            kv_layout="paged" and paged with kv_dtype="int8"
@@ -79,6 +91,11 @@ Phases, in order, each printing one line:
            serving, and torch.profiler over 8 more (device time by kernel
            group, kernels a tick, idle share).
 
+  jamba_profile  where a bf16 jamba-v0.1-52b period spends a 16 x 1024
+           prefill call and a decode tick (16 slots): torch.profiler by
+           kernel group, device kernels launched, idle share against the
+           unprofiled wall.
+
 One more phase runs only when named: int8_cpu (the int8 pool's token
 agreement on the card and through the plain versions on the CPU).
 
@@ -97,8 +114,9 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "train",
-          "train_profile", "xlstm_profile", "sched_profile")         # the build always runs
+PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "jamba",
+          "train", "train_profile", "xlstm_profile", "sched_profile",
+          "jamba_profile")                      # the build always runs
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor-core FLOP/s
 # and f32 FLOP/s outside the tensor cores (f32 work in f32: TF32 would
@@ -129,6 +147,11 @@ TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "fused_ffn_bwd_dx": {"float32": 1e-4, "bfloat16": 3e-2},
        "fused_ffn_bwd_dw": {"float32": 1e-4, "bfloat16": 3e-2},
        "mlstm_scan": {"float32": 2e-4},
+       # the Mamba scan: the reference's kernel tolerance
+       # (tests/test_kernels.py:84-85, 5e-5) on y and the final h; with
+       # x, B and C in bf16 both sides read the same bf16 values into f32
+       # and run the same f32 recurrence, so the f32 bound holds there too
+       "ssm_scan": {"float32": 5e-5, "bfloat16": 5e-5},
        # the int8 kernels compute what their plain versions compute, with
        # the same f32 roundings: exact
        "quantize_int8": {"float32": 0.0},
@@ -187,6 +210,8 @@ SOURCES = {
                          "src/repro/kernels/fused_ffn.py:131"),
     "mlstm_scan": ("src/repro_torch/csrc/mlstm_scan.cu",
                    "src/repro/kernels/mlstm_scan.py:21"),
+    "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:32"),
     "quantize_int8": ("src/repro_torch/csrc/quant.cu",
                       "src/repro/kernels/quant.py:39"),
     "dequantize_int8": ("src/repro_torch/csrc/quant.cu",
@@ -363,7 +388,40 @@ def kernels_phase(torch, timer) -> dict:
             library_ms=timer.ms(lambda: torch.matmul(
                 F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu), wd)),
             library="three torch.matmul + torch.nn.functional.silu")
-    out["fused_ffn"] = dict(entries[4096], decode=entries[16])
+    # jamba-v0.1-52b's width (d_model 4096: 4-row blocks; d_ff 14336) at
+    # a decode tick, 600 ragged rows and a 4 x 1024 prefill, each checked
+    # and timed in bf16; in f32 the tolerance is scaled by sqrt(F / 512)
+    # (the F-term f32 sums' rounding grows as sqrt(F))
+    D, Fd = 4096, 14336
+    w32 = [randn(D, Fd, scale=D ** -0.5), randn(D, Fd, scale=D ** -0.5),
+           randn(Fd, D, scale=Fd ** -0.5)]
+    jamba = {}
+    for N in (16, 600, 4096):
+        x32 = randn(N, D)
+        errs = {}
+        for dt in (f32, bf16):
+            name = str(dt).split(".")[1]
+            x, wg, wu, wd = (t.to(dt) for t in [x32] + w32)
+            tol = TOL["fused_ffn"][name] * (
+                (Fd / 512) ** 0.5 if dt == f32 else 1.0)
+            errs[name] = check(
+                "fused_ffn", ffn.swiglu_ffn(x, wg, wu, wd),
+                ref.ref_swiglu_ffn(x, wg, wu, wd), name,
+                f"D={D} F={Fd} N={N}", tol)
+        b_ms, b_by = bound(nbytes(x, wg, wu, wd, x), 6 * N * D * Fd,
+                           "bfloat16")
+        jamba[f"N{N}"] = dict(
+            shape=f"x [{N},{D}] Wg/Wu [{D},{Fd}] Wd [{Fd},{D}] bf16",
+            max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
+            ms=timer.ms(lambda: ffn.swiglu_ffn(x, wg, wu, wd)),
+            plain_ms=timer.ms(lambda: ref.ref_swiglu_ffn(x, wg, wu, wd)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=timer.ms(lambda: torch.matmul(
+                F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu), wd)))
+        del x, wg, wu, wd
+    del w32
+    out["fused_ffn"] = dict(entries[4096], decode=entries[16],
+                            jamba_width=jamba)
 
     # flash-decode: 16 slots against a 2048-entry cache, part empty
     B, T, KV, G, D = 16, 2048, 4, 3, 64
@@ -406,7 +464,55 @@ def kernels_phase(torch, timer) -> dict:
     out.update(backward_kernels(torch, timer))
     out.update(mlstm_kernel(torch, timer))
     out.update(quant_kernels(torch, timer))
+    out.update(ssm_kernel(torch, timer))
     return out
+
+
+def ssm_kernel(torch, timer) -> dict:
+    """#12 against its plain version at jamba-v0.1-52b's full-width
+    prefill shape, 4 prompts x 1024 tokens: dt [4,1024,8192] f32 and A
+    [8192,16] f32 with x [4,1024,8192] and B/C [4,1024,16] in f32 and in
+    bf16 (the serving dtype; timed there), the reference test's inputs
+    (dt = softplus(N(0,1)), A = -exp(N(0,1))); y and the final h.  The
+    bound counts each input read once and y, h written once, and the
+    operations these inputs need at f32's rate: per (b, t, d, n) the exp
+    (one operation), dt·A, a·h, bx·B, the add and the FMA of y (two), and
+    per (b, t, d) dt·x.  No single PyTorch call computes a selective scan,
+    so there is no library yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as sk
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, S, Di, N = 4, 1024, 8192, 16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    dt = torch.nn.functional.softplus(randn(B, S, Di))
+    A = -torch.exp(randn(Di, N))
+    x32, B32, C32 = randn(B, S, Di), randn(B, S, N), randn(B, S, N)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (dt, B32.to(dtype), C32.to(dtype), x32.to(dtype), A)
+        y, h = sk.ssm_scan(*args)
+        wy, wh = ref.ref_ssm_scan(*args)
+        name = str(dtype).split(".")[1]
+        errs[name] = max(check(sk.NAME, y, wy, name, "y"),
+                         check(sk.NAME, h, wh, name, "h"))
+    args = (dt, B32.to(torch.bfloat16), C32.to(torch.bfloat16),
+            x32.to(torch.bfloat16), A)
+    y, h = sk.ssm_scan(*args)
+    flops = 7 * B * S * Di * N + B * S * Di
+    b_ms, b_by = bound(nbytes(*args, y, h), flops, "float32")
+    return {sk.NAME: dict(
+        shape=f"dt [{B},{S},{Di}] f32, x [{B},{S},{Di}] and B/C "
+              f"[{B},{S},{N}] bf16, A [{Di},{N}] f32 -> y f32, h "
+              f"[{B},{Di},{N}] f32 (a 4 x 1024 jamba prefill, one layer)",
+        max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
+        ms=timer.ms(lambda: sk.ssm_scan(*args)),
+        plain_ms=timer.ms(lambda: ref.ref_ssm_scan(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes a selective scan",
+        flops_counted=flops)}
 
 
 def mlstm_kernel(torch, timer) -> dict:
@@ -1048,6 +1154,87 @@ XLSTM_PROFILE_GROUPS = (
 )
 
 
+def profile_windows(torch, runs: dict, kernel_groups, what: str) -> list:
+    """For each named window (fn, n) of ``runs``: the unprofiled wall of n
+    calls (best of 2), then torch.profiler over n more: device time by
+    kernel group (``kernel_groups``: (group, kernel-name substrings); the
+    rest is "other"), device kernels a call, and the idle share 1 -
+    device time / wall, the wall taken without the profiler (whose
+    per-op cost inflates a host-bound loop).  One line part a window."""
+    from torch.profiler import ProfilerActivity, profile
+    parts = []
+    for name, (fn, n) in runs.items():
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / n)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        per, count = device_events(prof)
+        total = sum(per.values()) / n
+        groups = {g: 0.0 for g, _ in kernel_groups}
+        groups["other"] = 0.0
+        for key, us in per.items():
+            g = next((g for g, subs in kernel_groups
+                      if any(x in key for x in subs)), "other")
+            groups[g] += us / n
+        w = min(walls)
+        if not total:
+            raise AssertionError(f"{what}: no device time in {name}")
+        parts.append(
+            f"{name}: wall {w * 1e3:.2f} ms (unprofiled, best of 2), device "
+            f"time {total / 1e3:.2f} ms, idle share "
+            f"{1 - total / 1e3 / (w * 1e3):.4f}, {count / n:.0f} device "
+            f"kernels; by group " + ", ".join(
+                f"{g} {us / 1e3:.2f} ms" for g, us in groups.items()))
+    return parts
+
+
+JAMBA_PROFILE_GROUPS = (
+    ("ssm_scan", ("ssm_scan_kernel",)),
+    ("fused_ffn", ("ffn_fwd_kernel", "ffn_reduce_kernel")),
+    ("flash_attention", ("flash_fwd_kernel",)),
+    ("decode_attention", ("decode_kernel",)),
+    ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
+)
+
+
+def jamba_profile_phase(torch, gpu: str, ticks: int = 8) -> str:
+    """Where one bf16 period of jamba-v0.1-52b spends a prefill call
+    (16 x 1024, the serve run's largest) and a decode tick (16 slots), on
+    the engine's serving params: ``profile_windows`` by kernel group (the
+    MoE experts' and the projections' products are the cuBLAS GEMMs)."""
+    import numpy as np
+    from repro_torch.configs.jamba_v0_1_52b import one_period
+    from repro_torch.runtime import Runtime
+    period = one_period()
+    rt = Runtime.create(period, capacity=2048, param_dtype=torch.bfloat16,
+                        params=card_params(torch, period, torch.bfloat16))
+    eng = rt.engine(num_slots=16)
+    B, S = 16, 1024
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, rt.cfg.vocab_size, (B, S), dtype=np.int32)).to("cuda")
+    batch = {"tokens": toks,
+             "lengths": torch.full((B,), S, dtype=torch.int32,
+                                   device="cuda")}
+    runs = {"prefill": (lambda: eng._prefill(eng.params, batch), 1),
+            "tick": (lambda: eng._decode(eng.params, eng._tok, eng.caches,
+                                         eng._pos), ticks)}
+    parts = profile_windows(torch, runs, JAMBA_PROFILE_GROUPS,
+                            "jamba_profile")
+    del eng, rt
+    torch.cuda.empty_cache()
+    return (f"jamba_profile: jamba-v0.1-52b one period bf16, slots 16, "
+            f"capacity 2048; " + "; ".join(parts) + f" [{gpu}]")
+
+
 def xlstm_profile_phase(torch, gpu: str, ticks: int = 8) -> str:
     """Where an xlstm-125m bf16 prefill and decode tick spend their time,
     on the engine's serving params (16 slots, capacity 2048):
@@ -1062,7 +1249,6 @@ def xlstm_profile_phase(torch, gpu: str, ticks: int = 8) -> str:
       without the profiler (whose per-op cost inflates a host-bound
       loop)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import mlstm_scan as ml
     from repro_torch.models import ssm
     from repro_torch.models.blocks import STATE_LEAVES, layer
@@ -1114,37 +1300,8 @@ def xlstm_profile_phase(torch, gpu: str, ticks: int = 8) -> str:
     runs = {"prefill": (lambda: eng._prefill(eng.params, batch), 1),
             "tick": (lambda: eng._decode(eng.params, eng._tok, eng.caches,
                                          eng._pos), ticks)}
-    parts = []
-    for name, (fn, n) in runs.items():
-        walls = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) / n)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        per, count = device_events(prof)
-        total = sum(per.values()) / n
-        groups = {g: 0.0 for g, _ in XLSTM_PROFILE_GROUPS}
-        groups["other"] = 0.0
-        for key, us in per.items():
-            g = next((g for g, subs in XLSTM_PROFILE_GROUPS
-                      if any(x in key for x in subs)), "other")
-            groups[g] += us / n
-        w = min(walls)
-        if not total:
-            raise AssertionError(f"xlstm_profile: no device time in {name}")
-        parts.append(
-            f"{name}: wall {w * 1e3:.2f} ms (unprofiled, best of 2), device "
-            f"time {total / 1e3:.2f} ms, idle share {1 - total / 1e3 / (w * 1e3):.4f}"
-            f", {count / n:.0f} device kernels; by group " + ", ".join(
-                f"{g} {us / 1e3:.2f} ms" for g, us in groups.items()))
+    parts = profile_windows(torch, runs, XLSTM_PROFILE_GROUPS,
+                            "xlstm_profile")
     return (f"xlstm_profile: xlstm-125m bf16, slots 16; one layer's host "
             f"wall: prefill 16 x 1024 mLSTM "
             f"{layer_s[('prefill', 'mlstm')] * 1e3:.2f} ms (its mlstm_scan "
@@ -1415,6 +1572,154 @@ def xlstm_phase(torch, gpu: str) -> tuple[str, dict]:
             f"bytes {eng.kv_cache_bytes()}; launches {launches} [{gpu}]")
     if failed:
         raise AssertionError(line + "\nxlstm phase failed: "
+                             + "; ".join(failed))
+    return line, launches
+
+
+JAMBA_CUT = ("mamba", "mamba_moe", "attn")
+
+
+@contextlib.contextmanager
+def recorded_routes(torch):
+    """Record every MoE routing decision (``models.moe._route``): device ->
+    list of (top-k experts, the router probabilities sorted descending)."""
+    from repro_torch.models import moe
+    route, seen = moe._route, {}
+
+    def wrapped(x, router_w, cfg):
+        weights, top_e, aux = route(x, router_w, cfg)
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        seen.setdefault(x.device.type, []).append(
+            (top_e.cpu(), probs.sort(dim=-1, descending=True).values.cpu()))
+        return weights, top_e, aux
+
+    moe._route = wrapped
+    try:
+        yield seen
+    finally:
+        moe._route = route
+
+
+def route_margin(seen: dict) -> str:
+    """Where the card's and the CPU's expert choices first differ: the
+    call, the token and the CPU's margin between the k-th and the
+    (k+1)-th router probability there (a near-tie flips on rounding)."""
+    for i, ((ge, _), (we, wp)) in enumerate(zip(seen["cuda"], seen["cpu"])):
+        diff = (ge != we).any(-1).nonzero()
+        if len(diff):
+            t, k = int(diff[0]), ge.shape[-1]
+            gap = float(wp[t, k - 1] - wp[t, k])
+            return (f"first differing expert choice: MoE call {i}, token "
+                    f"{t}, top-{k} margin {gap:.3g}")
+    return "the expert choices agree on every MoE call"
+
+
+def card_params(torch, cfg, dtype):
+    """``cfg``'s params drawn on the card from seed 0 (13.3 B of them for
+    one jamba period: a draw on the host would take minutes)."""
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import model_specs
+    return init_params(model_specs(cfg), 0, dtype, "cuda",
+                       draw_on_device=True)
+
+
+def jamba_phase(torch, gpu: str) -> tuple[str, dict]:
+    """jamba-v0.1-52b at full width, weights drawn on the card from seed 0:
+    (a) in f32, a three-layer cut (mamba, mamba_moe, attn), prefill logits
+    of two 600-token prompts at every position (not a multiple of the 256
+    chunk: the mixer pads) and four decode ticks, the kernels on the card
+    against the plain path on the CPU from the same weights, within
+    MODEL_LOGITS_TOL; on a failure the line names the router-probability
+    margin at the first expert choice where the two sides differ; (b) one
+    8-layer period in bf16 serves the serve phase's 32 requests on
+    ``Runtime.create(cfg, capacity=2048, param_dtype=bf16, params=
+    card_params(...)).engine(num_slots=16)``, cold and then warm, every
+    launch counter zeroed just before the warm run.  Fails unless
+    ssm_scan launched 7 times (once per Mamba layer) per prefill call of
+    the warm run and flash_attention, fused_ffn and decode_attention
+    launched."""
+    import numpy as np
+    from repro_torch.configs.jamba_v0_1_52b import one_period
+    from repro_torch.models.common import LayerGroup, tree_map
+    from repro_torch.runtime import Runtime, recurrent_kinds
+    from repro_torch.serve import kvcache
+    cfg = one_period().scaled(num_layers=len(JAMBA_CUT),
+                              groups=(LayerGroup(JAMBA_CUT, 1),),
+                              dtype=torch.float32)
+    gpu_params = card_params(torch, cfg, torch.float32)
+    sides = {dev: Runtime.create(cfg, capacity=2048, device=dev, params=p)
+             for dev, p in (("cuda", gpu_params),
+                            ("cpu", tree_map(lambda t: t.cpu(),
+                                             gpu_params)))}
+    n_cut = sides["cpu"].num_params
+    toks = np.random.default_rng(10).integers(0, cfg.vocab_size,
+                                              (2, XLSTM_PROMPT),
+                                              dtype=np.int32)
+    logits, caches = {}, {}
+    t0 = time.perf_counter()
+    with recorded_routes(torch) as seen:
+        for dev, rt in sides.items():
+            logits[dev], caches[dev] = rt.prefill(
+                torch.from_numpy(toks).to(dev))
+        errs = [float((logits["cuda"].cpu() - logits["cpu"]).abs().max())]
+        nxt = logits["cpu"][:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((2,), XLSTM_PROMPT, dtype=torch.int32)
+        for _ in range(4):
+            for dev, rt in sides.items():
+                logits[dev] = rt.decode_step(nxt.to(dev), caches[dev],
+                                             pos.to(dev))
+            errs.append(float((logits["cuda"].cpu() - logits["cpu"]).abs()
+                              .max()))
+            nxt = logits["cpu"][:, -1].argmax(-1).to(torch.int32)[:, None]
+            pos = pos + 1
+    f32_s = time.perf_counter() - t0
+    margin = route_margin(seen)
+    del sides, logits, caches, gpu_params, seen
+    torch.cuda.empty_cache()
+    fmt = [float(f"{e:.3g}") for e in errs]
+    failed = []
+    if not max(errs) <= MODEL_LOGITS_TOL:
+        failed.append(f"f32 logits max abs err {fmt} over "
+                      f"{MODEL_LOGITS_TOL} ({margin})")
+
+    t0 = time.perf_counter()
+    period = one_period()
+    rt = Runtime.create(period, capacity=2048, param_dtype=torch.bfloat16,
+                        params=card_params(torch, period, torch.bfloat16))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts, new = serve_prompts(rt.cfg.vocab_size), 64
+    torch.cuda.reset_peak_memory_stats()
+    cold = serve_run(torch, rt, prompts, new)
+    warm = serve_run(torch, rt, prompts, new)
+    peak = torch.cuda.max_memory_allocated()
+    eng, launches = warm["eng"], warm["launches"]
+    calls = eng.stats.prefill_calls
+    mamba_layers = sum(recurrent_kinds(rt.cfg).values())      # 7 of 8
+    if launches["ssm_scan"] != mamba_layers * calls or not calls:
+        failed.append(f"ssm_scan launched {launches['ssm_scan']} times over "
+                      f"{calls} prefill calls, not {mamba_layers} per call")
+    missing = [n for n in ("flash_attention", "fused_ffn",
+                           "decode_attention") if not launches[n]]
+    if missing:
+        failed.append(f"kernels of the path never launched: {missing}")
+    line = (f"jamba: jamba-v0.1-52b f32 cut {'/'.join(JAMBA_CUT)} "
+            f"({n_cut:,} params), 2 prompts x {XLSTM_PROMPT} tokens; max abs "
+            f"logits err prefill (every position) {fmt[0]}, decode ticks "
+            f"{fmt[1:]} (tol {MODEL_LOGITS_TOL}; {margin}; both sides "
+            f"{f32_s:.1f} s); serve bf16 one period ({rt.num_params:,} "
+            f"params, drawn on the card in {init_s:.1f} s) capacity=2048 "
+            f"slots=16, {len(prompts)} requests x {new} new tokens, prompts "
+            f"64-1024 ({eng.stats.summary}); warm run after one identical "
+            f"cold run (cold: wall {cold['wall']:.3f} s, prefill "
+            f"{cold['prefill']:.3f} s); {run_figures(warm)}; decode-state "
+            f"bytes {eng.kv_cache_bytes()} (Mamba states "
+            f"{kvcache.state_bytes_per_stream(rt.cfg)} a stream); peak "
+            f"memory {peak / 2**30:.2f} GiB; launches {launches} [{gpu}]")
+    del rt, cold, warm, eng
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(line + "\njamba phase failed: "
                              + "; ".join(failed))
     return line, launches
 
@@ -1853,8 +2158,13 @@ def main() -> int:
                else f"{e['library_ms']:.3f}")
             + f", bound {e['bound_ms']:.4f} "
             f"{e['bound_by']}) err {e['max_abs_err']:.3g}"
-            for n, e in entries.items()) + f"; tolerances {TOL} [{gpu}]",
-            flush=True)
+            for n, e in entries.items()) + "; fused_ffn at jamba width "
+            + "; ".join(f"{n} {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, "
+                        f"library {e['library_ms']:.3f}, bound "
+                        f"{e['bound_ms']:.4f} {e['bound_by']})"
+                        for n, e in entries["fused_ffn"]["jamba_width"]
+                        .items())
+            + f"; tolerances {TOL} [{gpu}]", flush=True)
     if "model" in phases:
         print(model_phase(torch), flush=True)
     by_path = {}       # path -> that run's launch counts
@@ -1862,7 +2172,8 @@ def main() -> int:
     for path, run in (("serve", serve_phase),
                       ("paged", functools.partial(paged_phase, mono=mono)),
                       ("sched", functools.partial(sched_phase, mono=mono)),
-                      ("xlstm", xlstm_phase), ("train", train_phase)):
+                      ("xlstm", xlstm_phase), ("jamba", jamba_phase),
+                      ("train", train_phase)):
         if path in phases:
             line, by_path[path] = run(torch, gpu)
             print(line, flush=True)
@@ -1874,6 +2185,8 @@ def main() -> int:
         print(xlstm_profile_phase(torch, gpu), flush=True)
     if "sched_profile" in phases:
         print(sched_profile_phase(torch, gpu), flush=True)
+    if "jamba_profile" in phases:
+        print(jamba_profile_phase(torch, gpu), flush=True)
     if entries:
         print(json.dumps({"kernels": [
             dict(name=n, route="cuda", source=SOURCES[n][0],

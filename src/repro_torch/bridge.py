@@ -3,8 +3,12 @@
 The port keeps the reference's parameter tree as it is: the same keys,
 with each group's layers stacked along a leading axis
 (``groups[0]["sub0"]`` holds ``norm1``, ``attn.{wq [L,D,H,Dh], wk, wv,
-wo [L,H,Dh,D]}``, ``norm2`` and ``ffn.{wi_gate, wi_up, wo}``).  So the
-bridge is a leaf-by-leaf conversion of numpy arrays, e.g. of
+wo [L,H,Dh,D]}``, ``norm2`` and ``ffn.{wi_gate, wi_up, wo}``; a Mamba
+sub-layer ``mixer.{in_proj, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D,
+out_proj}``; an MoE FFN ``ffn.{router [L,D,E], wi_gate / wi_up [L,E,D,F],
+wo [L,E,F,D]}``).  Each leaf keeps its dtype (the MoE router is f32 in
+both packages whatever the param dtype).  So the bridge is a leaf-by-leaf
+conversion of numpy arrays, e.g. of
 ``jax.tree.map(np.asarray, repro.models.common.init_params(specs, key))``,
 with shapes checked against the port's own specs when a config is given.
 ``opt_state_from_reference`` carries an AdamW state across the same way

@@ -13,6 +13,7 @@ ARCHS = {
     "exanode-100m": "exanode_100m",
     "llama3.2-3b": "llama3_2_3b",
     "xlstm-125m": "xlstm_125m",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 

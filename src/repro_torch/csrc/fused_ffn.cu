@@ -11,7 +11,8 @@
 // version runs the products as f32 FMAs on the CUDA cores (tensor cores,
 // wgmma, are for a later version).
 //
-// What the design does about it: one block owns BR rows and a range of F.
+// What the design does about it: one block owns BR rows (32, 16, 8, or 4
+// where D is wide) and a range of F.
 // The [BR,D] rows are staged once in shared memory as f32 and reused by
 // every F tile; for each 32-wide F tile the block computes the [BR,32]
 // hidden tile silu(g)·u (each lane one column, each warp BR/8 rows), parks
@@ -39,7 +40,10 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wg,
                const T* __restrict__ wu, const T* __restrict__ wd,
                T* __restrict__ out, float* __restrict__ ws, int N, int D,
                int F, int f_per_split, int splits) {
-  constexpr int RPW = BR / 8;  // hidden rows per warp
+  // hidden rows per warp; below 8 rows (wide D: jamba's 4096 takes BR 4)
+  // only the first BR warps compute hidden rows, one each
+  constexpr int RPW = BR >= 8 ? BR / 8 : 1;
+  constexpr int kHiddenWarps = BR / RPW;
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;             // [BR][D]
   float* acc = xs + BR * D;     // [BR][D]
@@ -64,7 +68,7 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wg,
     float g[RPW], u[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) g[i] = u[i] = 0.f;
-    if (f < f_end) {
+    if (warp < kHiddenWarps && f < f_end) {
       const T* pg = wg + f;
       const T* pu = wu + f;
       for (int d = 0; d < D; d += 4) {  // D % 4 == 0 (checked by the wrapper)
@@ -85,9 +89,12 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wg,
         }
       }
     }
+    if (warp < kHiddenWarps) {
 #pragma unroll
-    for (int i = 0; i < RPW; ++i)
-      hs[(warp * RPW + i) * kBF + lane] = f < f_end ? silu(g[i]) * u[i] : 0.f;
+      for (int i = 0; i < RPW; ++i)
+        hs[(warp * RPW + i) * kBF + lane] =
+            f < f_end ? silu(g[i]) * u[i] : 0.f;
+    }
     __syncthreads();
 
     // fold the hidden tile into the accumulator: thread -> columns d
@@ -165,6 +172,7 @@ cudaError_t dispatch_br(int br, const void* x, const void* wg, const void* wu,
                         const void* wd, void* out, float* ws, int N, int D,
                         int F, int fps, int splits, cudaStream_t s) {
   switch (br) {
+    case 4: return launch<T, 4>(x, wg, wu, wd, out, ws, N, D, F, fps, splits, s);
     case 8: return launch<T, 8>(x, wg, wu, wd, out, ws, N, D, F, fps, splits, s);
     case 16: return launch<T, 16>(x, wg, wu, wd, out, ws, N, D, F, fps, splits, s);
     case 32: return launch<T, 32>(x, wg, wu, wd, out, ws, N, D, F, fps, splits, s);

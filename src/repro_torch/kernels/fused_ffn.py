@@ -40,7 +40,8 @@ NAME_BWD_DW = "fused_ffn_bwd_dw"
 BWD_LIB = "fused_ffn_bwd"
 BF = 32            # F tile width (csrc/fused_ffn.cu)
 SMEM_ROWS_X_D = 24576  # br * D: the f32 [br, D] rows + accumulator in smem
-MAX_D = SMEM_ROWS_X_D // 8
+MAX_D = SMEM_ROWS_X_D // 4   # forward: br >= 4 (d_model 4096 takes br 4)
+BWD_MAX_D = SMEM_ROWS_X_D // 8   # the dx kernel's blocks take 8 rows
 # dw kernel: its three f32 weight-gradient tiles (12 * D * bf bytes) and
 # its [512/bf, bf] hidden tiles share one block's shared memory
 DW_SMEM_BYTES = 200 * 1024
@@ -90,7 +91,8 @@ def plan(N: int, D: int, F: int, num_sms: int) -> tuple[int, int, int]:
     """(rows per block, F columns per split, splits).
 
     Rows per block: 32, or fewer when N is smaller (decode) or D is wide
-    (the f32 rows and accumulator share one block's shared memory).  F is
+    (the f32 rows and accumulator share one block's shared memory: 8 rows
+    up to D 3072, 4 beyond, up to ``MAX_D``).  F is
     split only when the row tiles alone would leave more than half the SMs
     idle (decode): then into about one block per SM, each split a whole
     number of 32-wide F tiles."""
@@ -135,6 +137,7 @@ def plan_dw(N: int, D: int, F: int, num_sms: int) -> tuple[int, int, int]:
 
 def _check(what: str, x, w_gate, w_up, w_down, *extra):
     ts = (x, w_gate, w_up, w_down) + extra
+    max_d = BWD_MAX_D if extra else MAX_D
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"{what} kernel takes CUDA tensors; "
                          f"kernels.ops dispatches CPU tensors to the plain "
@@ -152,9 +155,9 @@ def _check(what: str, x, w_gate, w_up, w_down, *extra):
     if any(tuple(t.shape) != (N, D) for t in extra):
         raise ValueError(f"dy {[tuple(t.shape) for t in extra]} does not "
                          f"match x {tuple(x.shape)}")
-    if N == 0 or F == 0 or not 0 < D <= MAX_D or D % 4:
+    if N == 0 or F == 0 or not 0 < D <= max_d or D % 4:
         raise ValueError(f"unsupported FFN shape N={N} D={D} F={F} "
-                         f"(0 < D <= {MAX_D}, D % 4 == 0)")
+                         f"(0 < D <= {max_d}, D % 4 == 0)")
     if x.dtype not in DTYPES or any(t.dtype != x.dtype for t in ts):
         raise ValueError(f"x and weights must share one dtype of "
                          f"{list(DTYPES)}; got {[t.dtype for t in ts]}")

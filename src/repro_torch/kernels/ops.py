@@ -18,9 +18,12 @@ saves (q, k, v, out, lse) and the FFN (x, w_gate, w_up, w_down): nothing
 forward calls they were: the Functions are entered only when an input
 needs a gradient.  The mLSTM scan has no backward kernel (the reference
 differentiates its jnp chunk math): on the card it refuses inputs that
-need a gradient.  The int8 ops (kernels #10 and #11 and the int8 pool's
-entry write) are bit for bit: their plain versions and kernels round the
-same f32 values the same way.
+need a gradient.  The Mamba selective scan has no backward kernel
+either (the reference has no Pallas backward for it): it refuses inputs
+that need a gradient on every device, so that no training runs through
+its plain version unnoticed.  The int8 ops (kernels #10 and #11 and the
+int8 pool's entry write) are bit for bit: their plain versions and
+kernels round the same f32 values the same way.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.kernels import mlstm_scan as _ml
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import quant as _qt
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ssm
 
 # kernel name -> (wrapper module, its launch counter attribute)
 KERNELS = {_fa.NAME: (_fa, "launches"), _ffn.NAME: (_ffn, "launches"),
@@ -45,7 +49,8 @@ KERNELS = {_fa.NAME: (_fa, "launches"), _ffn.NAME: (_ffn, "launches"),
            _ml.NAME: (_ml, "launches"),
            _qt.NAME_QUANT: (_qt, "launches_quant"),
            _qt.NAME_DEQUANT: (_qt, "launches_dequant"),
-           _qt.NAME_WRITE: (_qt, "launches_write")}
+           _qt.NAME_WRITE: (_qt, "launches_write"),
+           _ssm.NAME: (_ssm, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -176,6 +181,21 @@ def mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256, state=None):
             "mlstm_scan has no backward kernel: training an xLSTM on the "
             "card is not ported yet (ROADMAP queue 1, item 11)")
     return _ml.mlstm_scan(q, k, v, i_gate, f_log, chunk=chunk, state=state)
+
+
+def ssm_chunk_scan(dt, B_ssm, C_ssm, x, A, *, h0=None):
+    """The Mamba selective scan: dt [B,S,Di] f32 (softplus'd), B_ssm/C_ssm
+    [B,S,N] and x [B,S,Di] in the activation dtype, A [Di,N] f32 ->
+    (y [B,S,Di] f32, h [B,Di,N] f32) with the final state; ``h0`` starts
+    the state (default zero).  An input that needs a gradient raises:
+    Mamba training is not ported."""
+    if _needs_grad(dt, B_ssm, C_ssm, x, A, *(() if h0 is None else (h0,))):
+        raise NotImplementedError(
+            "ssm_chunk_scan has no backward kernel: training Mamba blocks "
+            "is not ported yet (ROADMAP queue 1, item 11, hybrid)")
+    if dt.device.type == "cpu":
+        return ref.ref_ssm_scan(dt, B_ssm, C_ssm, x, A, h0)
+    return _ssm.ssm_scan(dt, B_ssm, C_ssm, x, A, h0)
 
 
 def quantize_int8(x):

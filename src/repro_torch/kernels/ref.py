@@ -348,3 +348,29 @@ def ref_mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256,
         n = (wc[..., None] * kc).sum(-2) + decay[..., None] * n
         m = g_L + M_L
     return torch.cat(ys, dim=2), (C, n, m)
+
+
+def ref_ssm_scan(dt, B_ssm, C_ssm, x, A, h0=None):
+    """The Mamba selective scan (the function of the Pallas
+    ``_ssm_kernel``; the reference's oracle ``ref_mamba_chunk_scan`` with
+    its gates built step by step): dt [B,S,Di] (softplus'd), x [B,S,Di]
+    (the conv branch), B_ssm/C_ssm [B,S,N], A [Di,N] (negative), all read
+    in f32; h0 [B,Di,N] starts the state (default zero) ->
+    (y [B,S,Di] f32, h [B,Di,N] f32), with
+
+        a_t = exp(dt_t·A),  b_t = (dt_t·x_t)·B_t,
+        h_t = a_t·h_{t-1} + b_t,  y_t = Σ_n C_t[n]·h_t[:, n].
+
+    Sequential in time, one [B,Di,N] state at a time: the [B,S,Di,N]
+    gates never exist."""
+    Bt, S, Di = dt.shape
+    dt, x, Bs, Cs, A = (t.float() for t in (dt, x, B_ssm, C_ssm, A))
+    h = (dt.new_zeros(Bt, Di, A.shape[-1]) if h0 is None
+         else h0.float().clone())
+    bx = dt * x
+    ys = []
+    for t in range(S):
+        h = torch.exp(dt[:, t, :, None] * A) * h \
+            + bx[:, t, :, None] * Bs[:, t, None, :]
+        ys.append(torch.einsum("bn,ben->be", Cs[:, t], h))
+    return (torch.stack(ys, dim=1) if ys else dt.new_zeros(Bt, 0, Di)), h

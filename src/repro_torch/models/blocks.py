@@ -1,18 +1,25 @@
 """Block assembly over stacked layer parameters (port of
-``repro.models.blocks``, the ``attn``, ``mlstm`` and ``slstm`` kinds).
+``repro.models.blocks``: the ``attn``, ``mamba``, ``mamba_nof``,
+``mamba_moe``, ``mlstm`` and ``slstm`` kinds).
 
 A group's parameters are stacked along a leading "layers" axis, as in the
 reference, so a reference parameter tree carries over leaf for leaf.  The
 reference's ``jax.lax.scan`` over that axis (``blocks.py:195``) becomes a
 Python loop over layer views, each layer walking the group's pattern of
-kinds in order (xlstm-125m: mlstm, mlstm, mlstm, slstm); decode caches are
-stacked the same way and each layer's view is updated in place (the K/V
-entry of an attention layer, the whole recurrent state of an xLSTM one).
+kinds in order (xlstm-125m: mlstm, mlstm, mlstm, slstm; jamba's period:
+mamba, mamba_moe, mamba, mamba_moe, attn, mamba_moe, mamba, mamba_moe);
+decode caches are stacked the same way and each layer's view is updated
+in place (the K/V entry of an attention layer, the whole recurrent state
+of a Mamba or xLSTM one).
 
 Block kinds
-  attn    RMSNorm, GQA attention; RMSNorm, SwiGLU FFN
-  mlstm   RMSNorm, mLSTM mixer (its FFN is built into the projections)
-  slstm   RMSNorm, sLSTM mixer with its gated FFN
+  attn       RMSNorm, GQA attention; RMSNorm, SwiGLU FFN
+  mamba      RMSNorm, Mamba mixer; RMSNorm, SwiGLU FFN
+  mamba_nof  RMSNorm, Mamba mixer (no FFN)
+  mamba_moe  RMSNorm, Mamba mixer; RMSNorm, MoE FFN (its router loss is
+             the block's aux loss)
+  mlstm      RMSNorm, mLSTM mixer (its FFN is built into the projections)
+  slstm      RMSNorm, sLSTM mixer with its gated FFN
 
 Remat (the reference's ``_remat_wrap``, ``blocks.py:159``) wraps each
 layer of a differentiated forward in ``torch.utils.checkpoint``:
@@ -42,12 +49,14 @@ from repro_torch.models.common import (LayerGroup, ModelConfig, PSpec,
                                        tree_leaves, tree_map, tree_unflatten)
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_specs
+from repro_torch.models.moe import moe_ffn, moe_specs
 
-
+MAMBA_KINDS = ("mamba", "mamba_nof", "mamba_moe")
 # the state leaves of a recurrent block's cache, in the order its mixer
 # returns them
 STATE_LEAVES = {"mlstm": ("C", "n", "m", "conv"),
-                "slstm": ("c", "n", "m", "h")}
+                "slstm": ("c", "n", "m", "h"),
+                **{k: ("h", "conv") for k in MAMBA_KINDS}}
 
 
 def block_specs(kind: str, cfg: ModelConfig) -> dict:
@@ -55,6 +64,14 @@ def block_specs(kind: str, cfg: ModelConfig) -> dict:
     if kind == "attn":
         return {"norm1": rmsnorm_spec(D), "attn": attention_specs(cfg),
                 "norm2": rmsnorm_spec(D), "ffn": mlp_specs(cfg)}
+    if kind in MAMBA_KINDS:
+        s = {"norm1": rmsnorm_spec(D),
+             "mixer": ssm.mamba_specs(cfg, cfg.ssm)}
+        if kind != "mamba_nof":
+            s["norm2"] = rmsnorm_spec(D)
+            s["ffn"] = (moe_specs(cfg, cfg.moe) if kind == "mamba_moe"
+                        else mlp_specs(cfg))
+        return s
     if kind == "mlstm":
         return {"norm1": rmsnorm_spec(D),
                 "mixer": ssm.mlstm_specs(cfg, cfg.xlstm)}
@@ -80,28 +97,50 @@ def layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _ffn(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig):
+    """The residual FFN half of a block: (x + FFN(norm2(x)), aux): the
+    MoE FFN of a ``mamba_moe`` block with its router loss, else the SwiGLU
+    FFN (``mamba_nof``: none) with aux None."""
+    if kind == "mamba_nof":
+        return x, None
+    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    if kind == "mamba_moe":
+        f, aux = moe_ffn(h2, p["ffn"], cfg, cfg.moe)
+        return x + f, aux
+    return x + mlp(h2, p["ffn"], cfg), None
+
+
 def block_forward(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig, *,
                   collect_cache: bool = False):
     """One block of ``kind`` over the standard positions 0..S-1.
-    Returns (x, cache or None); the cache is the grouped (k, v)
-    [B,S,KV,Dh] of an ``attn`` block, or the final recurrent state of an
-    ``mlstm`` (C, n, m, conv) / ``slstm`` (c, n, m, h) block."""
+    Returns (x, aux, cache or None): aux is the block's MoE router loss
+    (f32 scalar; None without MoE); the cache is the grouped (k, v)
+    [B,S,KV,Dh] of an ``attn`` block, or the final recurrent state of a
+    Mamba (h, conv), ``mlstm`` (C, n, m, conv) or ``slstm`` (c, n, m, h)
+    block."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     cache = None
+    if kind in MAMBA_KINDS:
+        if collect_cache:
+            m, st = ssm.mamba(h, p["mixer"], cfg, cfg.ssm, return_state=True)
+            cache = dict(zip(STATE_LEAVES[kind], st))
+        else:
+            m = ssm.mamba(h, p["mixer"], cfg, cfg.ssm)
+        x, aux = _ffn(kind, x + m, p, cfg)
+        return x, aux, cache
     if kind in STATE_LEAVES:
         mixer = ssm.mlstm if kind == "mlstm" else ssm.slstm
         m, st = mixer(h, p["mixer"], cfg, cfg.xlstm)
         if collect_cache:
             cache = dict(zip(STATE_LEAVES[kind], st))
-        return x + m, cache
+        return x + m, None, cache
     if collect_cache:
         a, (k, v) = attention(h, p["attn"], cfg, return_kv=True)
         cache = {"k": k, "v": v}
     else:
         a = attention(h, p["attn"], cfg)
-    x = x + a
-    x = x + mlp(rmsnorm(x, p["norm2"], cfg.norm_eps), p["ffn"], cfg)
-    return x, cache
+    x, aux = _ffn(kind, x + a, p, cfg)
+    return x, aux, cache
 
 
 REMAT_POLICIES = ("none", "minimal", "full")
@@ -137,41 +176,50 @@ def unstack(tree, n: int) -> list:
 
 def run_groups(x: torch.Tensor, group_params: list, cfg: ModelConfig, *,
                collect_cache: bool = False):
-    """All layer groups in order.  Returns (x, caches): per group, each
-    sub-layer's prefill cache leaves stacked over the layers ((k, v) to
-    [L,B,S,KV,Dh], recurrent states to [L,B,...]; None without
-    ``collect_cache``).  ``cfg.remat_policy`` applies to each layer when a
-    gradient will be taken (grad enabled and x or a parameter requiring
-    it); a prefill that collects caches, or any forward without grad,
-    runs bare."""
+    """All layer groups in order.  Returns (x, aux, caches): aux is the sum
+    of the MoE blocks' router losses (f32 scalar, 0 without MoE), caches
+    per group each sub-layer's prefill cache leaves stacked over the
+    layers ((k, v) to [L,B,S,KV,Dh], recurrent states to [L,B,...]; None
+    without ``collect_cache``).  ``cfg.remat_policy`` applies to each
+    layer when a gradient will be taken (grad enabled and x or a
+    parameter requiring it); a prefill that collects caches, or any
+    forward without grad, runs bare."""
     policy = cfg.remat_policy
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {policy!r}; valid choices: "
                          f"{', '.join(REMAT_POLICIES)}")
     caches = []
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group, gp in zip(cfg.groups, group_params):
         differentiated = torch.is_grad_enabled() and not collect_cache and (
             x.requires_grad or any(t.requires_grad for t in tree_leaves(gp)))
 
         def body(xx, lp, group=group):
+            auxes = []
             for j, kind in enumerate(group.pattern):
-                xx, _ = block_forward(kind, xx, lp[f"sub{j}"], cfg)
-            return xx
+                xx, aux, _ = block_forward(kind, xx, lp[f"sub{j}"], cfg)
+                auxes.append(aux)
+            return xx, auxes
 
         step = _remat_wrap(body, policy) if differentiated else body
         per = [[] for _ in group.pattern]
         for lp in unstack(gp, group.repeats):
             if not collect_cache:
-                x = step(x, lp)
-                continue
-            for j, kind in enumerate(group.pattern):
-                x, c = block_forward(kind, x, lp[f"sub{j}"], cfg,
-                                     collect_cache=True)
-                per[j].append(c)
+                x, auxes = step(x, lp)
+            else:
+                auxes = []
+                for j, kind in enumerate(group.pattern):
+                    x, aux, c = block_forward(kind, x, lp[f"sub{j}"], cfg,
+                                              collect_cache=True)
+                    auxes.append(aux)
+                    per[j].append(c)
+            for aux in auxes:
+                if aux is not None:
+                    total_aux = total_aux + aux
         caches.append({
             f"sub{j}": {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
             for j, cs in enumerate(per)} if collect_cache else None)
-    return x, caches
+    return x, total_aux, caches
 
 
 def block_decode(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -184,6 +232,12 @@ def block_decode(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig,
     an attention cache to the pooled paged layout (its leaves are then this
     layer's block pools; int8 pools carry ``k_scale``/``v_scale``)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    if kind in MAMBA_KINDS:
+        m, hs, buf = ssm.mamba_decode(h, p["mixer"], cfg, cfg.ssm,
+                                      cache["h"], cache["conv"])
+        cache["h"].copy_(hs)
+        cache["conv"].copy_(buf)
+        return _ffn(kind, x + m, p, cfg)[0]
     if kind in STATE_LEAVES:
         step = ssm.mlstm_decode if kind == "mlstm" else ssm.slstm_decode
         names = STATE_LEAVES[kind]

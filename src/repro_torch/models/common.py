@@ -18,6 +18,32 @@ import torch
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN (the reference's ``MoEConfig``): experts,
+    experts per token, each expert's hidden width, the capacity factor of
+    the token-dropping dispatch and the load-balance loss weight.  The
+    router jitter is carried for parity; serving does not read it."""
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba mixer widths (the reference's ``SSMConfig``): state size N,
+    causal-conv window, inner expansion, dt rank (0 -> ceil(d_model / 16))
+    and the chunk the prefill pads the sequence to."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0
+    chunk: int = 256
+
+
+@dataclass(frozen=True)
 class XLSTMConfig:
     """mLSTM / sLSTM widths (the reference's ``XLSTMConfig``): the xLSTM
     paper's projection factors, the mLSTM's causal-conv window and its scan
@@ -42,10 +68,11 @@ class LayerGroup:
 class ModelConfig:
     """Field-for-field mirror of ``repro.models.common.ModelConfig``.
 
-    ``xlstm`` is the reference's ``XLSTMConfig``.  The MoE / SSM (Mamba) /
-    encoder sub-configs are kept as opaque values: no ported config sets
-    them, and ``models.registry.check_supported`` rejects any config that
-    does."""
+    ``moe``, ``ssm`` and ``xlstm`` are read by attribute only, so the
+    reference's own sub-config objects work in their place (the parity
+    tests pass them through); ``encoder`` is kept as an opaque value: no
+    ported config sets it, and ``models.registry.check_supported`` rejects
+    any config that does."""
     name: str
     family: str
     num_layers: int
@@ -66,8 +93,8 @@ class ModelConfig:
     attn_logit_softcap: Optional[float] = None
     attn_mode: str = "auto"
     mlp_act: str = "silu"
-    moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     xlstm: Optional[XLSTMConfig] = None
     encoder: Optional[Any] = None
     frontend: Optional[str] = None
@@ -105,7 +132,8 @@ class ModelConfig:
 @dataclass(frozen=True)
 class PSpec:
     """Parameter spec: shape + init law (normal | zeros | ones |
-    scaled:<fan_in>) + optional dtype (None -> the param dtype)."""
+    scaled:<fan_in> | arange_log | const:<value>) + optional dtype (None
+    -> the param dtype)."""
     shape: tuple[int, ...]
     init: str = "normal"
     dtype: Optional[torch.dtype] = None
@@ -138,34 +166,48 @@ def tree_unflatten(tree, leaves) -> Any:
     return tree_map(lambda _: next(it), tree)
 
 
-def _init_leaf(spec: PSpec, gen: torch.Generator,
-               param_dtype: torch.dtype) -> torch.Tensor:
+def _init_leaf(spec: PSpec, gen: torch.Generator, param_dtype: torch.dtype,
+               device) -> torch.Tensor:
     dtype = spec.dtype or param_dtype
+    kw = dict(dtype=dtype, device=device)
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype)
+        return torch.zeros(spec.shape, **kw)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype)
+        return torch.ones(spec.shape, **kw)
+    if spec.init == "arange_log":
+        # S4/Mamba A-matrix init: A = -exp(A_log), A_log = log(1..N) per row
+        row = torch.arange(1, spec.shape[-1] + 1, dtype=torch.float32,
+                           device=device).log()
+        return row.expand(spec.shape).to(dtype).contiguous()
+    if spec.init.startswith("const:"):
+        return torch.full(spec.shape, float(spec.init.split(":")[1]), **kw)
     if spec.init.startswith("scaled:"):
         std = 1.0 / math.sqrt(max(float(spec.init.split(":")[1]), 1.0))
     elif spec.init == "normal":
         std = 0.02
     else:
         raise ValueError(f"unknown init {spec.init}")
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=device)
     return (x * std).to(dtype)
 
 
 def init_params(specs, seed: int = 0, param_dtype=torch.float32,
-                device="cpu"):
-    """Materialize a PSpec tree.  Values are drawn on the CPU from one
+                device="cpu", *, draw_on_device: bool = False):
+    """Materialize a PSpec tree.  Values are drawn from one
     ``torch.Generator`` seeded with ``seed``, leaf by leaf in
-    ``tree_leaves`` order, then moved to ``device`` — so the same seed gives
-    the same weights on every device.  (They differ from the reference's
-    ``jax.random`` draws; parity tests carry the reference's weights over
-    through ``repro_torch.bridge``.)"""
-    gen = torch.Generator().manual_seed(seed)
-    return tree_map(lambda s: _init_leaf(s, gen, param_dtype).to(device),
-                    specs)
+    ``tree_leaves`` order: on the CPU, then moved to ``device``, so the
+    same seed gives the same weights on every device.  ``draw_on_device``
+    draws each leaf on ``device`` itself from a generator of that device
+    instead (other values than the CPU draw for the same seed), which is
+    what makes a model of billions of parameters quick to build on the
+    card.  (Both differ from the reference's ``jax.random`` draws; parity
+    tests carry the reference's weights over through
+    ``repro_torch.bridge``.)"""
+    where = torch.device(device) if draw_on_device else torch.device("cpu")
+    gen = torch.Generator(device=where).manual_seed(seed)
+    return tree_map(
+        lambda s: _init_leaf(s, gen, param_dtype, where).to(device), specs)
 
 
 def count_params(specs) -> int:

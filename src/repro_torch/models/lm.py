@@ -2,7 +2,8 @@
 forward, the training loss and the one-token decode step).
 
     lm_specs(cfg)                                  parameter PSpec tree
-    lm_forward(params, tokens, cfg, ...)           logits (+ prefill caches)
+    lm_forward(params, tokens, cfg, ...)           logits, MoE aux loss
+                                                   (+ prefill caches)
     lm_loss(params, batch, cfg, *, ce_chunk=0)     (loss, metrics)
     lm_decode_step(params, token, caches, cfg, ...)  logits; caches in place
                                                    (dense or paged)
@@ -48,23 +49,24 @@ def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                collect_cache: bool = False, last_only: bool = False,
                last_index: Optional[torch.Tensor] = None):
-    """tokens [B,S] -> (logits [B,S,Vp], caches).
+    """tokens [B,S] -> (logits [B,S,Vp], aux, caches).
 
+    ``aux`` is the summed MoE router loss (f32 scalar, 0 without MoE).
     ``last_only`` projects the final position only ([B,1,Vp]);
     ``last_index`` [B] picks a per-row position instead (right-padded
     batched prefill).  ``caches`` is ``run_groups``' per-group stacked
-    prefill caches ((k, v), or the final recurrent states of xLSTM
-    blocks) with ``collect_cache``, else a list of None."""
+    prefill caches ((k, v), or the final recurrent states of Mamba and
+    xLSTM blocks) with ``collect_cache``, else a list of None."""
     x = _embed(params, tokens, cfg)
-    x, caches = run_groups(x, params["groups"], cfg,
-                           collect_cache=collect_cache)
+    x, aux, caches = run_groups(x, params["groups"], cfg,
+                                collect_cache=collect_cache)
     if last_index is not None:
         x = x[torch.arange(x.shape[0], device=x.device),
               last_index.long()][:, None]
     elif last_only:
         x = x[:, -1:]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return lm_head(x, _unembed_table(params, cfg), cfg), caches
+    return lm_head(x, _unembed_table(params, cfg), cfg), aux, caches
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
@@ -76,19 +78,18 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
     sequence chunks (the [B,S,V] logits never materialize), as the
     reference does under its ``ce_chunk`` activation rule (set for train
     plans with ``seq_len > 512``; here the caller passes it).  ``moe_aux``
-    is 0: the dense family has no router loss.  Remat follows
-    ``cfg.remat_policy``."""
+    is the MoE blocks' summed router loss (0 without MoE), added to the
+    loss as the reference adds it.  Remat follows ``cfg.remat_policy``."""
     labels = batch["labels"]
     if ce_chunk:
         x = _embed(params, batch["tokens"], cfg)
-        x, _ = run_groups(x, params["groups"], cfg)
+        x, aux, _ = run_groups(x, params["groups"], cfg)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         ce = chunked_softmax_xent(x, _unembed_table(params, cfg), labels,
                                   cfg, ce_chunk)
     else:
-        logits, _ = lm_forward(params, batch["tokens"], cfg)
+        logits, aux, _ = lm_forward(params, batch["tokens"], cfg)
         ce = cross_entropy(logits, labels)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
 

@@ -14,28 +14,31 @@ import torch
 
 from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
 from repro_torch.models import lm
-from repro_torch.models.blocks import kind_cache_key
+from repro_torch.models.blocks import MAMBA_KINDS, kind_cache_key
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve import kvcache
 
 _LATER = "ROADMAP queue 1, item 11 (remaining families)"
 
 
-PORTED_KINDS = ("attn", "mlstm", "slstm")
+PORTED_KINDS = ("attn", "mlstm", "slstm") + MAMBA_KINDS
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the port: dense
-    decoder-only ``attn`` stacks with RoPE and SwiGLU, and xLSTM stacks of
-    ``mlstm`` / ``slstm`` blocks (xlstm-125m)."""
+    decoder-only ``attn`` stacks with RoPE and SwiGLU, xLSTM stacks of
+    ``mlstm`` / ``slstm`` blocks (xlstm-125m), and hybrid stacks of
+    ``attn`` and Mamba blocks with dense or MoE FFNs (jamba)."""
     kinds = {k for g in cfg.groups for k in g.pattern}
     unsupported = {
         "sliding-window attention (ring-buffer KV)":
             cfg.sliding_window is not None,
         "attention logit softcap": cfg.attn_logit_softcap is not None,
         "final logit softcap": cfg.logit_softcap is not None,
-        "mixture of experts": cfg.moe is not None,
-        "Mamba (SSM) blocks": cfg.ssm is not None,
+        "Mamba blocks without an ssm config": cfg.ssm is None and bool(
+            kinds & set(MAMBA_KINDS)),
+        "MoE blocks without a moe config": cfg.moe is None and bool(
+            kinds & {"mamba_moe", "attn_moe"}),
         "xLSTM blocks without an xlstm config": cfg.xlstm is None and bool(
             kinds & {"mlstm", "slstm"}),
         "encoder-decoder": cfg.encoder is not None,
@@ -51,6 +54,28 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"config {cfg.name!r} needs {', '.join(missing)}, which the "
             f"port does not serve yet ({_LATER})")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port serves but does
+    not train: recurrent blocks, whose scan kernels have no backward
+    kernel yet, and MoE, whose training is not ported.  (The
+    reference differentiates its jnp math; the port adds no silent
+    autograd through the plain versions.)"""
+    kinds = {k for g in cfg.groups for k in g.pattern}
+    missing = {
+        "Mamba blocks (a backward for the selective-scan kernel #12)":
+            bool(kinds & set(MAMBA_KINDS)),
+        "mixture of experts (the router and expert backward)":
+            cfg.moe is not None,
+        "xLSTM blocks (a backward for the mLSTM kernel #13)":
+            bool(kinds & {"mlstm", "slstm"}),
+    }
+    missing = [what for what, hit in missing.items() if hit]
+    if missing:
+        raise NotImplementedError(
+            f"training {cfg.name!r} needs {', '.join(missing)}, which the "
+            f"port does not have yet (ROADMAP queue 1, item 11)")
 
 
 @dataclass(frozen=True)
@@ -90,8 +115,9 @@ def capabilities(cfg: ModelConfig) -> Capabilities:
     # reference's structural law).  The port has no plain gather route on
     # the card, so the paged kernel's own limit (no logit softcap, the
     # reference's ``paged_pallas_supported``) is part of the capability;
-    # the int8 pool shares both.  Recurrent (xLSTM) states are O(1) per
-    # slot: there is nothing to page, so their stacks are not paged.
+    # the int8 pool shares both.  Recurrent (Mamba, xLSTM) states are O(1)
+    # per slot: there is nothing to page, so their stacks, hybrid ones
+    # included, are not paged.
     paged = (cfg.sliding_window is None
              and cfg.attn_logit_softcap is None
              and all(k == "attn" for g in cfg.groups for k in g.pattern))
@@ -145,8 +171,9 @@ def model_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
                   last_index=None):
     """Full-context forward that also returns decode-ready caches padded
     to ``capacity``: (logits, caches)."""
-    logits, caches = lm.lm_forward(params, tokens, cfg, collect_cache=True,
-                                   last_only=last_only, last_index=last_index)
+    logits, _, caches = lm.lm_forward(params, tokens, cfg,
+                                      collect_cache=True, last_only=last_only,
+                                      last_index=last_index)
     caches = kvcache.pad_prefill_cache(cfg, caches, tokens.shape[1], capacity)
     return logits, caches
 

@@ -1,6 +1,12 @@
-"""xLSTM blocks: the mLSTM and sLSTM mixers with their one-token decode
-steps (port of the xLSTM half of ``repro.models.ssm``; Mamba waits for
-its slice).
+"""State-space and recurrent mixers: Mamba (the selective SSM), and the
+xLSTM blocks' mLSTM and sLSTM, each with its one-token decode step (port
+of ``repro.models.ssm``).
+
+Mamba's prefill runs the selective scan through ``kernels.ops.
+ssm_chunk_scan`` (the Hopper kernel on the card, the plain
+``ref_ssm_scan`` on the CPU), which also returns the final state; its
+projections, causal conv and gates are plain PyTorch, as the reference's
+are jnp, and so is its decode step.
 
 The mLSTM keeps a matrix memory C [B,H,dh,dh] with a normalizer n and a
 stabilizer m.  Its prefill runs the chunkwise-parallel form through
@@ -19,11 +25,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ref_mlstm_chunk
-from repro_torch.models.common import ModelConfig, PSpec, XLSTMConfig
+from repro_torch.models.common import (ModelConfig, PSpec, SSMConfig,
+                                       XLSTMConfig)
 
-# parameters the reference reads in f32 whatever the activation dtype
-# (``.astype(jnp.float32)``): the serve engine keeps them in f32
-F32_PARAMS = frozenset({"b_if", "r_rec", "bias"})
 PAD_GATE = -1e30      # i-gate of a pad step: it weighs e^-1e30 = 0
 
 
@@ -46,6 +50,125 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     E, H, dh = w.shape
     y = x @ w.to(x.dtype).reshape(E, H * dh)
     return y.view(*x.shape[:-1], H, dh).float()
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+# ---------------------------------------------------------------------------
+
+
+def _dt_rank(cfg: ModelConfig, ssm: SSMConfig) -> int:
+    return ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+def mamba_specs(cfg: ModelConfig, ssm: SSMConfig) -> dict:
+    D = cfg.d_model
+    Di = ssm.expand * D
+    N, K, R = ssm.d_state, ssm.d_conv, _dt_rank(cfg, ssm)
+    return {
+        "in_proj": PSpec((D, 2 * Di), init=f"scaled:{D}"),
+        "conv_w": PSpec((K, Di), init=f"scaled:{K}"),
+        "conv_b": PSpec((Di,), init="zeros"),
+        "x_proj": PSpec((Di, R + 2 * N), init=f"scaled:{Di}"),
+        "dt_w": PSpec((R, Di), init=f"scaled:{R}"),
+        "dt_b": PSpec((Di,), init="const:-4.0"),
+        "A_log": PSpec((Di, N), init="arange_log"),
+        "D": PSpec((Di,), init="ones"),
+        "out_proj": PSpec((Di, D), init=f"scaled:{Di}"),
+    }
+
+
+def _ssm_gates(xc: torch.Tensor, p: dict, cfg: ModelConfig,
+               ssm: SSMConfig):
+    """dt [.., Di] f32 (softplus'd) and B_ssm / C_ssm [.., N] in xc's
+    dtype from the conv branch (the back half of the reference's
+    ``_ssm_inputs``)."""
+    R, N = _dt_rank(cfg, ssm), ssm.d_state
+    xdb = xc @ p["x_proj"].to(xc.dtype)
+    dt_in, B_ssm, C_ssm = xdb.split([R, N, N], dim=-1)
+    dt = F.softplus((dt_in @ p["dt_w"].to(xc.dtype)).float()
+                    + p["dt_b"].float())
+    return dt, B_ssm, C_ssm
+
+
+def _ssm_inputs(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                ssm: SSMConfig):
+    """The projections, the causal conv and the gates: x [B,S,D] ->
+    (dt [B,S,Di] f32, B_ssm/C_ssm [B,S,N], xc, z, x_in), xz in x's dtype
+    (the reference's ``_ssm_inputs``)."""
+    xz = x @ p["in_proj"].to(x.dtype)
+    x_in, z = xz.chunk(2, dim=-1)
+    xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
+    dt, B_ssm, C_ssm = _ssm_gates(xc, p, cfg, ssm)
+    return dt, B_ssm, C_ssm, xc, z, x_in
+
+
+def _mamba_out(y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor, p: dict,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The D skip in f32, the cast to the activation dtype, the z gate
+    and the out projection."""
+    y = (y + xc.float() * p["D"].float()).to(dtype)
+    return (y * F.silu(z)) @ p["out_proj"].to(dtype)
+
+
+def mamba(x: torch.Tensor, p: dict, cfg: ModelConfig, ssm: SSMConfig,
+          h0=None, return_state: bool = False):
+    """Mamba mixer over a sequence. x [B,S,D] -> out [B,S,D], and with
+    ``return_state`` (out, (h [B,Di,N] f32, conv_buf [B,K-1,Di])): the
+    final state and the last K-1 rows of the conv input (x's dtype) for
+    the decode step.  ``h0`` starts the scan (default zero).
+
+    As in the reference, S is padded to a multiple of min(chunk, S) with
+    pad steps whose dt is 0 (a = 1, b = 0: they leave h as it is), so the
+    kernel and the plain path see the reference's inputs."""
+    B, S, _ = x.shape
+    Q = min(ssm.chunk, S)
+    pad = (-S) % Q
+    xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+    dt, B_ssm, C_ssm, xc, z, x_in = _ssm_inputs(xp, p, cfg, ssm)
+    if pad:
+        dt = dt * (torch.arange(S + pad, device=x.device) < S)[None, :, None]
+    A = -torch.exp(p["A_log"].float())
+    y, h = ops.ssm_chunk_scan(dt.contiguous(), B_ssm.contiguous(),
+                              C_ssm.contiguous(), xc.contiguous(),
+                              A.contiguous(), h0=h0)
+    out = _mamba_out(y[:, :S], xc[:, :S], z[:, :S], p, x.dtype)
+    if not return_state:
+        return out
+    K = ssm.d_conv
+    buf = F.pad(x_in[:, :S], (0, 0, max(0, (K - 1) - S), 0))[:, -(K - 1):]
+    return out, (h, buf)
+
+
+def mamba_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                 ssm: SSMConfig, h: torch.Tensor, conv_buf: torch.Tensor):
+    """One-token Mamba step in plain PyTorch. x [B,1,D]; h [B,Di,N] f32;
+    conv_buf [B,K-1,Di] -> (out [B,1,D], h', conv_buf')."""
+    dt_ = x.dtype
+    xz = x @ p["in_proj"].to(dt_)
+    x_in, z = xz.chunk(2, dim=-1)                               # [B,1,Di]
+    window = torch.cat([conv_buf.to(dt_), x_in], dim=1)         # [B,K,Di]
+    xc = torch.einsum("bke,ke->be", window, p["conv_w"].to(dt_))
+    xc = F.silu(xc + p["conv_b"].to(dt_))                       # [B,Di]
+    dt, B_ssm, C_ssm = _ssm_gates(xc, p, cfg, ssm)
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dt[..., None] * A)                            # [B,Di,N]
+    b = (dt * xc.float())[..., None] * B_ssm.float()[:, None, :]
+    h = a * h + b
+    y = torch.einsum("bn,ben->be", C_ssm.float(), h)
+    out = _mamba_out(y, xc, z[:, 0], p, dt_)
+    return out[:, None], h, window[:, 1:]
+
+
+def mamba_init_state(cfg: ModelConfig, ssm: SSMConfig, batch: int,
+                     dtype=torch.float32, device="cpu") -> tuple:
+    """Zero state: h [B,Di,N] f32 and the conv buffer [B,K-1,Di] in
+    ``dtype``."""
+    Di = ssm.expand * cfg.d_model
+    return (torch.zeros(batch, Di, ssm.d_state, dtype=torch.float32,
+                        device=device),
+            torch.zeros(batch, ssm.d_conv - 1, Di, dtype=dtype,
+                        device=device))
 
 
 # ---------------------------------------------------------------------------

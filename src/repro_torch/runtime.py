@@ -13,6 +13,11 @@
     state, metrics = rt.train_step(state, batch)          # in place
     rt = Runtime.create("xlstm-125m", capacity=2048)      # recurrent stack
     engine = rt.engine(num_slots=16)                      # mLSTM/sLSTM states
+    cfg = jamba_v0_1_52b.one_period()
+    rt = Runtime.create(cfg, capacity=2048, param_dtype=torch.bfloat16,
+                        params=init_params(model_specs(cfg), 0, torch.bfloat16,
+                                           "cuda", draw_on_device=True))
+    engine = rt.engine(num_slots=16)                      # Mamba + MoE hybrid
     rt = Runtime.create("exanode-100m", capacity=2048, scheduler=True)
     engine = rt.engine(num_slots=16)                      # chunked prefill
 
@@ -28,7 +33,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import registry
-from repro_torch.models.blocks import STATE_LEAVES
+from repro_torch.models.blocks import MAMBA_KINDS, STATE_LEAVES
 from repro_torch.models.common import ModelConfig, count_params, init_params
 from repro_torch.serve import kvcache
 from repro_torch.serve import steps as serve_steps
@@ -80,8 +85,14 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+# the prefill kernel of each recurrent block kind that has one (sLSTM's
+# step loop is plain PyTorch)
+PREFILL_KERNELS = {"mlstm": "mlstm_scan (mLSTM prefill)",
+                   **{k: "ssm_scan (Mamba prefill)" for k in MAMBA_KINDS}}
+
+
 def recurrent_kinds(cfg: ModelConfig) -> dict[str, int]:
-    """Layers of each recurrent (xLSTM) block kind in ``cfg``, e.g.
+    """Layers of each recurrent (Mamba, xLSTM) block kind in ``cfg``, e.g.
     ``{"mlstm": 9, "slstm": 3}`` for xlstm-125m; empty for an attention
     stack."""
     out: dict[str, int] = {}
@@ -152,18 +163,22 @@ class Runtime:
         working dtype, "int8" quantized blocks with per-(block, kv head)
         scales, paged only); bad values raise ``ValueError`` here.  A
         config outside the port (any family but the dense decoder-only
-        ``attn`` stack and the xLSTM stack) raises ``NotImplementedError``
-        naming the ROADMAP item that will bring it.  An xLSTM config (xlstm-125m) serves over
-        the dense layout only (its states are O(1) per stream: the paged
-        layout raises the reference's ``ValueError``), and a train shape
-        for it raises ``NotImplementedError``: xLSTM training is not
-        ported.  ``scheduler`` turns on the engine's token-budget
-        chunked-prefill scheduler (``serve.scheduler``; it needs
-        ``caps.supports_chunked_prefill``, a pure self-attention stack
-        without a sliding window, and raises the reference's
-        ``ValueError`` here otherwise) and ``sched_kw`` carries its knobs
-        (``token_budget``, ``chunk_size``, ``class_weights``,
-        ``aging_ticks``)."""
+        ``attn`` stack, the xLSTM stack and the Jamba hybrid) raises
+        ``NotImplementedError`` naming the ROADMAP item that will bring
+        it.  A config with
+        recurrent blocks (xlstm-125m; jamba-v0.1-52b, whose Mamba states
+        sit beside one attention layer's K/V) serves over the dense
+        layout only (its states are O(1) per stream: the paged layout and
+        the int8 pool raise the reference's ``ValueError``), and a train
+        shape for it, or for any MoE config, raises
+        ``NotImplementedError`` (``registry.check_trainable``): their
+        training is not ported.  ``scheduler`` turns
+        on the engine's token-budget chunked-prefill scheduler
+        (``serve.scheduler``; it needs ``caps.supports_chunked_prefill``,
+        a pure self-attention stack without a sliding window, and raises
+        the reference's ``ValueError`` here otherwise) and ``sched_kw``
+        carries its knobs (``token_budget``, ``chunk_size``,
+        ``class_weights``, ``aging_ticks``)."""
         if isinstance(arch, ModelConfig):
             if smoke:
                 raise ValueError("smoke=True only applies when arch is a "
@@ -190,11 +205,8 @@ class Runtime:
             raise ValueError("grad_sync='hierarchical_int8' needs a pod axis "
                              "and its error-feedback residual; the port runs "
                              "on one device (ROADMAP queue 1, item 9)")
-        if shape_kind == "train" and recurrent_kinds(cfg):
-            raise NotImplementedError(
-                f"training {cfg.name!r} (xLSTM blocks) on the port is not "
-                f"ported yet (ROADMAP queue 1, item 11: xLSTM training on "
-                f"the card)")
+        if shape_kind == "train":
+            registry.check_trainable(cfg)
         if shape_kind == "train" and not caps.supports_flash_train:
             raise ValueError(f"arch {cfg.name!r} cannot train through the "
                              f"flash kernels (caps: {caps.summary})")
@@ -346,16 +358,18 @@ class Runtime:
                  f"device={self.device} ({where})",
                  f"  caps      : {self.caps.summary}"]
         if rec:
-            lines += [
+            lines.append(
                 f"  family    : {self.cfg.family} (recurrent: " + ", ".join(
                     f"{k} x{n}" for k, n in rec.items())
                 + f"; state bytes/stream="
-                  f"{kvcache.state_bytes_per_stream(self.cfg):,})",
-                f"  kernels   : mlstm_scan (mLSTM prefill; sLSTM, the mLSTM "
-                f"decode step and the projections in plain PyTorch) "
-                f"({impl})",
-                "  train     : not ported for xLSTM blocks (ROADMAP queue 1,"
-                " item 11)"]
+                  f"{kvcache.state_bytes_per_stream(self.cfg):,})")
+            kernels = list(dict.fromkeys(PREFILL_KERNELS[k] for k in rec
+                                         if k in PREFILL_KERNELS))
+            if "attn" in {k for g in self.cfg.groups for k in g.pattern}:
+                kernels.append("flash_attention fused_ffn decode_attention")
+            lines.append(
+                f"  kernels   : {' '.join(kernels)} (the recurrent decode "
+                f"steps and the rest in plain PyTorch) ({impl})")
         else:
             decode = {("dense", "f32"): "decode_attention",
                       ("paged", "f32"): "paged_decode_attention",
@@ -365,13 +379,18 @@ class Runtime:
                           (self.kv_layout, self.kv_dtype)]
             if self.scheduler and self.kv_dtype == "int8":
                 decode += " dequantize_int8"
-            lines += [
-                f"  kernels   : flash_attention fused_ffn {decode} ({impl})",
+            lines.append(
+                f"  kernels   : flash_attention fused_ffn {decode} ({impl})")
+        try:
+            registry.check_trainable(self.cfg)
+            lines.append(
                 f"  train     : seq_len={self.seq_len} "
                 f"ce_chunk={self.ce_chunk} remat={self.cfg.remat_policy} "
                 f"param_dtype={self.param_dtype} kernels: flash_attention + "
                 f"flash_attention_bwd_dq/_dkv, fused_ffn + "
-                f"fused_ffn_bwd_dx/_dw (torch.autograd.Function; {impl})"]
+                f"fused_ffn_bwd_dx/_dw (torch.autograd.Function; {impl})")
+        except NotImplementedError as e:
+            lines.append(f"  train     : not ported: {e}")
         sched = ("scheduler[" + ", ".join(
             f"{k}={v}" for k, v in sorted(self.sched_kw.items()))
             + ("]" if self.sched_kw else "defaults]")

@@ -75,7 +75,6 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import PAD_POS
-from repro_torch.models.ssm import F32_PARAMS
 from repro_torch.runtime import check_kv_layout
 from repro_torch.serve import blockpool, kvcache
 from repro_torch.serve.scheduler import Scheduler
@@ -679,8 +678,8 @@ class ServeEngine:
     def kv_cache_bytes(self) -> int:
         """Bytes of decode-state storage as allocated: the dense per-slot
         K/V slabs or the paged pool (int8 scale pools included), and the
-        xLSTM layers' recurrent states; the attention positions are not
-        counted.  (The reference counts K/V only, so for an xLSTM stack
+        Mamba and xLSTM layers' recurrent states; the attention positions
+        are not counted.  (The reference counts K/V only, so for an xLSTM stack
         its figure is 0.)"""
         return sum(t.numel() * t.element_size()
                    for gc in self.caches for sub in gc.values()
@@ -698,11 +697,18 @@ class ServeEngine:
                    if n not in ("pos", "k_scale", "v_scale"))
 
 
+# leaves the models read in f32 whatever the activation dtype, as the
+# reference does (``.astype(jnp.float32)``): the xLSTM gate biases and
+# sLSTM recurrent weights, Mamba's A_log, dt bias and D skip, the MoE router
+F32_PARAMS = frozenset({"b_if", "r_rec", "bias", "A_log", "dt_b", "D",
+                        "router"})
+
+
 def serving_params(params, dtype: torch.dtype):
     """The parameter tree with every matrix cast once to ``dtype``;
-    RMSNorm scales (any key containing "norm") and the xLSTM parameters
-    the reference reads in f32 (``models.ssm.F32_PARAMS``: gate biases,
-    sLSTM recurrent weights) stay f32."""
+    RMSNorm scales (any key containing "norm") and the ``F32_PARAMS``
+    leaves stay as they are.  With params stored in ``dtype`` already
+    nothing is copied."""
     def cast(tree, key=""):
         if isinstance(tree, dict):
             return {k: cast(v, k) for k, v in tree.items()}

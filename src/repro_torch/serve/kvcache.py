@@ -1,16 +1,19 @@
 """Dense decode caches (port of ``repro.serve.kvcache``, dense layout):
-attention K/V and the xLSTM blocks' recurrent states.
+attention K/V and the Mamba and xLSTM blocks' recurrent states.
 
 Caches mirror the layer-group structure: one dict per group, one dict per
 sub-layer, every leaf stacked along a leading layers axis.  An ``attn``
 sub-layer holds ``k``/``v`` [L,B,T,KV,Dh] in the working dtype and
-``pos`` [L,B,T] int32 with -1 = empty; an ``mlstm`` one its state
+``pos`` [L,B,T] int32 with -1 = empty; a Mamba one (``mamba``,
+``mamba_nof``, ``mamba_moe``) ``h`` [L,B,Di,N] f32 and ``conv``
+[L,B,K-1,Di] in the working dtype; an ``mlstm`` one its state
 (``C`` [L,B,H,dh,dh], ``n`` [L,B,H,dh], ``m`` [L,B,H] starting at -inf,
 ``conv`` [L,B,K-1,Di]) and an ``slstm`` one (``c``, ``n``, ``m``, ``h``
-[L,B,H,dh], ``m`` starting at -inf), all f32 and independent of the
-context length.  Where the reference returns updated copies, the port
-updates tensors in place.  Sliding-window ring buffers are not in this
-slice (``models.registry.check_supported`` rejects SWA configs).
+[L,B,H,dh], ``m`` starting at -inf), all f32.  Recurrent states are
+independent of the context length.  Where the reference returns updated
+copies, the port updates tensors in place.  Sliding-window ring buffers
+are not in this slice (``models.registry.check_supported`` rejects SWA
+configs).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.models import ssm
-from repro_torch.models.blocks import STATE_LEAVES
+from repro_torch.models.blocks import MAMBA_KINDS, STATE_LEAVES
 from repro_torch.models.common import ModelConfig
 
 
@@ -41,7 +44,9 @@ def write_index(cfg: ModelConfig, pos: torch.Tensor,
 def _kind_cache(kind: str, cfg: ModelConfig, B: int, T: int,
                 device) -> dict:
     """One sub-layer's empty cache (without the layers axis)."""
-    if kind == "mlstm":
+    if kind in MAMBA_KINDS:
+        state = ssm.mamba_init_state(cfg, cfg.ssm, B, cfg.dtype, device)
+    elif kind == "mlstm":
         state = ssm.mlstm_init_state(cfg, cfg.xlstm, B, device)
     elif kind == "slstm":
         state = ssm.slstm_init_state(cfg, B, device)
@@ -68,8 +73,9 @@ def init_cache(cfg: ModelConfig, batch: int, context_len: int,
 
 
 def state_bytes_per_stream(cfg: ModelConfig) -> int:
-    """Bytes of one stream's recurrent state over every xLSTM layer (0 for
-    a pure attention stack); independent of the context length."""
+    """Bytes of one stream's recurrent state over every Mamba and xLSTM
+    layer (0 for a pure attention stack); independent of the context
+    length."""
     return sum(g.repeats * t.numel() * t.element_size()
                for g in cfg.groups for kind in g.pattern
                if kind in STATE_LEAVES

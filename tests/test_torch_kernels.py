@@ -30,6 +30,7 @@ from repro_torch.kernels import fused_ffn as ffn_kernel
 from repro_torch.kernels import mlstm_scan as ml_kernel
 from repro_torch.kernels import paged_attention as pa_kernel
 from repro_torch.kernels import quant as qt_kernel
+from repro_torch.kernels import ssm_scan as ssm_kernel
 
 TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "decode": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
@@ -273,7 +274,8 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
                                    "mlstm_scan": 0,
                                    "quantize_int8": 0,
                                    "dequantize_int8": 0,
-                                   "quantized_block_write": 0}
+                                   "quantized_block_write": 0,
+                                   "ssm_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -813,3 +815,108 @@ def test_quant_kernels_refuse_bad_inputs(cuda):
             [torch.zeros(3, 4, 1, 8, dtype=torch.int8, device=cuda)],
             [torch.zeros(3, 1, device=cuda)],
             [torch.zeros(2, 1, 8, device=cuda)], idx, idx)
+
+
+# -- the Mamba selective scan (#12) and jamba's FFN width ---------------------
+
+# the reference test's two shapes (tests/test_kernels.py:73-74) and
+# jamba-v0.1-52b's full width (Di 8192, N 16) over a ragged S
+SSM_SHAPES = [(2, 512, 256, 16), (1, 256, 512, 8), (1, 300, 8192, 16)]
+SSM_TOL = 5e-5
+
+
+def _ssm_inputs(B, S, Di, N, seed=0):
+    """dt = softplus(N(0,1)), B/C/x ~ N(0,1), A = -exp(N(0,1)) (the
+    reference test's recipe)."""
+    dt = np.log1p(np.exp(_rand((B, S, Di), seed + 1)))
+    return (dt, _rand((B, S, N), seed + 2), _rand((B, S, N), seed + 3),
+            _rand((B, S, Di), seed + 4), -np.exp(_rand((Di, N), seed + 5)))
+
+
+def test_ffn_plan_takes_four_rows_at_jamba_width():
+    """d_model 4096 is past eight f32 rows of shared memory: the forward
+    takes 4-row blocks (at prefill and at decode), the backward refuses
+    it."""
+    for N in (16384, 16):
+        br, _, _ = ffn_kernel.plan(N, 4096, 14336, num_sms=132)
+        assert br == 4 and br * 4096 <= ffn_kernel.SMEM_ROWS_X_D
+    assert ffn_kernel.BWD_MAX_D < 4096 <= ffn_kernel.MAX_D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N", SSM_SHAPES)
+def test_ssm_kernel_matches_plain(cuda, B, S, Di, N, dtype):
+    """y and the final h within 5e-5; x, B and C in ``dtype`` (both sides
+    read the same values into f32), dt and A in f32."""
+    dt, Bs, Cs, x, A = (torch.from_numpy(a).to(cuda)
+                        for a in _ssm_inputs(B, S, Di, N))
+    Bs, Cs, x = (t.to(dtype) for t in (Bs, Cs, x))
+    ops.reset_launch_counts()
+    y, h = ops.ssm_chunk_scan(dt, Bs, Cs, x, A)
+    assert ops.launch_counts()["ssm_scan"] == 1
+    wy, wh = ref.ref_ssm_scan(dt, Bs, Cs, x, A)
+    torch.cuda.synchronize()
+    assert y.dtype == h.dtype == torch.float32
+    _close(y.cpu(), wy.cpu(), SSM_TOL, "y")
+    _close(h.cpu(), wh.cpu(), SSM_TOL, "h")
+
+
+@pytest.mark.cuda
+def test_ssm_kernel_continues_from_a_state_and_pads(cuda):
+    """A start state handed over from a first call, and pad steps with
+    dt = 0 (as ``models.ssm.mamba`` pads) that leave h as it is."""
+    dt, Bs, Cs, x, A = (torch.from_numpy(a).to(cuda)
+                        for a in _ssm_inputs(2, 256, 1024, 16, seed=60))
+    _, h1 = ssm_kernel.ssm_scan(*(t[:, :100].contiguous()
+                                  for t in (dt, Bs, Cs, x)), A)
+    rest = [t[:, 100:].contiguous() for t in (dt, Bs, Cs, x)]
+    got = ssm_kernel.ssm_scan(*rest, A, h0=h1)
+    want = ref.ref_ssm_scan(*rest, A, h1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close(g.cpu(), w.cpu(), SSM_TOL, "from a state")
+    padded = dt.clone()
+    padded[:, 200:] = 0.0
+    _, h_pad = ssm_kernel.ssm_scan(padded, Bs, Cs, x, A)
+    _, h_cut = ssm_kernel.ssm_scan(*(t[:, :200].contiguous()
+                                     for t in (dt, Bs, Cs, x)), A)
+    torch.cuda.synchronize()
+    _close(h_pad.cpu(), h_cut.cpu(), 0.0, "pad steps")
+
+
+@pytest.mark.cuda
+def test_ssm_kernel_refuses_bad_inputs(cuda):
+    dt, Bs, Cs, x, A = (torch.from_numpy(a).to(cuda)
+                        for a in _ssm_inputs(1, 8, 16, 4))
+    with pytest.raises(ValueError, match="one dtype"):
+        ssm_kernel.ssm_scan(dt, Bs.to(torch.bfloat16), Cs, x, A)
+    with pytest.raises(ValueError, match="f32"):
+        ssm_kernel.ssm_scan(dt.to(torch.bfloat16), Bs, Cs, x, A)
+    with pytest.raises(ValueError, match="N 80"):
+        ssm_kernel.ssm_scan(dt, *(torch.zeros(1, 8, 80, device=cuda)
+                                  for _ in range(2)), x,
+                            torch.zeros(16, 80, device=cuda))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssm_chunk_scan(dt.requires_grad_(), Bs, Cs, x, A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [16, 40])
+def test_ffn_kernel_matches_plain_at_jamba_width(cuda, dtype, N):
+    """d_model 4096 (4-row blocks), d_ff 14336: a decode tick's 16 rows
+    (F split) and 40 ragged rows.  In f32 the reference's 1e-5 (set at
+    F 512) is scaled by sqrt(F / 512): the rounding of the F-term f32 sums
+    of kernel and plain version grows as sqrt(F), as ``_dw_tol`` scales
+    the weight grads' bound with the rows."""
+    D, F = 4096, 14336
+    x, wg, wu, wd = (torch.from_numpy(a).to(cuda, dtype) for a in (
+        _rand((N, D), 80), _rand((D, F), 81, D ** -0.5),
+        _rand((D, F), 82, D ** -0.5), _rand((F, D), 83, F ** -0.5)))
+    got = ffn_kernel.swiglu_ffn(x, wg, wu, wd)
+    want = ref.ref_swiglu_ffn(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    tol = TOL["ffn"][dtype] * ((F / 512) ** 0.5 if dtype == torch.float32
+                               else 1.0)
+    _close(got.float().cpu(), want.float().cpu(), tol)
