@@ -20,7 +20,9 @@ Phases, in order, each printing one line:
            admission splice's tiles, the chunk append's gather and a decode
            tick, exactly), and times the kernel, the plain version and a
            PyTorch library yardstick for the same function where one call
-           computes it (the port never calls it);
+           computes it (the port never calls it); the fused SwiGLU forward
+           and dx run on the tensor cores in bf16 and on their SIMT
+           kernels in f32, and are timed in both;
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -136,7 +138,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # a zeroed or badly wrong grad: the backward kernels are also held to
 # ||got - want|| / ||want|| <= BWD_REL_TOL, which scales with the values.
 # Kernel and plain version round the same f32 sums once, so in bf16 the
-# relative difference is far below one bf16 step (2^-8).
+# relative difference is below one bf16 step (2^-8); the bf16 FFN forward
+# and dx kernels also round their [N, F] intermediate (h; dg, du) to bf16
+# once between their two products, where the plain versions keep it in
+# f32: about 2.5e-3 relative, still under the step.
 TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "fused_ffn": {"float32": 1e-5, "bfloat16": 3e-2},
        "decode_attention": {"float32": 2e-5, "bfloat16": 2e-2},
@@ -383,6 +388,7 @@ def kernels_phase(torch, timer) -> dict:
             shape=f"x [{N},{D}] Wg/Wu [{D},{Fd}] Wd [{Fd},{D}] bf16",
             max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
             ms=timer.ms(lambda: ffn.swiglu_ffn(x, wg, wu, wd)),
+            ms_f32=timer.ms(lambda: ffn.swiglu_ffn(x32, *w32)),
             plain_ms=timer.ms(lambda: ref.ref_swiglu_ffn(x, wg, wu, wd)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=timer.ms(lambda: torch.matmul(
@@ -414,6 +420,7 @@ def kernels_phase(torch, timer) -> dict:
             shape=f"x [{N},{D}] Wg/Wu [{D},{Fd}] Wd [{Fd},{D}] bf16",
             max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
             ms=timer.ms(lambda: ffn.swiglu_ffn(x, wg, wu, wd)),
+            ms_f32=timer.ms(lambda: ffn.swiglu_ffn(x32, *w32)),
             plain_ms=timer.ms(lambda: ref.ref_swiglu_ffn(x, wg, wu, wd)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=timer.ms(lambda: torch.matmul(
@@ -985,6 +992,10 @@ def backward_kernels(torch, timer) -> dict:
             library_ms=timer.ms(lib), plain="ref_swiglu_ffn_bwd (dx, dWg, "
             "dWu, dWd in one call)", library=libname,
             flops_counted=f"{products} products of 2·N·D·F")
+    out[ffn.NAME_BWD_DX]["ms_f32"] = timer.ms(
+        lambda: ffn.swiglu_ffn_bwd_dx(*base))
+    out[ffn.NAME_BWD_DW]["ms_f32"] = timer.ms(
+        lambda: ffn.swiglu_ffn_bwd_dw(*base))
     return out
 
 
@@ -1062,12 +1073,18 @@ def train_phase(torch, gpu: str) -> tuple[str, dict]:
 
 
 # kernel-name substrings -> the groups of the train profile
+# #2's kernels: bf16 on the tensor cores (gate/up, down), f32 on the SIMT
+# kernel, and the split reduce (which the bf16 dx kernel's split K, off
+# the train path's shapes, also runs)
+FFN_FWD_KERNELS = ("ffn_fwd_kernel", "ffn_gate_up_tc_kernel",
+                   "ffn_down_tc_kernel", "ffn_reduce_kernel")
 PROFILE_GROUPS = (
     ("flash_attention (fwd)", ("flash_fwd_kernel",)),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-    ("fused_ffn (fwd)", ("ffn_fwd_kernel", "ffn_reduce_kernel")),
-    ("fused_ffn_bwd_dx", ("ffn_bwd_dx_kernel",)),
+    ("fused_ffn (fwd)", FFN_FWD_KERNELS),
+    ("fused_ffn_bwd_dx", ("ffn_bwd_dx_kernel", "ffn_bwd_grad_tc_kernel",
+                          "ffn_bwd_dx_tc_kernel")),
     ("fused_ffn_bwd_dw", ("ffn_bwd_dw_kernel", "ffn_dw_reduce_kernel")),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
 )
@@ -1199,7 +1216,7 @@ def profile_windows(torch, runs: dict, kernel_groups, what: str) -> list:
 
 JAMBA_PROFILE_GROUPS = (
     ("ssm_scan", ("ssm_scan_kernel",)),
-    ("fused_ffn", ("ffn_fwd_kernel", "ffn_reduce_kernel")),
+    ("fused_ffn", FFN_FWD_KERNELS),
     ("flash_attention", ("flash_fwd_kernel",)),
     ("decode_attention", ("decode_kernel",)),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
@@ -2022,7 +2039,7 @@ def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
 
 
 SCHED_PROFILE_GROUPS = (
-    ("fused_ffn", ("ffn_fwd_kernel", "ffn_reduce_kernel")),
+    ("fused_ffn", FFN_FWD_KERNELS),
     ("decode attention", ("decode_kernel", "paged_kernel")),
     ("int8 kernels", ("quantize_rows_kernel", "dequantize_rows_kernel",
                       "block_write_kernel")),
@@ -2159,7 +2176,8 @@ def main() -> int:
             + f", bound {e['bound_ms']:.4f} "
             f"{e['bound_by']}) err {e['max_abs_err']:.3g}"
             for n, e in entries.items()) + "; fused_ffn at jamba width "
-            + "; ".join(f"{n} {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, "
+            + "; ".join(f"{n} {e['ms']:.3f} ms (f32 {e['ms_f32']:.3f}, "
+                        f"plain {e['plain_ms']:.3f}, "
                         f"library {e['library_ms']:.3f}, bound "
                         f"{e['bound_ms']:.4f} {e['bound_by']})"
                         for n, e in entries["fused_ffn"]["jamba_width"]

@@ -1,4 +1,4 @@
-// Fused SwiGLU FFN backward for Hopper, sm_90a: two kernels (+ a reduce).
+// Fused SwiGLU FFN backward for Hopper, sm_90a.
 //
 // Replaces: src/repro/kernels/fused_ffn.py:108 _bwd_dx_kernel and :131
 // _bwd_dw_kernel (both reached through _backward:159, pallas_calls at :164
@@ -7,36 +7,50 @@
 // With g = x·Wg, u = x·Wu, σ = logistic(g), h = g·σ·u and dh = dy·Wdᵀ:
 //   du = dh·g·σ,   dg = dh·u·(σ + g·σ·(1 − σ)),
 //   dX = dg·Wgᵀ + du·Wuᵀ,  dWg = xᵀ·dg,  dWu = xᵀ·du,  dWd = hᵀ·dy.
-// Neither kernel stores anything [N,F]-shaped: each recomputes the
-// (g, u, dh) tile it needs from x, the weights and dy, as the TPU kernels
-// do.
 //
 // What bounds it on this card: at training row counts the products are
-// O(N*D*F) operations against O((N+F)*D) bytes, so both kernels are bound
-// by operations (five [N,D]x[D,F]-sized products in the dx kernel, six in
-// the dw kernel).  This first version runs them as f32 FMAs on the CUDA
-// cores (tensor cores, wgmma, are for a later version).
+// O(N*D*F) operations against O((N+F)*D) bytes, so both are bound by
+// operations (five [N,D]x[D,F]-sized products for dX, six for the weight
+// grads), which only the tensor cores (wgmma, 989 TFLOP/s in bf16 against
+// 67 TFLOP/s of f32 FMAs) come near.
 //
 // What the design does about it:
-// * dx kernel: one block owns BR rows, staged once in shared memory as f32,
-//   and walks F in 32-wide tiles (the forward's layout): each lane one F
-//   column, each warp BR/8 rows, it recomputes g, u and dh for the tile,
-//   parks dg and du in shared memory and folds dg·Wgᵀ + du·Wuᵀ into an f32
-//   [BR,D] accumulator in shared memory.  The TPU grid walked F in order
-//   with a VMEM accumulator; here the walk is a loop inside the block.
-// * dw kernel: one block owns a BF-wide tile of F (BF <= 16, chosen so the
-//   three f32 weight-gradient tiles [D,BF], [D,BF], [BF,D] fit in shared
-//   memory) and a range of rows, walked in chunks: for each chunk it
-//   recomputes the (h, dg, du) tile into shared memory (each thread one F
-//   column of two rows), then each thread takes D columns and adds the
-//   chunk's xᵀ·dg, xᵀ·du and hᵀ·dy for them in registers before adding
-//   them to the shared accumulators.  The TPU grid walked the rows in order
-//   with VMEM accumulators.  When the F tiles alone would leave SMs idle,
-//   the rows are split across blocks that write f32 partials to a
-//   [splits, 3, D*F] workspace, and a second small kernel adds the splits
-//   in order (deterministic, no atomics), as the forward's split-F scheme.
+// * dX in bf16, the training dtype: two launches over the tensor-core
+//   mainloop of gemm_sm90.cuh (TMA ring, wgmma, f32 accumulators in
+//   registers).  (a) ffn_bwd_grad_tc_kernel: a [BM, 64] tile of F, three
+//   products over K = D, g = x·Wg and u = x·Wu from one x tile and
+//   dh = dy·Wdᵀ (Wd read K-major, as it lies); the epilogue computes dg and
+//   du in f32 and stores them, rounded once to bf16, into two row-major
+//   [N, F] scratch tensors (the layout the dW products read).  (b)
+//   ffn_bwd_dx_tc_kernel: dX = dg·Wgᵀ + du·Wuᵀ as one product over
+//   K = 2F, both pairs accumulated in the same registers; when its output
+//   tiles alone would leave SMs idle, K is split across blocks whose f32
+//   partials ffn_reduce_kernel adds in split order.  The TPU kernel
+//   recomputed (g, u, dh) per F tile and carried an f32 [br, D]
+//   accumulator across the F grid; at d_model 4096 that accumulator alone
+//   is past a block's shared memory, so dg and du make one round trip
+//   through device memory instead (4·N·F bytes against 10·N·D·F
+//   operations).
+// * dX in f32 stays on the first SIMT version (ffn_bwd_dx_kernel), kept for
+//   the f32 parity checks: one block owns BR rows, staged once in shared
+//   memory as f32, and walks F in 32-wide tiles: each lane one F column,
+//   each warp BR/8 rows, it recomputes g, u and dh for the tile, parks dg
+//   and du in shared memory and folds dg·Wgᵀ + du·Wuᵀ into an f32 [BR,D]
+//   accumulator in shared memory.
+// * dW (both dtypes, SIMT f32 FMAs): one block owns a BF-wide tile of F
+//   (BF <= 16, chosen so the three f32 weight-gradient tiles [D,BF],
+//   [D,BF], [BF,D] fit in shared memory) and a range of rows, walked in
+//   chunks: for each chunk it recomputes the (h, dg, du) tile into shared
+//   memory (each thread one F column of two rows), then each thread takes
+//   D columns and adds the chunk's xᵀ·dg, xᵀ·du and hᵀ·dy for them in
+//   registers before adding them to the shared accumulators.  The TPU grid
+//   walked the rows in order with VMEM accumulators.  When the F tiles
+//   alone would leave SMs idle, the rows are split across blocks that
+//   write f32 partials to a [splits, 3, D*F] workspace, and a second small
+//   kernel adds the splits in order (deterministic, no atomics).
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -372,20 +386,123 @@ cudaError_t dispatch_dw(int bf, const void* x, const void* wg, const void* wu,
   return cudaErrorInvalidValue;
 }
 
+// -- bf16 dX on the tensor cores ---------------------------------------------
+
+// (a) dg, du bf16 [N, F] in out0, out1 from g = x·Wg, u = x·Wu, dh = dy·Wdᵀ.
+struct Grad {
+  static constexpr int NA = 2, NP = 3, NSEG = 1;
+  __host__ __device__ static constexpr int a_of(int q) { return q == 2; }
+  __host__ __device__ static constexpr bool mn_major(int q) { return q < 2; }
+  template <int BN>
+  __device__ static void epilogue(const tc::Params& p,
+                                  float (&acc)[3][BN / 2], int row0,
+                                  int col0, int) {
+    tc::for_each_pair<BN>(row0, col0, [&](int i, int r, int c) {
+      if (r >= p.M || c >= p.ncols) return;
+      float h, dg[2], du[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        swiglu_grads(acc[0][i + e], acc[1][i + e], acc[2][i + e], &h,
+                     &dg[e], &du[e]);
+      const int64_t at = static_cast<int64_t>(r) * p.ncols + c;
+      tc::store_bf16x2(p.out0, at, dg[0], dg[1]);
+      tc::store_bf16x2(p.out1, at, du[0], du[1]);
+    });
+  }
+};
+using Dx = tc::Linear<2>;  // (b) dX = [dg | du]·[Wg | Wu]ᵀ over K = 2F
+constexpr int kGradBN = 64;  // three accumulators of 64 columns
+
+template <int CW>
+__global__ void __launch_bounds__(tc::Cfg<Grad, CW, kGradBN>::kThreads,
+                      tc::Cfg<Grad, CW, kGradBN>::kBlocksPerSM)
+ffn_bwd_grad_tc_kernel(const __grid_constant__ tc::Params p) {
+  tc::run<Grad, CW, kGradBN>(p);
+}
+
+template <int CW>
+__global__ void __launch_bounds__(tc::Cfg<Dx, CW, 128>::kThreads,
+                      tc::Cfg<Dx, CW, 128>::kBlocksPerSM)
+ffn_bwd_dx_tc_kernel(const __grid_constant__ tc::Params p) {
+  tc::run<Dx, CW, 128>(p);
+}
+
+template <int CW>
+cudaError_t launch_dx_tc(const void* x, const void* wg, const void* wu,
+                         const void* wd, const void* dy, void* dg, void* du,
+                         void* dx, float* ws, int N, int D, int F, int splits,
+                         int kt_split, cudaStream_t stream) {
+  cudaError_t err;
+  tc::Params p{};
+  p.out0 = dg;
+  p.out1 = du;
+  p.M = N;
+  p.ncols = F;
+  p.kt_seg = (D + tc::kBK - 1) / tc::kBK;
+  p.kt_split = p.kt_seg;
+  if ((err = tc::map_a<CW>(&p.a[0][0], x, N, D)) != cudaSuccess) return err;
+  if ((err = tc::map_a<CW>(&p.a[0][1], dy, N, D)) != cudaSuccess) return err;
+  if ((err = tc::map_b<kGradBN>(&p.b[0][0], wg, true, D, F)) != cudaSuccess)
+    return err;
+  if ((err = tc::map_b<kGradBN>(&p.b[0][1], wu, true, D, F)) != cudaSuccess)
+    return err;
+  // Wd [F, D] is dh's B read K-major: [N = F, K = D]
+  if ((err = tc::map_b<kGradBN>(&p.b[0][2], wd, false, D, F)) != cudaSuccess)
+    return err;
+  err = tc::launch<Grad, CW, kGradBN>(ffn_bwd_grad_tc_kernel<CW>, p, 1,
+                                      stream);
+  if (err != cudaSuccess) return err;
+
+  tc::Params q{};
+  q.out0 = dx;
+  q.ws = ws;
+  q.M = N;
+  q.ncols = D;
+  q.kt_seg = (F + tc::kBK - 1) / tc::kBK;
+  q.kt_split = kt_split;
+  // segment 0: dg·Wgᵀ, segment 1: du·Wuᵀ; Wg/Wu [D, F] read K-major
+  if ((err = tc::map_a<CW>(&q.a[0][0], dg, N, F)) != cudaSuccess) return err;
+  if ((err = tc::map_a<CW>(&q.a[1][0], du, N, F)) != cudaSuccess) return err;
+  if ((err = tc::map_b<128>(&q.b[0][0], wg, false, F, D)) != cudaSuccess)
+    return err;
+  if ((err = tc::map_b<128>(&q.b[1][0], wu, false, F, D)) != cudaSuccess)
+    return err;
+  err = tc::launch<Dx, CW, 128>(ffn_bwd_dx_tc_kernel<CW>, q, splits, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_reduce<__nv_bfloat16>(ws, dx, (int64_t)N * D, splits,
+                                      stream);
+}
+
 }  // namespace
 
-// x, dy, dx [N,D]; wg/wu [D,F]; wd [F,D]; all contiguous.  br rows per
-// block (8, 16 or 32).
+// f32 (SIMT): x, dy, dx [N,D]; wg/wu [D,F]; wd [F,D]; all contiguous.  br
+// rows per block (8, 16 or 32).
 extern "C" int repro_swiglu_ffn_bwd_dx(const void* x, const void* wg,
                                        const void* wu, const void* wd,
                                        const void* dy, void* dx, int N, int D,
-                                       int F, int br, int dtype,
-                                       void* stream) {
+                                       int F, int br, void* stream) {
+  return dispatch_dx<float>(br, x, wg, wu, wd, dy, dx, N, D, F,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// bf16 (tensor cores): as above, with dg, du [N,F] bf16 scratch and, when
+// splits > 1, ws [splits,N,D] f32.  cw consumer warpgroups a block (64
+// rows each); the dx kernel's K (2F, in 64-deep tiles, F's tiles for dg
+// then for du) split into `splits` ranges of kt_split tiles.  All pointers
+// 16-byte aligned, D and F multiples of 8.
+extern "C" int repro_swiglu_ffn_bwd_dx_tc(const void* x, const void* wg,
+                                          const void* wu, const void* wd,
+                                          const void* dy, void* dg, void* du,
+                                          void* dx, float* ws, int N, int D,
+                                          int F, int cw, int splits,
+                                          int kt_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return dispatch_dx<float>(br, x, wg, wu, wd, dy, dx, N, D, F, s);
-  if (dtype == kBF16)
-    return dispatch_dx<__nv_bfloat16>(br, x, wg, wu, wd, dy, dx, N, D, F, s);
+  if (cw == 1)
+    return launch_dx_tc<1>(x, wg, wu, wd, dy, dg, du, dx, ws, N, D, F, splits,
+                           kt_split, s);
+  if (cw == 2)
+    return launch_dx_tc<2>(x, wg, wu, wd, dy, dg, du, dx, ws, N, D, F, splits,
+                           kt_split, s);
   return cudaErrorInvalidValue;
 }
 

@@ -13,16 +13,19 @@ the plain forwards.  On the card the backward kernels are held against
 them at the reference's grad tolerances in f32 (tests/test_kernels.py:
 115-180: flash 2e-4, FFN 1e-4) and at its forward tolerances in bf16
 (flash 2e-2, FFN 3e-2: both sides accumulate in f32 and round the grads
-to bf16 once, so they differ by about one bf16 step).  The reference set
-its 1e-4 at <= 256 rows; the weight grads sum over all N rows, and the f32
-rounding of such a sum grows as sqrt(N) (at 4096 rows the CPU's own f32
-product is 1.02x that 1e-4 away from its f64 value), so the f32 weight
-grads are held to 1e-4 * max(1, sqrt(N / 256)).
+to bf16 once, so they differ by about one bf16 step; the bf16 FFN
+forward and dx kernels also round their [N, F] intermediate to bf16 once
+between their two products, about 2.5e-3 relative, under that step).  The
+reference set its 1e-4 at <= 256 rows; the weight grads sum over all N
+rows, and the f32 rounding of such a sum grows as sqrt(N) (at 4096 rows
+the CPU's own f32 product is 1.02x that 1e-4 away from its f64 value), so
+the f32 weight grads are held to 1e-4 * max(1, sqrt(N / 256)).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
@@ -355,6 +358,53 @@ def test_ffn_dw_plan_tiles_fit_and_split_rows(N, D, F, splits):
     assert ffn_kernel.plan_dx(N, D) * D <= ffn_kernel.SMEM_ROWS_X_D
 
 
+# every config the port registers with a SwiGLU FFN (xlstm-125m has none,
+# d_ff 0): the bf16 tensor-core FFN's widths
+SILU_ARCHS = ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b")
+
+
+def test_silu_archs_are_every_registered_silu_config():
+    assert set(SILU_ARCHS) == {a for a in ARCHS
+                               if get_config(a).mlp_act == "silu"
+                               and get_config(a).d_ff > 0}
+
+
+def _cover(n: int, tile: int, tiles: int) -> np.ndarray:
+    """How often each of n positions is covered by ``tiles`` tiles of
+    ``tile`` starting at ``i * tile``, as the kernels map block indices."""
+    cov = np.zeros(n, np.int64)
+    for i in range(tiles):
+        cov[i * tile:(i + 1) * tile] += 1
+    return cov
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("N", [1, 16, 600, 4096, 16384])
+@pytest.mark.parametrize("arch", SILU_ARCHS)
+def test_ffn_tc_plan_covers_outputs_once(arch, N, backward):
+    """The bf16 route's tiles: both kernels' grids cover every row, every
+    F column (first kernel) and every D column (second kernel) once, and
+    every 64-deep K tile of the second kernel lies in exactly one split;
+    K is split only when the output tiles alone leave SMs idle, and then
+    into no more splits than fill them; the scratch is [N, F]."""
+    cfg = get_config(arch)
+    D, F, sms = cfg.d_model, cfg.d_ff, 132
+    assert D % 8 == 0 and F % 8 == 0                # TMA's 16-byte strides
+    pl = ffn_kernel.plan_tc(N, D, F, sms, backward=backward)
+    rows, f_tiles = pl.grid1
+    rows2, d_tiles, splits = pl.grid2
+    assert pl.bm in (64, 128) and pl.bn1 in (64, 128) and rows2 == rows
+    assert (_cover(N, pl.bm, rows) == 1).all()
+    assert (_cover(F, pl.bn1, f_tiles) == 1).all()
+    assert (_cover(D, ffn_kernel.TC_BN_DOWN, d_tiles) == 1).all()
+    assert pl.k_tiles == -(-F // ffn_kernel.TC_BK) * (2 if backward else 1)
+    assert (_cover(pl.k_tiles, pl.k_tiles_per_split, splits) == 1).all()
+    tiles = rows * d_tiles
+    assert (splits > 1) == (tiles < sms)
+    assert tiles * (splits - 1) < sms
+    assert pl.splits == splits and pl.scratch == (N, F)
+
+
 # -- Hopper kernels against their plain versions (CUDA only) -----------------
 
 
@@ -455,16 +505,39 @@ def test_paged_q8_kernel_matches_plain(cuda, dtype, H, KV, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [1, 16, 300])
-def test_ffn_kernel_matches_plain(cuda, dtype, N):
-    D, F = 256, 512
+@pytest.mark.parametrize("N,D,F", [(1, 256, 512), (16, 256, 512),
+                                   (300, 256, 512), (600, 256, 512),
+                                   (16, 3072, 8192), (300, 3072, 8192),
+                                   (16, 4096, 14336), (600, 4096, 14336)])
+def test_ffn_kernel_matches_plain(cuda, dtype, N, D, F):
+    """Ragged N (bf16: 64- and 128-row tiles, split and unsplit down
+    kernel), llama3.2-3b's and jamba-v0.1-52b's widths.  In f32 the
+    reference's 1e-5 (set at F 512) is scaled by sqrt(F / 512), as at
+    jamba width below."""
     x, wg, wu, wd = (torch.from_numpy(a).to(cuda, dtype) for a in (
-        _rand((N, D), 26), _rand((D, F), 27, 0.05), _rand((D, F), 28, 0.05),
-        _rand((F, D), 29, 0.05)))
+        _rand((N, D), 26), _rand((D, F), 27, D ** -0.5),
+        _rand((D, F), 28, D ** -0.5), _rand((F, D), 29, F ** -0.5)))
     got = ffn_kernel.swiglu_ffn(x, wg, wu, wd)
     want = ref.ref_swiglu_ffn(x, wg, wu, wd)
     torch.cuda.synchronize()
-    _close(got.float().cpu(), want.float().cpu(), TOL["ffn"][dtype])
+    tol = TOL["ffn"][dtype] * ((F / 512) ** 0.5 if dtype == torch.float32
+                               else 1.0)
+    _close(got.float().cpu(), want.float().cpu(), tol)
+
+
+@pytest.mark.cuda
+def test_ffn_tc_route_refuses_what_tma_cannot_load(cuda):
+    """bf16 goes to the tensor-core route, whose TMA loads need D and F
+    multiples of 8 and 16-byte aligned tensors: it raises otherwise."""
+    x = torch.zeros(4, 20, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(20, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8|% 8"):
+        ffn_kernel.swiglu_ffn(x, w, w, w.t().contiguous())
+    buf = torch.zeros(4 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+    x = buf[1:].view(4, 16)                          # 2 bytes off
+    w = torch.zeros(16, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        ffn_kernel.swiglu_ffn(x, w, w, w.t().contiguous())
 
 
 def _flash_bwd_case(cuda, dtype, B, H, Hkv, S, T, D, causal, window, seed):
@@ -505,8 +578,9 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, H, Hkv, D, S, T, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D,F", [(1, 256, 512), (16, 256, 512),
-                                   (300, 256, 512), (4096, 768, 2048),
-                                   (40, 3072, 1024)])
+                                   (300, 256, 512), (600, 256, 512),
+                                   (4096, 768, 2048), (40, 3072, 1024),
+                                   (600, 3072, 8192)])
 def test_ffn_bwd_kernels_match_plain(cuda, dtype, N, D, F):
     gen = torch.Generator(device=cuda).manual_seed(81)
     x = torch.randn(N, D, generator=gen, device=cuda)
@@ -525,26 +599,31 @@ def test_ffn_bwd_kernels_match_plain(cuda, dtype, N, D, F):
 
 
 @pytest.mark.cuda
-def test_autograd_functions_launch_backward_kernels(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_functions_launch_backward_kernels(cuda, dtype):
     """On the card the Functions' backward launches the backward kernels:
-    one dq and one dkv launch per attention backward, one dx and one or two
-    dw launches per FFN backward."""
+    one dq and one dkv launch per attention backward; per FFN backward one
+    or two dw launches and, for dx, one (f32) or, in bf16, the gradient
+    and dx kernels and the split-K reduce."""
     ops.reset_launch_counts()
     q, k, v, _, _, do = _flash_bwd_case(cuda, torch.float32, 1, 6, 2, 96, 96,
                                         64, True, 0, seed=82)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out, _ = ops.flash_attention(*leaves)
     torch.autograd.grad(out, leaves, do)
-    x = torch.randn(64, 64, device=cuda, requires_grad=True)
-    w = torch.randn(64, 128, device=cuda, requires_grad=True)
+    x = torch.randn(64, 64, device=cuda, dtype=dtype, requires_grad=True)
+    w = torch.randn(64, 128, device=cuda, dtype=dtype, requires_grad=True)
     y = ops.swiglu_ffn(x, w, w, w.t().contiguous())
     torch.autograd.grad(y.sum(), [x, w])
     counts = ops.launch_counts()
-    # 64 rows leave SMs idle: the forward splits F (kernel + reduce)
-    assert counts["flash_attention"] == 1 and counts["fused_ffn"] == 2
+    # 64 rows leave SMs idle: f32 splits F (kernel + reduce); bf16 splits
+    # the down and dx kernels' K (gate/up or gradients, down or dx, reduce)
+    split_launches = 2 if dtype == torch.float32 else 3
+    assert counts["flash_attention"] == 1
+    assert counts["fused_ffn"] == split_launches
     assert counts["flash_attention_bwd_dq"] == 1
     assert counts["flash_attention_bwd_dkv"] == 1
-    assert counts["fused_ffn_bwd_dx"] == 1
+    assert counts["fused_ffn_bwd_dx"] == (1 if dtype == torch.float32 else 3)
     assert counts["fused_ffn_bwd_dw"] in (1, 2)
 
 
@@ -920,3 +999,26 @@ def test_ffn_kernel_matches_plain_at_jamba_width(cuda, dtype, N):
     tol = TOL["ffn"][dtype] * ((F / 512) ** 0.5 if dtype == torch.float32
                                else 1.0)
     _close(got.float().cpu(), want.float().cpu(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 600])
+def test_ffn_bwd_dx_kernel_matches_plain_at_jamba_width(cuda, N):
+    """dx at d_model 4096, d_ff 14336 in bf16 (the tensor-core route takes
+    any width); the f32 SIMT dx kernel, whose rows and accumulator live in
+    shared memory, refuses d_model past ``BWD_MAX_D``."""
+    D, F = 4096, 14336
+    gen = torch.Generator(device=cuda).manual_seed(84)
+    args = [torch.randn(N, D, generator=gen, device=cuda),
+            torch.randn(D, F, generator=gen, device=cuda) * D ** -0.5,
+            torch.randn(D, F, generator=gen, device=cuda) * D ** -0.5,
+            torch.randn(F, D, generator=gen, device=cuda) * F ** -0.5,
+            torch.randn(N, D, generator=gen, device=cuda)]
+    with pytest.raises(ValueError, match="D <= "):
+        ffn_kernel.swiglu_ffn_bwd_dx(*args)
+    args = [t.to(torch.bfloat16) for t in args]
+    got = ffn_kernel.swiglu_ffn_bwd_dx(*args)
+    want = ref.ref_swiglu_ffn_bwd(*args)[0]
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(),
+           TOL["ffn_bwd"][torch.bfloat16], "dx")
