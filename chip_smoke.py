@@ -20,9 +20,15 @@ Phases, in order, each printing one line:
            admission splice's tiles, the chunk append's gather and a decode
            tick, exactly), and times the kernel, the plain version and a
            PyTorch library yardstick for the same function where one call
-           computes it (the port never calls it); the fused SwiGLU forward
-           and dx run on the tensor cores in bf16 and on their SIMT
-           kernels in f32, and are timed in both;
+           computes it (the port never calls it); flash attention, the
+           fused SwiGLU forward and its backward run on the tensor cores
+           in bf16 and on their SIMT kernels in f32, and are timed in both;
+           flash attention also at jamba-v0.1-52b's 32 / 8 heads of 128,
+           with a window in bf16; the dW kernel alone over the gradient
+           kernel's scratch, and the whole FFN backward against the
+           library's autograd through the same products; #1, #6, #7 and
+           their yardsticks also on device time alone and with their host
+           enqueue (``Timer``);
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -242,19 +248,29 @@ def gpu_line() -> str:
 class Timer:
     """Per-launch CUDA-event timing with L2 flushed between launches (the
     serving path meets weights and caches cold: its working set is many
-    times the 50 MB L2)."""
+    times the 50 MB L2).  ``ms`` records its start event right after the
+    flush is enqueued, so a wrapper's host time (checks, allocations,
+    launch calls) that outlasts the flush on the device is timed with its
+    kernels: the time a caller waits.  ``device_ms`` runs a spin kernel of
+    SPIN cycles (~1.1 ms) between the flush and the start event, so that
+    the host has enqueued the call before the device reaches it: the
+    device's work alone.  ``host_us`` times the enqueue on the host."""
+
+    SPIN = 2_000_000       # past the slowest wrapper's host time
 
     def __init__(self, torch, iters: int):
         self.torch, self.iters = torch, iters
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn) -> float:
+    def ms(self, fn, spin: bool = False) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(self.iters):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(self.SPIN)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -263,6 +279,24 @@ class Timer:
             e1.synchronize()
             total += e0.elapsed_time(e1)
         return total / self.iters
+
+    def device_ms(self, fn) -> float:
+        return self.ms(fn, spin=True)
+
+    def host_us(self, fn) -> float:
+        """Median host microseconds to enqueue ``fn`` (its Python wrapper,
+        checks, allocations and launch calls) while the device is busy."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(self.iters):
+            torch.cuda._sleep(self.SPIN)
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        return 1e6 * sorted(ts)[len(ts) // 2]
 
 
 def nbytes(*ts) -> int:
@@ -335,37 +369,64 @@ def kernels_phase(torch, timer) -> dict:
     out = {}
 
     # flash attention: prefill of 4 prompts x 1024 tokens, q in the
-    # [B,S,H,D] -> [B,H,S,D] view the model passes, grouped K/V
-    B, S, H, KV, D = 4, 1024, 12, 4, 64
-    q32 = randn(B, S, H, D).transpose(1, 2)
-    k32 = randn(B, S, KV, D).transpose(1, 2)
-    v32 = randn(B, S, KV, D).transpose(1, 2)
-    errs = {}
-    for dt in (f32, bf16):
-        q, k, v = (t.to(dt) for t in (q32, k32, v32))
-        o, lse = fa.flash_attention(q, k, v, causal=True)
-        wo, wlse = ref.ref_attention(q, k, v, causal=True)
-        name = str(dt).split(".")[1]
-        errs[name] = check("flash_attention", o, wo, name, "causal")
-        check("flash_attention", lse, wlse, "float32", f"causal lse {name}")
-    for S2, causal, window in ((1024, True, 256), (1000, False, 0)):
-        q, k, v = q32[:, :, :S2], k32[:, :, :S2], v32[:, :, :S2]
-        o, _ = fa.flash_attention(q, k, v, causal=causal, window=window)
-        wo, _ = ref.ref_attention(q, k, v, causal=causal, window=window)
-        check("flash_attention", o, wo, "float32",
-              f"S={S2} causal={causal} window={window}")
-    q, k, v = (t.to(bf16) for t in (q32, k32, v32))
-    flops = 4 * B * H * D * S * (S + 1) / 2            # causal pairs only
-    b_ms, b_by = bound(nbytes(q, k, v, q) + B * H * S * 4, flops, "bfloat16")
-    out["flash_attention"] = dict(
-        shape=f"q [{B},{H},{S},{D}] k/v [{B},{KV},{S},{D}] causal bf16",
-        max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
-        ms=timer.ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-        plain_ms=timer.ms(lambda: ref.ref_attention(q, k, v, causal=True)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
-        library="torch.nn.functional.scaled_dot_product_attention")
+    # [B,S,H,D] -> [B,H,S,D] view the model passes, grouped K/V; bf16 runs
+    # on the tensor cores (head dims 64 and 128), f32 on the SIMT kernel.
+    # Exanode-100m's 12 / 4 heads of 64, then jamba-v0.1-52b's attention
+    # layer, 32 / 8 heads of 128.
+    flash = {}
+    for arch, (B, S, H, KV, D) in (("exanode", (4, 1024, 12, 4, 64)),
+                                   ("jamba", (4, 1024, 32, 8, 128))):
+        q32 = randn(B, S, H, D).transpose(1, 2)
+        k32 = randn(B, S, KV, D).transpose(1, 2)
+        v32 = randn(B, S, KV, D).transpose(1, 2)
+        errs = {}
+        for dt in (f32, bf16):
+            q, k, v = (t.to(dt) for t in (q32, k32, v32))
+            o, lse = fa.flash_attention(q, k, v, causal=True)
+            wo, wlse = ref.ref_attention(q, k, v, causal=True)
+            name = str(dt).split(".")[1]
+            errs[name] = check("flash_attention", o, wo, name,
+                               f"{arch} causal")
+            check("flash_attention", lse, wlse, "float32",
+                  f"{arch} causal lse {name}")
+        for S2, causal, window in ((1024, True, 256), (1000, False, 0)):
+            for dt in (f32, bf16):
+                q, k, v = (t[:, :, :S2].to(dt) for t in (q32, k32, v32))
+                o, _ = fa.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+                wo, _ = ref.ref_attention(q, k, v, causal=causal,
+                                          window=window)
+                name = str(dt).split(".")[1]
+                check("flash_attention", o, wo, name,
+                      f"{arch} S={S2} causal={causal} window={window}")
+        q, k, v = (t.to(bf16) for t in (q32, k32, v32))
+        flops = 4 * B * H * D * S * (S + 1) / 2            # causal pairs only
+        b_ms, b_by = bound(nbytes(q, k, v, q) + B * H * S * 4, flops,
+                           "bfloat16")
+
+        def kern():
+            return fa.flash_attention(q, k, v, causal=True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        flash[arch] = dict(
+            shape=f"q [{B},{H},{S},{D}] k/v [{B},{KV},{S},{D}] causal bf16 "
+                  f"(route {fa.route(bf16, D)})",
+            max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
+            ms=timer.ms(kern), device_ms=timer.device_ms(kern),
+            host_us=timer.host_us(kern),
+            ms_f32=timer.ms(lambda: fa.flash_attention(q32, k32, v32,
+                                                       causal=True)),
+            plain_ms=timer.ms(lambda: ref.ref_attention(q, k, v,
+                                                        causal=True)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=timer.ms(library),
+            library_device_ms=timer.device_ms(library),
+            library_host_us=timer.host_us(library),
+            library="torch.nn.functional.scaled_dot_product_attention")
+        del q32, k32, v32, q, k, v
+    out["flash_attention"] = dict(flash["exanode"],
+                                  jamba_width=flash["jamba"])
 
     # fused SwiGLU: prefill rows (4 x 1024) and one decode tick (16 slots)
     D, Fd = 768, 2048
@@ -959,6 +1020,14 @@ def backward_kernels(torch, timer) -> dict:
     errs["wide"] = ffn_errs(ffn_args(256, 3072, 8192), "float32",
                             "llama3.2-3b widths D=3072 F=8192, N=256")
     x, wg, wu, wd, dy = (t.to(bf16) for t in base)
+    # #7 alone: the dW kernel against its plain version over the gradient
+    # kernel's dg, du, h (hi, lo) pairs
+    pairs = ffn.swiglu_ffn_bwd_grads(x, wg, wu, wd, dy)
+    sums = [t.float().sum(0) for t in pairs]
+    alone = worst(*(check_grad(ffn.NAME_BWD_DW, g, w, "bfloat16",
+                               "dW kernel over the gradient kernel's pairs")
+                    for g, w in zip(ffn.swiglu_ffn_bwd_dw_tc(x, dy, *pairs),
+                                    ref.ref_swiglu_ffn_bwd_dw(x, dy, *sums))))
 
     def hidden():
         g, u, dh = x @ wg, x @ wu, dy @ wd.t()
@@ -969,33 +1038,86 @@ def backward_kernels(torch, timer) -> dict:
         _, du, dg, _ = hidden()
         return dg @ wg.t() + du @ wu.t()
 
-    def lib_dw():
-        silu, du, dg, u = hidden()
-        return x.t() @ dg, x.t() @ du, (silu * u).t() @ dy
+    hi = [t[0] for t in pairs]
 
-    plain_ms = timer.ms(lambda: ref.ref_swiglu_ffn_bwd(x, wg, wu, wd, dy))
+    def lib_dw():            # three matmul over the same scratch (hi parts)
+        return x.t() @ hi[0], x.t() @ hi[1], hi[2].t() @ dy
+
+    # the library's whole backward: autograd through three matmul + silu
+    xl, wgl, wul, wdl = (t.detach().requires_grad_() for t in (x, wg, wu, wd))
+    yl = torch.matmul(F.silu(xl @ wgl) * (xl @ wul), wdl)
+
+    def lib_bwd():
+        return torch.autograd.grad(yl, (xl, wgl, wul, wdl), dy,
+                                   retain_graph=True)
+
     shape = f"x/dy [{N},{D}] Wg/Wu [{D},{Fd}] Wd [{Fd},{D}] bf16"
-    ins = nbytes(x, wg, wu, wd, dy)
-    for i, (name, fn, nb, products, lib, libname) in enumerate((
-            (ffn.NAME_BWD_DX, lambda: ffn.swiglu_ffn_bwd_dx(x, wg, wu, wd, dy),
-             ins + nbytes(x), 5, lib_dx,
-             "five torch.matmul (g, u, dh recomputed; dg·Wgᵀ + du·Wuᵀ) + "
-             "the gate's elementwise ops"),
-            (ffn.NAME_BWD_DW, lambda: ffn.swiglu_ffn_bwd_dw(x, wg, wu, wd, dy),
-             ins + nbytes(wg, wu, wd), 6, lib_dw,
-             "six torch.matmul (g, u, dh recomputed; xᵀdg, xᵀdu, hᵀdy) + "
-             "the gate's elementwise ops"))):
-        b_ms, b_by = bound(nb, products * 2 * N * D * Fd, "bfloat16")
-        out[name] = dict(
-            shape=shape, **grad_errs(errs, i), ms=timer.ms(fn),
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=timer.ms(lib), plain="ref_swiglu_ffn_bwd (dx, dWg, "
-            "dWu, dWd in one call)", library=libname,
-            flops_counted=f"{products} products of 2·N·D·F")
-    out[ffn.NAME_BWD_DX]["ms_f32"] = timer.ms(
-        lambda: ffn.swiglu_ffn_bwd_dx(*base))
-    out[ffn.NAME_BWD_DW]["ms_f32"] = timer.ms(
-        lambda: ffn.swiglu_ffn_bwd_dw(*base))
+
+    def path_dx():           # #6 as the train path runs it
+        return ffn.swiglu_ffn_bwd_dx(x, wg, wu, wd, dy)
+
+    def grads():             # its gradient kernel alone
+        return ffn.swiglu_ffn_bwd_grads(x, wg, wu, wd, dy)
+
+    # #6's work on the path: g, u, dh and dx (five products), reading x,
+    # the weights and dy, writing dx and the dg, du, h pairs that #7 reads
+    b_ms, b_by = bound(nbytes(x, wg, wu, wd, dy, x, *pairs),
+                       5 * 2 * N * D * Fd, "bfloat16")
+    out[ffn.NAME_BWD_DX] = dict(
+        shape=f"{shape}; the gradient kernel (dg, du, h bf16 (hi, lo) pairs "
+              f"[2,{N},{Fd}]) and the dx kernel over the hi planes",
+        **grad_errs(errs, 0),
+        ms=timer.ms(path_dx), device_ms=timer.device_ms(path_dx),
+        host_us=timer.host_us(path_dx),
+        grad_ms=timer.ms(grads), grad_device_ms=timer.device_ms(grads),
+        ms_f32=timer.ms(lambda: ffn.swiglu_ffn_bwd_dx(*base)),
+        plain_ms=timer.ms(lambda: ref.ref_swiglu_ffn_bwd(x, wg, wu, wd, dy)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer.ms(lib_dx),
+        library_device_ms=timer.device_ms(lib_dx),
+        plain="ref_swiglu_ffn_bwd (dx, dWg, dWu, dWd in one call)",
+        library="five torch.matmul (g, u, dh recomputed; dg·Wgᵀ + du·Wuᵀ) "
+                "+ the gate's elementwise ops",
+        flops_counted="5 products of 2·N·D·F; bytes with the pairs written")
+    # #7's function: xᵀ·dg, xᵀ·du, hᵀ·dy (three products) reading x, dy and
+    # dg, du, h once each in bf16, writing the three grads.  The pair
+    # design runs six (hi and lo parts) over the pairs; the TPU kernel
+    # recomputed g, u, dh (six products over x, dy and the weights).
+    grads_out = nbytes(wg, wu, wd)
+    b_ms, b_by = bound(nbytes(x, dy, *hi) + grads_out, 3 * 2 * N * D * Fd,
+                       "bfloat16")
+    pair_ms, _ = bound(nbytes(x, dy, *pairs) + grads_out, 6 * 2 * N * D * Fd,
+                       "bfloat16")
+    tpu_ms, _ = bound(nbytes(x, wg, wu, wd, dy) + grads_out,
+                      6 * 2 * N * D * Fd, "bfloat16")
+
+    def dw():
+        return ffn.swiglu_ffn_bwd_dw_tc(x, dy, *pairs)
+
+    def bwd():
+        return ffn.swiglu_ffn_bwd(x, wg, wu, wd, dy)
+    out[ffn.NAME_BWD_DW] = dict(
+        shape=f"{shape}; the dW kernel alone over dg, du, h bf16 (hi, lo) "
+              f"pairs [2,{N},{Fd}]",
+        **grad_errs(errs, 1), max_abs_err_alone=alone["err"],
+        rel_err_alone=alone["rel"],
+        ms=timer.ms(dw), device_ms=timer.device_ms(dw),
+        host_us=timer.host_us(dw),
+        ms_f32=timer.ms(lambda: ffn.swiglu_ffn_bwd_dw(*base)),
+        plain_ms=timer.ms(lambda: ref.ref_swiglu_ffn_bwd_dw(x, dy, *sums)),
+        bound_ms=b_ms, bound_by=b_by, bound_ms_pairs=pair_ms,
+        bound_ms_tpu_kernel=tpu_ms,
+        library_ms=timer.ms(lib_dw), library_device_ms=timer.device_ms(lib_dw),
+        plain="ref_swiglu_ffn_bwd_dw (three f32 matmul over the pairs' sums)",
+        library="three torch.matmul over the pairs' hi parts (xᵀ·dg, "
+                "xᵀ·du, hᵀ·dy)",
+        flops_counted="3 products of 2·N·D·F (bound_ms); the pairs' 6 "
+                      "(bound_ms_pairs); the TPU kernel's 6 "
+                      "(bound_ms_tpu_kernel)",
+        backward_ms=timer.ms(bwd), backward_device_ms=timer.device_ms(bwd),
+        backward_library_ms=timer.ms(lib_bwd),
+        backward_library_device_ms=timer.device_ms(lib_bwd),
+        backward="#6 + #7 (gradient, dx, dW kernels) against "
+                 "torch.autograd.grad through three matmul + silu")
     return out
 
 
@@ -1078,14 +1200,17 @@ def train_phase(torch, gpu: str) -> tuple[str, dict]:
 # the train path's shapes, also runs)
 FFN_FWD_KERNELS = ("ffn_fwd_kernel", "ffn_gate_up_tc_kernel",
                    "ffn_down_tc_kernel", "ffn_reduce_kernel")
+# #1: bf16 at head dims 64 and 128 on the tensor cores, else SIMT
+FLASH_FWD_KERNELS = ("flash_fwd_kernel", "flash_fwd_tc_kernel")
 PROFILE_GROUPS = (
-    ("flash_attention (fwd)", ("flash_fwd_kernel",)),
+    ("flash_attention (fwd)", FLASH_FWD_KERNELS),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("fused_ffn (fwd)", FFN_FWD_KERNELS),
     ("fused_ffn_bwd_dx", ("ffn_bwd_dx_kernel", "ffn_bwd_grad_tc_kernel",
                           "ffn_bwd_dx_tc_kernel")),
-    ("fused_ffn_bwd_dw", ("ffn_bwd_dw_kernel", "ffn_dw_reduce_kernel")),
+    ("fused_ffn_bwd_dw", ("ffn_bwd_dw_kernel", "ffn_bwd_dw_tc_kernel",
+                          "ffn_dw_reduce_kernel")),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
 )
 
@@ -1106,27 +1231,35 @@ def device_events(prof) -> tuple[dict, int]:
 
 def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
     """``torch.profiler`` over ``steps`` bf16 train
-    steps (exanode-100m, batch 8 x 512, after one warm-up step): the
-    device time of each kernel group per step, its share of the device
-    time, and the device's idle share of the window (1 - device time /
-    host wall time; one stream, so kernels do not overlap).  Device time
-    sums the trace's device events (kernels, copies, sets) but its user
-    annotations: a trace may hold device-side copies of those (the
-    autograd Functions' names), which span the kernels they enclose and
-    would count them twice.  A device time above the wall time raises."""
+    steps (exanode-100m, batch 8 x 512, after one warm-up step and
+    ``steps`` unprofiled ones): the device time of each kernel group per
+    step, its share of the device time, the device's idle share (1 -
+    device time / the unprofiled steps' host wall time, as the other
+    profiles take it; one stream, so kernels do not overlap) and the host
+    ops that take most of the profiled steps' CPU time (self time, which
+    the profiler inflates).  Device time sums the trace's device events
+    (kernels, copies, sets) but its user annotations: a trace may hold
+    device-side copies of those (the autograd Functions' names), which
+    span the kernels they enclose and would count them twice.  A device
+    time above the profiled wall time raises."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
     from repro_torch.runtime import Runtime
     rt = Runtime.create("exanode-100m", shape_kind="train", seq_len=512)
     dcfg = DataConfig(rt.cfg.vocab_size, 512, 8)
     batches = [to_device(synthetic_batch(dcfg, i), "cuda")
-               for i in range(steps + 1)]
+               for i in range(2 * steps + 1)]
     state, _ = rt.train_step(rt.init_train_state(), batches[0])
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:steps + 1]:
+        state, _ = rt.train_step(state, b)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches[1:]:
+        for b in batches[steps + 1:]:
             state, _ = rt.train_step(state, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1151,11 +1284,16 @@ def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
                      if any(x in key for x in subs)), "other")
         groups[name] += us
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return (f"train_profile: exanode-100m bf16 batch 8 x 512, {steps} "
-            f"steps after one warm-up: wall {wall / steps * 1e3:.1f} ms a "
-            f"step, device time {total / steps / 1e3:.1f} ms a step,"
-            f" idle share {1 - total / 1e6 / wall:.4f} (device-side "
+            f"steps after one warm-up: wall {plain_wall / steps * 1e3:.1f} "
+            f"ms a step unprofiled ({wall / steps * 1e3:.1f} profiled), "
+            f"device time {total / steps / 1e3:.1f} ms a step, idle share "
+            f"{1 - total / 1e6 / plain_wall:.4f} (device-side "
             f"annotations left out: {notes / steps / 1e3:.1f} ms a step); "
+            f"host self CPU a profiled step: " + "; ".join(
+                f"{e.key[:40]} {e.self_cpu_time_total / steps / 1e3:.2f} ms "
+                f"({e.count // steps} calls)" for e in host[:6]) + "; "
             f"per step "
             f"by group: " + "; ".join(
                 f"{n} {us / steps / 1e3:.2f} ms ({us / total:.4f})"
@@ -1217,7 +1355,7 @@ def profile_windows(torch, runs: dict, kernel_groups, what: str) -> list:
 JAMBA_PROFILE_GROUPS = (
     ("ssm_scan", ("ssm_scan_kernel",)),
     ("fused_ffn", FFN_FWD_KERNELS),
-    ("flash_attention", ("flash_fwd_kernel",)),
+    ("flash_attention", FLASH_FWD_KERNELS),
     ("decode_attention", ("decode_kernel",)),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
 )
@@ -2040,6 +2178,7 @@ def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
 
 SCHED_PROFILE_GROUPS = (
     ("fused_ffn", FFN_FWD_KERNELS),
+    ("flash_attention", FLASH_FWD_KERNELS),   # not on the chunk path
     ("decode attention", ("decode_kernel", "paged_kernel")),
     ("int8 kernels", ("quantize_rows_kernel", "dequantize_rows_kernel",
                       "block_write_kernel")),
@@ -2169,6 +2308,11 @@ def main() -> int:
     entries = {}
     if "kernels" in phases:
         entries = kernels_phase(torch, Timer(torch, args.iters))
+
+        def wide(e):
+            return (f"{e['ms']:.3f} ms (f32 {e['ms_f32']:.3f}, plain "
+                    f"{e['plain_ms']:.3f}, library {e['library_ms']:.3f}, "
+                    f"bound {e['bound_ms']:.4f} {e['bound_by']})")
         print("kernels: " + "; ".join(
             f"{n} {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
             + ("none" if e["library_ms"] is None
@@ -2176,12 +2320,10 @@ def main() -> int:
             + f", bound {e['bound_ms']:.4f} "
             f"{e['bound_by']}) err {e['max_abs_err']:.3g}"
             for n, e in entries.items()) + "; fused_ffn at jamba width "
-            + "; ".join(f"{n} {e['ms']:.3f} ms (f32 {e['ms_f32']:.3f}, "
-                        f"plain {e['plain_ms']:.3f}, "
-                        f"library {e['library_ms']:.3f}, bound "
-                        f"{e['bound_ms']:.4f} {e['bound_by']})"
-                        for n, e in entries["fused_ffn"]["jamba_width"]
-                        .items())
+            + "; ".join(f"{n} {wide(e)}" for n, e in
+                        entries["fused_ffn"]["jamba_width"].items())
+            + "; flash_attention at jamba width "
+            + wide(entries["flash_attention"]["jamba_width"])
             + f"; tolerances {TOL} [{gpu}]", flush=True)
     if "model" in phases:
         print(model_phase(torch), flush=True)

@@ -10,44 +10,59 @@
 //
 // What bounds it on this card: at training row counts the products are
 // O(N*D*F) operations against O((N+F)*D) bytes, so both are bound by
-// operations (five [N,D]x[D,F]-sized products for dX, six for the weight
-// grads), which only the tensor cores (wgmma, 989 TFLOP/s in bf16 against
-// 67 TFLOP/s of f32 FMAs) come near.
+// operations (five [N,D]x[D,F]-sized products for dX, three for the weight
+// grads once dg, du and h are at hand, run over both parts of their bf16
+// pairs), which only the tensor cores
+// (wgmma, 989 TFLOP/s in bf16 against 67 TFLOP/s of f32 FMAs) come near.
 //
-// What the design does about it:
-// * dX in bf16, the training dtype: two launches over the tensor-core
-//   mainloop of gemm_sm90.cuh (TMA ring, wgmma, f32 accumulators in
-//   registers).  (a) ffn_bwd_grad_tc_kernel: a [BM, 64] tile of F, three
-//   products over K = D, g = x·Wg and u = x·Wu from one x tile and
-//   dh = dy·Wdᵀ (Wd read K-major, as it lies); the epilogue computes dg and
-//   du in f32 and stores them, rounded once to bf16, into two row-major
-//   [N, F] scratch tensors (the layout the dW products read).  (b)
-//   ffn_bwd_dx_tc_kernel: dX = dg·Wgᵀ + du·Wuᵀ as one product over
-//   K = 2F, both pairs accumulated in the same registers; when its output
-//   tiles alone would leave SMs idle, K is split across blocks whose f32
-//   partials ffn_reduce_kernel adds in split order.  The TPU kernel
-//   recomputed (g, u, dh) per F tile and carried an f32 [br, D]
-//   accumulator across the F grid; at d_model 4096 that accumulator alone
-//   is past a block's shared memory, so dg and du make one round trip
-//   through device memory instead (4·N·F bytes against 10·N·D·F
-//   operations).
-// * dX in f32 stays on the first SIMT version (ffn_bwd_dx_kernel), kept for
-//   the f32 parity checks: one block owns BR rows, staged once in shared
+// What the design does about it, in bf16 (the training dtype): three
+// launches over the tensor-core mainloop of gemm_sm90.cuh (TMA ring, wgmma,
+// f32 accumulators in registers).
+// (a) ffn_bwd_grad_tc_kernel: a [BM, 64] tile of F, three products over
+//     K = D, g = x·Wg and u = x·Wu from one x tile and dh = dy·Wdᵀ (Wd read
+//     K-major, as it lies); the epilogue computes dg, du and h = silu(g)·u
+//     in f32 and stores them into row-major [N, F] scratch (the layout the
+//     other two kernels read): dg and du rounded once to bf16 for dx; for
+//     the weight grads, dg, du and h each as a bf16 pair (hi = the value
+//     rounded to bf16, lo = the rest rounded to bf16, ~16 significant
+//     bits), since with one rounding the N-term dW sums drift ~2^-9 of
+//     their RMS from the f32 result, past the reference's elementwise
+//     bound on their small entries.
+// (b) ffn_bwd_dx_tc_kernel: dX = dg·Wgᵀ + du·Wuᵀ as one product over
+//     K = 2F, both pairs accumulated in the same registers; when its output
+//     tiles alone would leave SMs idle, K is split across blocks whose f32
+//     partials ffn_reduce_kernel adds in split order.
+// (c) ffn_bwd_dw_tc_kernel: a [BM, 64] tile of [D, F], three products over
+//     K = 2N rows (the hi rows, then the lo rows, as two segments of K):
+//     dWg = xᵀ·dg and dWu = xᵀ·du from one xᵀ tile, and dWdᵀ = dyᵀ·h,
+//     stored transposed into dWd [F, D].  xᵀ and dyᵀ are row-major [N, D]
+//     tensors read with K = N, i.e. MN-major A operands, which wgmma reads
+//     from shared memory with its transpose bit; dg, du and h are MN-major
+//     B.  With few output tiles (small D and F) the rows
+//     are split across blocks whose f32 partials ffn_dw_reduce_kernel adds
+//     in split order (deterministic, no atomics).
+// The TPU kernels recomputed (g, u, dh) per F tile (dx) and per row tile
+// (dW) and carried f32 accumulators in VMEM across the grid; at d_model
+// 4096 such an accumulator alone is past a block's shared memory, so dg,
+// du and h make one round trip through device memory instead (12·N·F bytes
+// written, 16·N·F read, against 22·N·D·F operations).
+//
+// f32 stays on the first SIMT versions, kept for the f32 parity checks.
+// * dX (ffn_bwd_dx_kernel): one block owns BR rows, staged once in shared
 //   memory as f32, and walks F in 32-wide tiles: each lane one F column,
 //   each warp BR/8 rows, it recomputes g, u and dh for the tile, parks dg
 //   and du in shared memory and folds dg·Wgᵀ + du·Wuᵀ into an f32 [BR,D]
 //   accumulator in shared memory.
-// * dW (both dtypes, SIMT f32 FMAs): one block owns a BF-wide tile of F
+// * dW (ffn_bwd_dw_kernel, f32 FMAs): one block owns a BF-wide tile of F
 //   (BF <= 16, chosen so the three f32 weight-gradient tiles [D,BF],
 //   [D,BF], [BF,D] fit in shared memory) and a range of rows, walked in
 //   chunks: for each chunk it recomputes the (h, dg, du) tile into shared
 //   memory (each thread one F column of two rows), then each thread takes
 //   D columns and adds the chunk's xᵀ·dg, xᵀ·du and hᵀ·dy for them in
-//   registers before adding them to the shared accumulators.  The TPU grid
-//   walked the rows in order with VMEM accumulators.  When the F tiles
-//   alone would leave SMs idle, the rows are split across blocks that
-//   write f32 partials to a [splits, 3, D*F] workspace, and a second small
-//   kernel adds the splits in order (deterministic, no atomics).
+//   registers before adding them to the shared accumulators.  When the F
+//   tiles alone would leave SMs idle, the rows are split across blocks
+//   that write f32 partials to a [splits, 3, D*F] workspace, added in
+//   order by ffn_dw_reduce_kernel.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
@@ -386,28 +401,66 @@ cudaError_t dispatch_dw(int bf, const void* x, const void* wg, const void* wu,
   return cudaErrorInvalidValue;
 }
 
-// -- bf16 dX on the tensor cores ---------------------------------------------
+// -- bf16 on the tensor cores ------------------------------------------------
 
-// (a) dg, du bf16 [N, F] in out0, out1 from g = x·Wg, u = x·Wu, dh = dy·Wdᵀ.
+// (a) from g = x·Wg, u = x·Wu, dh = dy·Wdᵀ: dg, du and h as bf16 (hi, lo)
+// pairs [2, N, F] in out0, out1, out2 (hi = the f32 value rounded to bf16,
+// lo = the rest rounded to bf16).  A warpgroup stages its six [64, BN]
+// planes in shared memory (the mainloop's stages, free once every
+// consumer warpgroup is past its last wgmma), rows kPitch apart so that
+// the accumulator layout's 4-byte writes hit 32 banks, then stores whole
+// rows in 16-byte pieces: straight from the accumulator layout, each
+// store instruction would write 4 bytes into each of 8 rows.
 struct Grad {
   static constexpr int NA = 2, NP = 3, NSEG = 1;
+  template <int BN>
+  static constexpr int kPitch = BN + 8;  // bf16 a staged row
+  template <int BN>
+  static constexpr int kStagedBytes = 6 * 64 * kPitch<BN> * 2;  // a warpgroup
   __host__ __device__ static constexpr int a_of(int q) { return q == 2; }
   __host__ __device__ static constexpr bool mn_major(int q) { return q < 2; }
   template <int BN>
   __device__ static void epilogue(const tc::Params& p,
                                   float (&acc)[3][BN / 2], int row0,
                                   int col0, int) {
-    tc::for_each_pair<BN>(row0, col0, [&](int i, int r, int c) {
-      if (r >= p.M || c >= p.ncols) return;
-      float h, dg[2], du[2];
+    constexpr int P = kPitch<BN>, kPlane = 64 * P, kChunks = BN / 8;
+    const int wg = threadIdx.x / 128;
+    auto* st = reinterpret_cast<__nv_bfloat16*>(tc::stage_memory()) +
+               wg * 6 * kPlane;
+    tc::bar_sync(1, blockDim.x - 32);  // every consumer's wgmma is done
+    tc::for_each_pair<BN>(0, 0, [&](int i, int r, int c) {
+      float v[3][2];  // dg, du, h
 #pragma unroll
       for (int e = 0; e < 2; ++e)
-        swiglu_grads(acc[0][i + e], acc[1][i + e], acc[2][i + e], &h,
-                     &dg[e], &du[e]);
-      const int64_t at = static_cast<int64_t>(r) * p.ncols + c;
-      tc::store_bf16x2(p.out0, at, dg[0], dg[1]);
-      tc::store_bf16x2(p.out1, at, du[0], du[1]);
+        swiglu_grads(acc[0][i + e], acc[1][i + e], acc[2][i + e], &v[2][e],
+                     &v[0][e], &v[1][e]);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[q][0], v[q][1]);
+        const float2 hf = __bfloat1622float2(hi);
+        auto* at = st + 2 * q * kPlane + r * P + c;
+        *reinterpret_cast<__nv_bfloat162*>(at) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(at + kPlane) =
+            __floats2bfloat162_rn(v[q][0] - hf.x, v[q][1] - hf.y);
+      }
     });
+    tc::bar_sync(2 + wg, 128);  // the warpgroup's planes are staged
+    const int64_t plane = static_cast<int64_t>(p.M) * p.ncols;
+#pragma unroll
+    for (int pl = 0; pl < 6; ++pl) {
+      auto* out = static_cast<__nv_bfloat16*>(
+                      pl < 2 ? p.out0 : (pl < 4 ? p.out1 : p.out2)) +
+                  (pl % 2) * plane;
+      for (int k = threadIdx.x % 128; k < 64 * kChunks; k += 128) {
+        const int r = k / kChunks, gr = row0 + r,
+                  gc = col0 + 8 * (k % kChunks);
+        if (gr >= p.M || gc >= p.ncols) continue;  // F % 8 == 0
+        *reinterpret_cast<uint4*>(out + static_cast<int64_t>(gr) * p.ncols +
+                                  gc) =
+            *reinterpret_cast<const uint4*>(st + pl * kPlane + r * P +
+                                            8 * (k % kChunks));
+      }
+    }
   }
 };
 using Dx = tc::Linear<2>;  // (b) dX = [dg | du]·[Wg | Wu]ᵀ over K = 2F
@@ -417,6 +470,10 @@ template <int CW>
 __global__ void __launch_bounds__(tc::Cfg<Grad, CW, kGradBN>::kThreads,
                       tc::Cfg<Grad, CW, kGradBN>::kBlocksPerSM)
 ffn_bwd_grad_tc_kernel(const __grid_constant__ tc::Params p) {
+  using C = tc::Cfg<Grad, CW, kGradBN>;
+  static_assert(CW * Grad::kStagedBytes<kGradBN> <=
+                    C::kStages * C::kStageBytes,
+                "the staged pairs do not fit the mainloop's stages");
   tc::run<Grad, CW, kGradBN>(p);
 }
 
@@ -427,15 +484,63 @@ ffn_bwd_dx_tc_kernel(const __grid_constant__ tc::Params p) {
   tc::run<Dx, CW, 128>(p);
 }
 
+// (c) dWg, dWu bf16 [D, F] in out0, out1 and dWd bf16 [F, D] in out2, from
+// xᵀ·dg, xᵀ·du and dyᵀ·h over K = N rows of the hi planes (segment 0) and
+// N rows of the lo planes (segment 1): a [BM, 64] tile of [D, F] (M = D,
+// ncols = F).  With K split, split z's f32 partials go to ws[z] as
+// [3][D*F], the third in dWd's [F, D] order, for ffn_dw_reduce_kernel.
+struct Dw {
+  static constexpr int NA = 2, NP = 3, NSEG = 2;
+  static constexpr bool kAMnMajor = true;
+  __host__ __device__ static constexpr int a_of(int q) { return q == 2; }
+  __host__ __device__ static constexpr bool mn_major(int) { return true; }
+  template <int BN>
+  __device__ static void epilogue(const tc::Params& p,
+                                  float (&acc)[3][BN / 2], int row0,
+                                  int col0, int split) {
+    const int64_t MN = static_cast<int64_t>(p.M) * p.ncols;
+    const bool partial = gridDim.z > 1;
+    float* ws = p.ws + static_cast<int64_t>(split) * 3 * MN;
+    tc::for_each_pair<BN>(row0, col0, [&](int i, int r, int c) {
+      if (r >= p.M || c >= p.ncols) return;  // c + 1 < ncols: F % 8 == 0
+      const int64_t at = static_cast<int64_t>(r) * p.ncols + c;
+      const int64_t t0 = static_cast<int64_t>(c) * p.M + r, t1 = t0 + p.M;
+      if (partial) {
+        *reinterpret_cast<float2*>(ws + at) =
+            make_float2(acc[0][i], acc[0][i + 1]);
+        *reinterpret_cast<float2*>(ws + MN + at) =
+            make_float2(acc[1][i], acc[1][i + 1]);
+        ws[2 * MN + t0] = acc[2][i];
+        ws[2 * MN + t1] = acc[2][i + 1];
+      } else {
+        tc::store_bf16x2(p.out0, at, acc[0][i], acc[0][i + 1]);
+        tc::store_bf16x2(p.out1, at, acc[1][i], acc[1][i + 1]);
+        auto* dwd = static_cast<__nv_bfloat16*>(p.out2);
+        dwd[t0] = __float2bfloat16(acc[2][i]);
+        dwd[t1] = __float2bfloat16(acc[2][i + 1]);
+      }
+    });
+  }
+};
+constexpr int kDwBN = 64;  // three accumulators of 64 columns
+
 template <int CW>
-cudaError_t launch_dx_tc(const void* x, const void* wg, const void* wu,
-                         const void* wd, const void* dy, void* dg, void* du,
-                         void* dx, float* ws, int N, int D, int F, int splits,
-                         int kt_split, cudaStream_t stream) {
+__global__ void __launch_bounds__(tc::Cfg<Dw, CW, kDwBN>::kThreads,
+                      tc::Cfg<Dw, CW, kDwBN>::kBlocksPerSM)
+ffn_bwd_dw_tc_kernel(const __grid_constant__ tc::Params p) {
+  tc::run<Dw, CW, kDwBN>(p);
+}
+
+template <int CW>
+cudaError_t launch_grad_tc(const void* x, const void* wg, const void* wu,
+                           const void* wd, const void* dy, void* dg,
+                           void* du, void* h, int N, int D, int F,
+                           cudaStream_t stream) {
   cudaError_t err;
   tc::Params p{};
   p.out0 = dg;
   p.out1 = du;
+  p.out2 = h;
   p.M = N;
   p.ncols = F;
   p.kt_seg = (D + tc::kBK - 1) / tc::kBK;
@@ -449,10 +554,16 @@ cudaError_t launch_dx_tc(const void* x, const void* wg, const void* wu,
   // Wd [F, D] is dh's B read K-major: [N = F, K = D]
   if ((err = tc::map_b<kGradBN>(&p.b[0][2], wd, false, D, F)) != cudaSuccess)
     return err;
-  err = tc::launch<Grad, CW, kGradBN>(ffn_bwd_grad_tc_kernel<CW>, p, 1,
-                                      stream);
-  if (err != cudaSuccess) return err;
+  return tc::launch<Grad, CW, kGradBN>(ffn_bwd_grad_tc_kernel<CW>, p, 1,
+                                       stream);
+}
 
+template <int CW>
+cudaError_t launch_dx_tc(const void* wg, const void* wu, const void* dg,
+                         const void* du, void* dx, float* ws, int N, int D,
+                         int F, int splits, int kt_split,
+                         cudaStream_t stream) {
+  cudaError_t err;
   tc::Params q{};
   q.out0 = dx;
   q.ws = ws;
@@ -473,6 +584,48 @@ cudaError_t launch_dx_tc(const void* x, const void* wg, const void* wu,
                                       stream);
 }
 
+template <int CW>
+cudaError_t launch_dw_tc(const void* x, const void* dy, const void* dg,
+                         const void* du, const void* h, void* dwg, void* dwu,
+                         void* dwd, float* ws, int N, int D, int F,
+                         int splits, int kt_split, cudaStream_t stream) {
+  cudaError_t err;
+  tc::Params p{};
+  p.out0 = dwg;
+  p.out1 = dwu;
+  p.out2 = dwd;
+  p.ws = ws;
+  p.M = D;
+  p.ncols = F;
+  p.kt_seg = (N + tc::kBK - 1) / tc::kBK;
+  p.kt_split = kt_split;
+  const int64_t plane = (int64_t)N * F;
+  const void* bs[3] = {dg, du, h};
+  for (int seg = 0; seg < 2; ++seg) {
+    // A: xᵀ and dyᵀ, the row-major [N, D] tensors read MN-major
+    if ((err = tc::map_a<CW>(&p.a[seg][0], x, D, N, true)) != cudaSuccess)
+      return err;
+    if ((err = tc::map_a<CW>(&p.a[seg][1], dy, D, N, true)) != cudaSuccess)
+      return err;
+    // B: plane seg (hi, lo) of the dg, du, h pairs, [N, F] MN-major
+    for (int q = 0; q < 3; ++q)
+      if ((err = tc::map_b<kDwBN>(
+               &p.b[seg][q],
+               static_cast<const __nv_bfloat16*>(bs[q]) + seg * plane, true,
+               N, F)) != cudaSuccess)
+        return err;
+  }
+  err = tc::launch<Dw, CW, kDwBN>(ffn_bwd_dw_tc_kernel<CW>, p, splits,
+                                  stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t DF = (int64_t)D * F;
+  const int blocks = (int)std::min<int64_t>((3 * DF + 255) / 256, 2048);
+  ffn_dw_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
+      ws, static_cast<__nv_bfloat16*>(dwg), static_cast<__nv_bfloat16*>(dwu),
+      static_cast<__nv_bfloat16*>(dwd), DF, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // f32 (SIMT): x, dy, dx [N,D]; wg/wu [D,F]; wd [F,D]; all contiguous.  br
@@ -485,42 +638,73 @@ extern "C" int repro_swiglu_ffn_bwd_dx(const void* x, const void* wg,
                             static_cast<cudaStream_t>(stream));
 }
 
-// bf16 (tensor cores): as above, with dg, du [N,F] bf16 scratch and, when
-// splits > 1, ws [splits,N,D] f32.  cw consumer warpgroups a block (64
-// rows each); the dx kernel's K (2F, in 64-deep tiles, F's tiles for dg
-// then for du) split into `splits` ranges of kt_split tiles.  All pointers
-// 16-byte aligned, D and F multiples of 8.
-extern "C" int repro_swiglu_ffn_bwd_dx_tc(const void* x, const void* wg,
-                                          const void* wu, const void* wd,
-                                          const void* dy, void* dg, void* du,
+// bf16 (tensor cores), (a): x, dy [N,D]; wg/wu [D,F]; wd [F,D] -> dg, du,
+// h bf16 (hi, lo) pairs [2,N,F].  cw consumer warpgroups a block (64 rows
+// each).  All pointers 16-byte aligned, D and F multiples of 8.
+extern "C" int repro_swiglu_ffn_bwd_grad_tc(const void* x, const void* wg,
+                                            const void* wu, const void* wd,
+                                            const void* dy, void* dg,
+                                            void* du, void* h, int N, int D,
+                                            int F, int cw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cw == 1)
+    return launch_grad_tc<1>(x, wg, wu, wd, dy, dg, du, h, N, D, F, s);
+  if (cw == 2)
+    return launch_grad_tc<2>(x, wg, wu, wd, dy, dg, du, h, N, D, F, s);
+  return cudaErrorInvalidValue;
+}
+
+// bf16, (b): dx [N,D] from dg, du [N,F] (the pairs' hi planes) and wg/wu
+// [D,F]; the dx kernel's K (2F, in 64-deep tiles, F's tiles for dg then
+// for du) split into `splits` ranges of kt_split tiles, with ws
+// [splits,N,D] f32 when splits > 1.
+extern "C" int repro_swiglu_ffn_bwd_dx_tc(const void* wg, const void* wu,
+                                          const void* dg, const void* du,
                                           void* dx, float* ws, int N, int D,
                                           int F, int cw, int splits,
                                           int kt_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cw == 1)
-    return launch_dx_tc<1>(x, wg, wu, wd, dy, dg, du, dx, ws, N, D, F, splits,
-                           kt_split, s);
+    return launch_dx_tc<1>(wg, wu, dg, du, dx, ws, N, D, F, splits, kt_split,
+                           s);
   if (cw == 2)
-    return launch_dx_tc<2>(x, wg, wu, wd, dy, dg, du, dx, ws, N, D, F, splits,
-                           kt_split, s);
+    return launch_dx_tc<2>(wg, wu, dg, du, dx, ws, N, D, F, splits, kt_split,
+                           s);
   return cudaErrorInvalidValue;
 }
 
-// dwg/dwu [D,F], dwd [F,D], contiguous; bf the F tile (1-16, a power of
-// two); rows_per_split a multiple of the chunk 512/bf; ws f32
+// bf16, (c): dwg/dwu [D,F] and dwd [F,D] from x, dy [N,D] and the dg, du,
+// h pairs [2,N,F]; cw consumer warpgroups a block (64 rows of D each);
+// K (2N: the hi rows' 64-row tiles, then the lo rows') split into
+// `splits` ranges of kt_split tiles, with ws [splits,3,D*F] f32 when
+// splits > 1.
+extern "C" int repro_swiglu_ffn_bwd_dw_tc(const void* x, const void* dy,
+                                          const void* dg, const void* du,
+                                          const void* h, void* dwg,
+                                          void* dwu, void* dwd, float* ws,
+                                          int N, int D, int F, int cw,
+                                          int splits, int kt_split,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cw == 1)
+    return launch_dw_tc<1>(x, dy, dg, du, h, dwg, dwu, dwd, ws, N, D, F,
+                           splits, kt_split, s);
+  if (cw == 2)
+    return launch_dw_tc<2>(x, dy, dg, du, h, dwg, dwu, dwd, ws, N, D, F,
+                           splits, kt_split, s);
+  return cudaErrorInvalidValue;
+}
+
+// f32 (SIMT): dwg/dwu [D,F], dwd [F,D], contiguous; bf the F tile (1-16, a
+// power of two); rows_per_split a multiple of the chunk 512/bf; ws f32
 // [splits, 3, D*F] (unused when splits == 1).
 extern "C" int repro_swiglu_ffn_bwd_dw(const void* x, const void* wg,
                                        const void* wu, const void* wd,
                                        const void* dy, void* dwg, void* dwu,
                                        void* dwd, float* ws, int N, int D,
                                        int F, int bf, int rows_per_split,
-                                       int splits, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return dispatch_dw<float>(bf, x, wg, wu, wd, dy, dwg, dwu, dwd, ws, N, D,
-                              F, rows_per_split, splits, s);
-  if (dtype == kBF16)
-    return dispatch_dw<__nv_bfloat16>(bf, x, wg, wu, wd, dy, dwg, dwu, dwd,
-                                      ws, N, D, F, rows_per_split, splits, s);
-  return cudaErrorInvalidValue;
+                                       int splits, void* stream) {
+  return dispatch_dw<float>(bf, x, wg, wu, wd, dy, dwg, dwu, dwd, ws, N, D, F,
+                            rows_per_split, splits,
+                            static_cast<cudaStream_t>(stream));
 }

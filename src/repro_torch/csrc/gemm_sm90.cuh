@@ -2,7 +2,9 @@
 // the fused SwiGLU FFN (csrc/fused_ffn.cu, csrc/fused_ffn_bwd.cu).
 //
 // One block owns a [BM, BN] output tile (BM = 64 rows per consumer
-// warpgroup, one or two of them) and walks K in 64-deep tiles.  A producer
+// warpgroup, one or two of them) and walks K in 64-deep tiles.  The flash
+// attention forward (csrc/flash_attention.cu) uses its device helpers and
+// the register-A form of wgmma below.  A producer
 // warp keeps a ring of kStages stages in shared memory filled with TMA
 // loads (cp.async.bulk.tensor, 128-byte swizzle, completion counted in
 // bytes on one mbarrier per stage); the consumer warpgroups run
@@ -13,8 +15,10 @@
 // thread up to 224 registers without setmaxnreg (160 threads, two blocks
 // an SM: 204).
 //
-// A stage holds NA A tiles [BM, 64] (row-major operands read K-major) and
-// NP B tiles, one per product: product q accumulates A[a_of(q)]·B[q] into
+// A stage holds NA A tiles [BM, 64] (row-major operands read K-major, or,
+// for a Kind with kAMnMajor, the transpose of a row-major [K, M] operand:
+// xᵀ and dyᵀ in the weight gradients, loaded as BM/64 boxes of [64 k][64 m]
+// and read by wgmma with its transpose-A bit) and NP B tiles, one per product: product q accumulates A[a_of(q)]·B[q] into
 // its own registers, so products that share A (x·Wg and x·Wu) read their A
 // tile once.  A B operand is MN-major (a row-major [K, N] weight read as it
 // is: Wg, Wu, Wd in the forward), loaded as BN/64 boxes of [64 k][64 n],
@@ -47,10 +51,21 @@ struct Params {
   CUtensorMap b[2][3];  // [segment][product]
   void* out0;
   void* out1;
+  void* out2;
   float* ws;            // [splits, M, ncols] f32 partials (split K only)
   int M, ncols;         // output rows, columns (= its row stride)
   int kt_seg;           // 64-deep K tiles per segment
   int kt_split;         // K tiles per split
+};
+
+// K::kAMnMajor where a Kind defines it, else false (A read K-major).
+template <class K, class = void>
+struct AMnMajor {
+  static constexpr bool value = false;
+};
+template <class K>
+struct AMnMajor<K, decltype(void(K::kAMnMajor))> {
+  static constexpr bool value = K::kAMnMajor;
 };
 
 // One consumer warpgroup (64-row tiles: decode, small N) runs two blocks
@@ -121,6 +136,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 4-D TMA load of the box at (c0 innermost .. c3) into shared memory.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, each in 16-byte units.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
@@ -141,11 +169,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// D[64, n] += A[64, 16]·B[16, n]; A K-major, B K-major (TB 0) or MN-major
-// (TB 1), both from shared memory.
-template <int TB>
+// D[64, n] (+)= A[64, 16]·B[16, n], both from shared memory: A K-major
+// (TA 0) or MN-major (TA 1), B K-major (TB 0) or MN-major (TB 1); D is
+// overwritten where scale_d is 0.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
-                                          uint64_t b) {
+                                          uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -153,7 +182,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -161,12 +190,12 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-template <int TB>
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
-                                           uint64_t b) {
+                                           uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -178,7 +207,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -192,17 +221,74 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-template <int BN>
+// D[64, n] += A[64, 16]·B[16, n] with A in registers (four bf16 pairs a
+// thread, in the accumulator's layout: see for_each_pair) and B MN-major
+// from shared memory: the flash forward's P·V.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int BN, int TA = 0>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t a,
                                     uint64_t b, bool mn_major) {
   if constexpr (BN == 128) {
-    if (mn_major) wgmma_n128<1>(d, a, b); else wgmma_n128<0>(d, a, b);
+    if (mn_major) wgmma_n128<TA, 1>(d, a, b, 1);
+    else wgmma_n128<TA, 0>(d, a, b, 1);
   } else {
     static_assert(BN == 64, "BN is 64 or 128");
-    if (mn_major) wgmma_n64<1>(d, a, b); else wgmma_n64<0>(d, a, b);
+    if (mn_major) wgmma_n64<TA, 1>(d, a, b, 1);
+    else wgmma_n64<TA, 0>(d, a, b, 1);
   }
 }
 
@@ -219,6 +305,20 @@ __device__ __forceinline__ void for_each_pair(int row0, int col0, Fn fn) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) fn(4 * j + 2 * h, r + 8 * h, c + 8 * j);
   }
+}
+
+// The block's dynamic shared memory from its first 1024-byte boundary: the
+// stages of run(), which an epilogue may reuse once every consumer
+// warpgroup has passed a bar_sync over all of them.
+__device__ __forceinline__ uint8_t* stage_memory() {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t at = smem_u32(smem_raw);
+  return smem_raw + (((at + 1023u) & ~1023u) - at);
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void store_bf16x2(void* base, int64_t at, float a,
@@ -262,8 +362,16 @@ __device__ __forceinline__ void run(const Params& p) {
         const int seg = t / p.kt_seg, k0 = (t - seg * p.kt_seg) * kBK;
         const uint32_t st = base + s * C::kStageBytes;
 #pragma unroll
-        for (int i = 0; i < K::NA; ++i)
-          tma_load(st + i * C::kABytes, &p.a[seg][i], bar, k0, m0);
+        for (int i = 0; i < K::NA; ++i) {
+          if constexpr (AMnMajor<K>::value) {
+#pragma unroll
+            for (int j = 0; j < CW; ++j)
+              tma_load(st + i * C::kABytes + j * 64 * kBK * 2, &p.a[seg][i],
+                       bar, m0 + 64 * j, k0);
+          } else {
+            tma_load(st + i * C::kABytes, &p.a[seg][i], bar, k0, m0);
+          }
+        }
 #pragma unroll
         for (int q = 0; q < K::NP; ++q) {
           const uint32_t dst = st + K::NA * C::kABytes + q * C::kBBytes;
@@ -298,18 +406,21 @@ __device__ __forceinline__ void run(const Params& p) {
     for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
       for (int q = 0; q < K::NP; ++q) {
-        // A: rows of 128 bytes, 8-row groups 1024 bytes apart; k16 steps
-        // 32 bytes along the swizzled row
-        const uint64_t da = desc(st + K::a_of(q) * C::kABytes +
-                                     wg * 64 * kBK * 2 + kk * 32,
-                                 16, 1024);
+        // A K-major: rows of 128 bytes, 8-row groups 1024 bytes apart; k16
+        // steps 32 bytes along the swizzled row.  MN-major: the warpgroup's
+        // [64 k][64 m] box, k16 steps 16 rows = 2 KB, as MN-major B.
+        const uint32_t aq =
+            st + K::a_of(q) * C::kABytes + wg * 64 * kBK * 2;
+        const uint64_t da =
+            AMnMajor<K>::value ? desc(aq + kk * 16 * 128, 64 * kBK * 2, 1024)
+                               : desc(aq + kk * 32, 16, 1024);
         const uint32_t bq = st + K::NA * C::kABytes + q * C::kBBytes;
         // B MN-major: 64-wide n chunks 8 KB apart (LBO), 8-row k groups
         // 1024 bytes apart (SBO), k16 steps 16 rows = 2 KB; K-major as A
         const uint64_t db =
             K::mn_major(q) ? desc(bq + kk * 16 * 128, 64 * kBK * 2, 1024)
                            : desc(bq + kk * 32, 16, 1024);
-        mma<BN>(acc[q], da, db, K::mn_major(q));
+        mma<BN, AMnMajor<K>::value>(acc[q], da, db, K::mn_major(q));
       }
     }
     wgmma_commit();
@@ -398,10 +509,13 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A operand [M, K]: boxes of [BM rows, 64].
+// A operand [M, K]: boxes of [BM rows, 64]; or, MN-major, the transpose
+// of a row-major [K, M] tensor in [64 k, 64 m] boxes.
 template <int CW>
-cudaError_t map_a(CUtensorMap* map, const void* ptr, int M, int K) {
-  return make_map(map, ptr, M, K, 64 * CW);
+cudaError_t map_a(CUtensorMap* map, const void* ptr, int M, int K,
+                  bool mn_major = false) {
+  return mn_major ? make_map(map, ptr, K, M, kBK)
+                  : make_map(map, ptr, M, K, 64 * CW);
 }
 
 // B operand: MN-major [K, N] in [64 k, 64 n] boxes, or K-major [N, K] in

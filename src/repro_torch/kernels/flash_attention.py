@@ -3,15 +3,27 @@
 (backward: training).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:67``
-``_attn_kernel`` (reached through ``_forward:112``).  One CUDA block per
-(batch, head, 64-row q tile) streams 64-key K/V tiles through shared
-memory with an f32 online softmax, skips the tiles past the causal
-diagonal and before the sliding window, masks the ragged edges of any S
-and T, and emits ``out`` plus the f32 per-row ``lse`` (0 on rows with no
-attended key) that the training slice's backward will read.  K/V may have
-fewer heads than Q (q head h reads kv head ``h // (H // Hkv)``), so GQA
-needs no materialized repeat.  Any q/k/v strides are accepted as long as
-the head dim is contiguous; ``out`` takes q's memory layout.
+``_attn_kernel`` (reached through ``_forward:112``).  The route is chosen
+from the dtype and the head dim (:func:`route`), with no fallback:
+
+* bf16 at head dims 64 and 128 (every model path on the card) runs on the
+  tensor cores: one block per 64-row q tile, head and batch, two blocks an
+  SM, K/V tiles streamed by TMA through a shared-memory ring, S = Q·Kᵀ and
+  P·V on wgmma with the online softmax in registers and P cast to bf16 in
+  place.  Its TMA loads need every stride but the head dim's a multiple of
+  8 elements and 16-byte aligned tensors; another layout raises (it is
+  never copied).
+* f32 (the parity checks) and bf16 at head dims 16, 32 and 256 run the
+  first SIMT version: one block per (batch, head, 64-row q tile), 64-key
+  K/V tiles in shared memory, an f32 online softmax.
+
+Both skip the tiles past the causal diagonal and before the sliding
+window, mask the ragged edges of any S and T, and emit ``out`` plus the
+f32 per-row ``lse`` (0 on rows with no attended key) that the backward
+reads.  K/V may have fewer heads than Q (q head h reads kv head
+``h // (H // Hkv)``), so GQA needs no materialized repeat.  Strided q/k/v
+are taken as they are as long as the head dim is contiguous; ``out``
+takes q's memory layout.
 
 The backward (:func:`flash_attention_bwd`) replaces the TPU kernels
 ``repro/kernels/flash_attention.py:145`` ``_bwd_dq_kernel`` and ``:180``
@@ -40,11 +52,13 @@ NAME_BWD_DQ = "flash_attention_bwd_dq"
 NAME_BWD_DKV = "flash_attention_bwd_dkv"
 BWD_LIB = "flash_attention_bwd"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128)            # bf16 on the tensor cores
 BWD_HEAD_DIMS = (16, 32, 64, 128)   # the backward's f32 tiles in smem
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
-"""Kernel launches since the last ``ops.reset_launch_counts()``."""
+"""Forward kernel launches (either route) since the last
+``ops.reset_launch_counts()``."""
 launches_dq = 0
 """Backward dq kernel launches (one per backward call)."""
 launches_dkv = 0
@@ -66,20 +80,46 @@ def _bwd_entries():
 
 
 @functools.cache
-def _entry():
-    fn = _build.library(NAME).repro_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _entries():
+    lib = _build.library(NAME)
+    simt, tc = lib.repro_flash_attention_fwd, lib.repro_flash_attention_fwd_tc
+    common = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+              + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int])
+    simt.argtypes = common + [ctypes.c_int, ctypes.c_void_p]
+    tc.argtypes = common + [ctypes.c_void_p]
+    simt.restype = tc.restype = ctypes.c_int
+    return simt, tc
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel for (dtype, head dim): ``"tc"`` (bf16 at head dims
+    64 and 128, on the tensor cores) or ``"simt"`` (f32; bf16 at the other
+    head dims)."""
+    return ("tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+            else "simt")
+
+
+def _tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """The (batch, head, row) element strides a TMA map of ``t`` takes:
+    each a multiple of 8 elements (16 bytes); a size-1 dim's stride is never
+    stepped, so it is taken as 8.  Raises on any other layout."""
+    out = tuple(st if n > 1 else 8 for n, st in zip(t.shape[:3],
+                                                     t.stride()[:3]))
+    if any(st % 8 for st in out) or t.data_ptr() % 16:
+        raise ValueError(
+            f"the tensor-core flash kernel's TMA loads need 16-byte aligned "
+            f"tensors and strides that are multiples of 8 elements; got "
+            f"strides {tuple(t.stride())} at offset {t.data_ptr() % 16} "
+            f"(copy the tensor to take it)")
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0):
     """q [B,H,S,D]; k/v [B,Hkv,T,D] (Hkv divides H) on one CUDA device, all
     f32 or all bf16 -> (out [B,H,S,D] in q's dtype and layout,
-    lse [B,H,S] f32).  ``window > 0`` applies only with ``causal``."""
+    lse [B,H,S] f32).  ``window > 0`` applies only with ``causal``.  The
+    kernel is the one :func:`route` names."""
     global launches
     if not all(t.is_cuda for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes CUDA tensors; "
@@ -107,16 +147,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if S == 0 or T == 0 or window < 0:
         raise ValueError(f"empty sequence or negative window "
                          f"(S={S}, T={T}, window={window})")
+    tc = route(q.dtype, D) == "tc"
+    ins = ([x for t in (q, k, v) for x in _tma_strides(t)] if tc
+           else [x for t in (q, k, v) for x in t.stride()[:3]])
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
-                                    *v.stride()[:3], *out.stride()[:3])
+    strides = (ctypes.c_int64 * 12)(*ins, *out.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, H, Hkv, S, T, D, strides, int(causal),
+            int(window) if causal else 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    simt, tc_fn = _entries()
     with torch.cuda.device(q.device):
-        code = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), B, H, Hkv, S, T, D,
-                        strides, int(causal), int(window) if causal else 0,
-                        DTYPES[q.dtype],
-                        torch.cuda.current_stream(q.device).cuda_stream)
+        code = (tc_fn(*args, stream) if tc
+                else simt(*args, DTYPES[q.dtype], stream))
     _build.check(NAME, code, "flash_attention launch")
     launches += 1
     return out, lse

@@ -253,28 +253,45 @@ def ref_swiglu_ffn(x, w_gate, w_up, w_down):
     return ((torch.nn.functional.silu(g) * u) @ w_down.float()).to(x.dtype)
 
 
+def ref_swiglu_ffn_grads(x, w_gate, w_up, w_down, dy):
+    """The hidden grads of :func:`ref_swiglu_ffn` in f32: x, dy [N,D] ->
+    (dg, du, h) [N,F], with g = x·Wg, u = x·Wu, σ = logistic(g) and
+    dh = dy·Wdᵀ:
+
+        du = dh·g·σ,  dg = dh·u·(σ + g·σ·(1 − σ)),  h = g·σ·u.
+
+    The bf16 gradient kernel stores these, each rounded once to bf16."""
+    xf, dyf = x.float(), dy.float()
+    g = xf @ w_gate.float()
+    u = xf @ w_up.float()
+    sg = torch.sigmoid(g)
+    silu = g * sg
+    dh = dyf @ w_down.float().t()
+    return dh * u * (sg + g * sg * (1.0 - sg)), dh * silu, silu * u
+
+
+def ref_swiglu_ffn_bwd_dw(x, dy, dg, du, h):
+    """The weight grads from the hidden grads: x, dy [N,D]; dg, du, h
+    [N,F] -> (dw_gate = xᵀ·dg, dw_up = xᵀ·du, dw_down = hᵀ·dy), three f32
+    products cast to x's dtype (the bf16 dW kernel's function)."""
+    xf, dyf = x.float(), dy.float()
+    return ((xf.t() @ dg.float()).to(x.dtype),
+            (xf.t() @ du.float()).to(x.dtype),
+            (h.float().t() @ dyf).to(x.dtype))
+
+
 def ref_swiglu_ffn_bwd(x, w_gate, w_up, w_down, dy):
     """The backward of :func:`ref_swiglu_ffn`: x, dy [N,D] -> (dx, dw_gate,
     dw_up, dw_down) in the inputs' dtypes (the reference's ``_backward``,
-    ``repro/kernels/fused_ffn.py:159``, written out in f32): with
-    g = x·Wg, u = x·Wu, σ = logistic(g) and dh = dy·Wdᵀ,
+    ``repro/kernels/fused_ffn.py:159``, written out in f32): with dg, du
+    and h from :func:`ref_swiglu_ffn_grads`,
 
-        du = dh·g·σ,  dg = dh·u·(σ + g·σ·(1 − σ)),
-        dx = dg·Wgᵀ + du·Wuᵀ,  dWg = xᵀ·dg,  dWu = xᵀ·du,
-        dWd = (g·σ·u)ᵀ·dy."""
-    xf, dyf = x.float(), dy.float()
-    wg, wu, wd = w_gate.float(), w_up.float(), w_down.float()
-    g = xf @ wg
-    u = xf @ wu
-    sg = torch.sigmoid(g)
-    silu = g * sg
-    dh = dyf @ wd.t()
-    du = dh * silu
-    dg = dh * u * (sg + g * sg * (1.0 - sg))
-    dx = dg @ wg.t() + du @ wu.t()
-    return (dx.to(x.dtype), (xf.t() @ dg).to(w_gate.dtype),
-            (xf.t() @ du).to(w_up.dtype),
-            ((silu * u).t() @ dyf).to(w_down.dtype))
+        dx = dg·Wgᵀ + du·Wuᵀ,  dWg = xᵀ·dg,  dWu = xᵀ·du,  dWd = hᵀ·dy."""
+    dg, du, h = ref_swiglu_ffn_grads(x, w_gate, w_up, w_down, dy)
+    dx = dg @ w_gate.float().t() + du @ w_up.float().t()
+    dwg, dwu, dwd = ref_swiglu_ffn_bwd_dw(x.float(), dy, dg, du, h)
+    return (dx.to(x.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype),
+            dwd.to(w_down.dtype))
 
 
 def ref_mlstm_chunk(q, k, v, i_gate, f_log, C0, n0, m0):

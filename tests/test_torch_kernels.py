@@ -20,6 +20,11 @@ reference set its 1e-4 at <= 256 rows; the weight grads sum over all N
 rows, and the f32 rounding of such a sum grows as sqrt(N) (at 4096 rows
 the CPU's own f32 product is 1.02x that 1e-4 away from its f64 value), so
 the f32 weight grads are held to 1e-4 * max(1, sqrt(N / 256)).
+
+The bf16 tensor-core kernels round more than their plain versions do: the
+dW kernel reads dg, du and h rounded to bf16, and the flash forward rounds
+p to bf16 for P·V.  Two CPU tests hold that extra rounding, in plain torch
+at the kernels' widths, within the unchanged bf16 tolerances.
 """
 import numpy as np
 import pytest
@@ -225,6 +230,84 @@ def test_ffn_bwd_plain_matches_pallas_vjp(jref):
         _close(g, a, PLAIN_BWD_TOL, f"{name} vs torch.autograd")
 
 
+def test_ffn_bwd_dw_plain_matches_pallas_vjp(jref):
+    """ref_swiglu_ffn_bwd_dw (three f32 products over dg, du and h from the
+    plain grad math, ref_swiglu_ffn_grads) == the weight grads of jax.vjp
+    through the Pallas fused FFN, whose dW kernel recomputes them."""
+    jax = pytest.importorskip("jax")
+    jnp = jref["jnp"]
+    N, D, F = 160, 64, 192
+    arrs = (_rand((N, D), 49), _rand((D, F), 50, 0.05),
+            _rand((D, F), 51, 0.05), _rand((F, D), 52, 0.05))
+    dy = _rand((N, D), 53)
+    _, vjp = jax.vjp(lambda *a: jref["ffn"].swiglu_ffn(*a, br=32, bf=64,
+                                                       interpret=True),
+                     *(jnp.asarray(a) for a in arrs))
+    want = vjp(jnp.asarray(dy))[1:]
+    x, wg, wu, wd = (torch.from_numpy(a) for a in arrs)
+    tdy = torch.from_numpy(dy)
+    dg, du, h = ref.ref_swiglu_ffn_grads(x, wg, wu, wd, tdy)
+    got = ref.ref_swiglu_ffn_bwd_dw(x, tdy, dg, du, h)
+    for name, g, w in zip(("dw_gate", "dw_up", "dw_down"), got, want):
+        assert g.shape == tuple(w.shape)
+        _close(g, w, PLAIN_BWD_TOL, f"{name} vs Pallas vjp")
+
+
+def _bf16_pair(t):
+    hi = t.bfloat16()
+    return torch.stack([hi, (t - hi.float()).bfloat16()])
+
+
+def test_bf16_hidden_grads_keep_dw_within_the_bf16_bounds():
+    """The bf16 dW kernel reads dg, du and h as bf16 (hi, lo) pairs, where
+    the plain backward keeps them in f32.  At exanode-100m's widths (D 768,
+    F 2048; 1024 of the train step's 4096 rows) each summand rounded once
+    to bf16 would keep the weight grads within ||err|| / ||want|| <= 1e-2
+    (near 2.3e-3) but drift ~2^-9 of their RMS on every entry, past the
+    elementwise 3e-2 atol + rtol bound on the small ones; the pairs keep
+    both bounds."""
+    N, D, F = 1024, 768, 2048
+    x, dy = (torch.from_numpy(_rand((N, D), s)).bfloat16() for s in (54, 55))
+    wg, wu = (torch.from_numpy(_rand((D, F), s, D ** -0.5)).bfloat16()
+              for s in (56, 57))
+    wd = torch.from_numpy(_rand((F, D), 58, F ** -0.5)).bfloat16()
+    grads = ref.ref_swiglu_ffn_grads(x, wg, wu, wd, dy)
+    want = ref.ref_swiglu_ffn_bwd_dw(x.float(), dy, *grads)
+    once = ref.ref_swiglu_ffn_bwd_dw(x, dy, *(g.bfloat16() for g in grads))
+    pairs = ref.ref_swiglu_ffn_bwd_dw(
+        x, dy, *(_bf16_pair(g).float().sum(0) for g in grads))
+    tol = TOL["ffn_bwd"][torch.bfloat16]
+    outside = 0
+    for name, g1, g2, w in zip(("dw_gate", "dw_up", "dw_down"), once, pairs,
+                               want):
+        assert g1.dtype == g2.dtype == torch.bfloat16
+        for g in (g1, g2):
+            assert float((g.float() - w).norm() / w.norm()) <= 1e-2, name
+        outside += int(((g1.float() - w).abs() > tol + tol * w.abs()).sum())
+        _close(g2.float(), w, tol, name)
+    assert outside > 0
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_p_keeps_attention_within_the_bf16_bound(D):
+    """The tensor-core flash forward rounds p = exp(s - m) to bf16 for
+    P·V and divides by l summed from the f32 p.  At the prefill length
+    (1024 causal, the exanode and jamba head dims, bf16 q/k/v) that output,
+    rounded to bf16, stays within the bf16 flash tolerance (2e-2 atol +
+    rtol) of ref_attention, which keeps p in f32."""
+    S, H = 1024, 2
+    q, k, v = (torch.from_numpy(_rand((1, H, S, D), s)).bfloat16()
+               for s in (90, 91, 92))
+    want, _ = ref.ref_attention(q, k, v, causal=True)
+    s_ = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * D ** -0.5
+    s_ = s_.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                        ref.NEG_INF)
+    p = torch.exp(s_ - s_.amax(-1, keepdim=True))
+    got = (torch.einsum("bhst,bhtd->bhsd", p.bfloat16().float(), v.float())
+           / p.sum(-1, keepdim=True)).bfloat16()
+    _close(got.float(), want.float(), TOL["flash"][torch.bfloat16])
+
+
 @pytest.mark.parametrize("op", ["flash", "ffn"])
 def test_autograd_functions_take_plain_backward_on_cpu(op):
     """With grad, ops.flash_attention / ops.swiglu_ffn go through their
@@ -403,6 +486,55 @@ def test_ffn_tc_plan_covers_outputs_once(arch, N, backward):
     assert (splits > 1) == (tiles < sms)
     assert tiles * (splits - 1) < sms
     assert pl.splits == splits and pl.scratch == (N, F)
+
+
+@pytest.mark.parametrize("N", [1, 16, 600, 4096, 16384])
+@pytest.mark.parametrize("arch", SILU_ARCHS)
+def test_ffn_dw_tc_plan_covers_outputs_once(arch, N):
+    """The bf16 dW kernel's tiles: each block's [bm, bn] tile of [D, F]
+    holds all three products (dWg and dWu at [d, f], dWd at [f, d]), so the
+    grid covers every element of each of the three grads once when its D
+    tiles cover every row of D once and its F tiles every column of F
+    once; every 64-row K tile lies in exactly one split, none empty; the
+    rows are split only when the output tiles alone leave SMs idle, and
+    then into no more splits than fill them."""
+    cfg = get_config(arch)
+    D, F, sms = cfg.d_model, cfg.d_ff, 132
+    pl = ffn_kernel.plan_dw_tc(N, D, F, sms)
+    d_tiles, f_tiles, splits = pl.grid
+    assert pl.bm in (64, 128) and pl.bn == ffn_kernel.TC_BN_GRAD
+    cover_d, cover_f = _cover(D, pl.bm, d_tiles), _cover(F, pl.bn, f_tiles)
+    for name, rows, cols in (("dw_gate", cover_d, cover_f),
+                             ("dw_up", cover_d, cover_f),
+                             ("dw_down", cover_f, cover_d)):
+        assert (rows == 1).all() and (cols == 1).all(), name
+    assert pl.k_tiles == 2 * -(-N // ffn_kernel.TC_BK)   # hi, lo rows
+    assert (_cover(pl.k_tiles, pl.k_tiles_per_split, splits) == 1).all()
+    assert pl.k_tiles_per_split * (splits - 1) < pl.k_tiles   # none empty
+    tiles = d_tiles * f_tiles
+    assert (splits > 1) == (tiles < sms)
+    assert tiles * (splits - 1) < sms
+    assert pl.splits == splits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", fa_kernel.HEAD_DIMS)
+def test_flash_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, D):
+    """bf16 at head dims 64 (exanode-100m) and 128 (llama3.2-3b,
+    jamba-v0.1-52b) runs on the tensor cores; f32 and the other head dims
+    on the SIMT kernel."""
+    want = ("tc" if dtype == torch.bfloat16 and D in (64, 128) else "simt")
+    assert fa_kernel.route(dtype, D) == want
+    assert set(fa_kernel.TC_HEAD_DIMS) <= set(fa_kernel.HEAD_DIMS)
+
+
+def test_flash_route_takes_tensor_cores_on_the_bf16_model_paths():
+    """The configs whose attention runs on the card in bf16 (exanode-100m
+    serving and training, llama3.2-3b, jamba-v0.1-52b's attention layer)
+    have head dims the tensor-core forward takes."""
+    for arch in ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b"):
+        assert fa_kernel.route(torch.bfloat16,
+                               get_config(arch).head_dim) == "tc", arch
 
 
 # -- Hopper kernels against their plain versions (CUDA only) -----------------
@@ -602,9 +734,10 @@ def test_ffn_bwd_kernels_match_plain(cuda, dtype, N, D, F):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_functions_launch_backward_kernels(cuda, dtype):
     """On the card the Functions' backward launches the backward kernels:
-    one dq and one dkv launch per attention backward; per FFN backward one
-    or two dw launches and, for dx, one (f32) or, in bf16, the gradient
-    and dx kernels and the split-K reduce."""
+    one dq and one dkv launch per attention backward; per FFN backward, in
+    f32 the dx kernel and the dW kernel with its row-split reduce, in bf16
+    the gradient kernel once, the dx kernel and its split-K reduce, and
+    the dW kernel on the gradient kernel's scratch."""
     ops.reset_launch_counts()
     q, k, v, _, _, do = _flash_bwd_case(cuda, torch.float32, 1, 6, 2, 96, 96,
                                         64, True, 0, seed=82)
@@ -624,7 +757,9 @@ def test_autograd_functions_launch_backward_kernels(cuda, dtype):
     assert counts["flash_attention_bwd_dq"] == 1
     assert counts["flash_attention_bwd_dkv"] == 1
     assert counts["fused_ffn_bwd_dx"] == (1 if dtype == torch.float32 else 3)
-    assert counts["fused_ffn_bwd_dw"] in (1, 2)
+    # 64 rows leave SMs idle: f32 splits the rows in two, bf16 the two
+    # 64-row K tiles (the pairs' hi and lo rows): kernel + reduce
+    assert counts["fused_ffn_bwd_dw"] == 2
 
 
 # -- the mLSTM scan (#13) ----------------------------------------------------
@@ -1022,3 +1157,119 @@ def test_ffn_bwd_dx_kernel_matches_plain_at_jamba_width(cuda, N):
     torch.cuda.synchronize()
     _close(got.float().cpu(), want.float().cpu(),
            TOL["ffn_bwd"][torch.bfloat16], "dx")
+
+
+# -- the tensor-core dW (#7) and flash forward (#1) ---------------------------
+
+
+def _ffn_bwd_args(cuda, N, D, F, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [t.to(torch.bfloat16) for t in (
+        torch.randn(N, D, generator=gen, device=cuda),
+        torch.randn(D, F, generator=gen, device=cuda) * D ** -0.5,
+        torch.randn(D, F, generator=gen, device=cuda) * D ** -0.5,
+        torch.randn(F, D, generator=gen, device=cuda) * F ** -0.5,
+        torch.randn(N, D, generator=gen, device=cuda))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,F", [(256, 512), (768, 2048), (3072, 8192)])
+@pytest.mark.parametrize("N", [1, 16, 600, 4096])
+def test_ffn_bwd_dw_tc_kernel_matches_plain(cuda, N, D, F):
+    """The bf16 dW kernel against its plain version (three f32 products)
+    over the same dg, du and h pairs from the gradient kernel: ragged N
+    (split and unsplit rows), exanode-100m's and llama3.2-3b's widths;
+    dWd comes out transposed from its [D, F] tile.  The gradient kernel's
+    pairs are held against the plain grad math too: hi within one bf16
+    step, hi + lo within 1e-4 (both sides sum D-term f32 products in their
+    own orders)."""
+    x, wg, wu, wd, dy = _ffn_bwd_args(cuda, N, D, F, 85)
+    pairs = ffn_kernel.swiglu_ffn_bwd_grads(x, wg, wu, wd, dy)
+    got = ffn_kernel.swiglu_ffn_bwd_dw_tc(x, dy, *pairs)
+    sums = [t.float().sum(0) for t in pairs]
+    want = ref.ref_swiglu_ffn_bwd_dw(x, dy, *sums)
+    plain = ref.ref_swiglu_ffn_grads(x, wg, wu, wd, dy)
+    torch.cuda.synchronize()
+    for name, t, g, w in zip(("dg", "du", "h"), pairs, sums, plain):
+        _close(t[0].float().cpu(), w.cpu(), 2 ** -8, name + " hi")
+        _close(g.cpu(), w.cpu(), 1e-4, name + " hi + lo")
+    for name, g, w in zip(("dw_gate", "dw_up", "dw_down"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _close(g.float().cpu(), w.float().cpu(),
+               TOL["ffn_bwd"][torch.bfloat16], name)
+        assert float((g.float() - w.float()).norm()) <= \
+            1e-2 * float(w.float().norm()), name
+
+
+@pytest.mark.cuda
+def test_ffn_bwd_dw_tc_refuses_what_tma_cannot_load(cuda):
+    """The dW kernel takes bf16, contiguous, 16-byte aligned [N, D] and
+    [N, F] tensors with D and F multiples of 8, and raises otherwise."""
+    x, wg, wu, wd, dy = _ffn_bwd_args(cuda, 64, 256, 512, 86)
+    dg, du, h = ffn_kernel.swiglu_ffn_bwd_grads(x, wg, wu, wd, dy)
+    with pytest.raises(ValueError, match="contiguous"):
+        ffn_kernel.swiglu_ffn_bwd_dw_tc(x, dy, dg.transpose(1, 2)
+                                        .contiguous().transpose(1, 2), du, h)
+    buf = torch.zeros(2 * 64 * 512 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        ffn_kernel.swiglu_ffn_bwd_dw_tc(x, dy, buf[1:].view(2, 64, 512), du,
+                                        h)
+    with pytest.raises(ValueError, match=r"\[2,N,F\]"):
+        ffn_kernel.swiglu_ffn_bwd_dw_tc(x, dy, dg[0], du, h)
+    with pytest.raises(ValueError, match="bf16"):
+        ffn_kernel.swiglu_ffn_bwd_dw_tc(x.float(), dy, dg, du, h)
+    x20 = torch.zeros(64, 20, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="% 8"):
+        ffn_kernel.swiglu_ffn_bwd_dw_tc(x20, x20, dg, du, h)
+
+
+# (S, T, H, Hkv, causal, window, q strided as the model's [B,S,H,D] view)
+FLASH_TC_CASES = [(1024, 1024, 12, 4, True, 0, True),
+                  (1000, 1000, 8, 2, True, 256, True),
+                  (1000, 1000, 4, 4, False, 0, False),
+                  (130, 70, 6, 2, False, 0, True),
+                  (200, 200, 4, 1, True, 0, False),
+                  (300, 300, 6, 2, True, 100, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T,H,Hkv,causal,window,strided", FLASH_TC_CASES)
+def test_flash_tc_kernel_matches_plain(cuda, D, S, T, H, Hkv, causal, window,
+                                       strided):
+    """The bf16 tensor-core forward against ref_attention: causal,
+    non-causal and windowed, ragged S and T, GQA groups 1 to 4, q/k/v as
+    the model's strided views or contiguous; out in q's layout."""
+    gen = torch.Generator(device=cuda).manual_seed(87)
+
+    def make(heads, rows):
+        if strided:
+            t = torch.randn(2, rows, heads, D, generator=gen, device=cuda)
+            return t.to(torch.bfloat16).transpose(1, 2)
+        return torch.randn(2, heads, rows, D, generator=gen,
+                           device=cuda).to(torch.bfloat16)
+
+    q, k, v = make(H, S), make(Hkv, T), make(Hkv, T)
+    assert fa_kernel.route(q.dtype, D) == "tc"
+    out, lse = fa_kernel.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+    want, want_lse = ref.ref_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride() or not q.is_contiguous()
+    _close(out.float().cpu(), want.float().cpu(), TOL["flash"][torch.bfloat16])
+    _close(lse.cpu(), want_lse.cpu(), TOL["flash"][torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_tc_route_refuses_what_tma_cannot_load(cuda):
+    """The tensor-core forward's TMA loads need strides that are multiples
+    of 8 elements and 16-byte aligned tensors: another layout raises (it is
+    never copied, and never sent to the SIMT kernel)."""
+    q = torch.zeros(1, 2, 64, 68, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa_kernel.flash_attention(q[..., :64], q[..., :64], q[..., :64])
+    buf = torch.zeros(2 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_kernel.flash_attention(q, q, q)
+    fa_kernel.flash_attention(q.float(), q.float(), q.float())   # SIMT: fine
