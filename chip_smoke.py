@@ -26,9 +26,13 @@ Phases, in order, each printing one line:
            flash attention also at jamba-v0.1-52b's 32 / 8 heads of 128,
            with a window in bf16; the dW kernel alone over the gradient
            kernel's scratch, and the whole FFN backward against the
-           library's autograd through the same products; #1, #6, #7 and
-           their yardsticks also on device time alone and with their host
-           enqueue (``Timer``);
+           library's autograd through the same products; the split-KV
+           flash-decode (#3) also at jamba-v0.1-52b's 32 / 8 heads of 128
+           (checked in f32 and bf16, timed in bf16), #3 and #8 printing
+           the split count each case used, and a second line of their
+           device time with the split count forced to 2-16; #1, #3, #6,
+           #7, #8, #9 and their yardsticks also on device time alone and
+           with their host enqueue (``Timer``);
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -356,7 +360,6 @@ def kernels_phase(torch, timer) -> dict:
     """Each kernel against its plain version; returns the JSON entries
     (without ``launches``) keyed by kernel name."""
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ffn
     from repro_torch.kernels import ref
@@ -491,24 +494,109 @@ def kernels_phase(torch, timer) -> dict:
     out["fused_ffn"] = dict(entries[4096], decode=entries[16],
                             jamba_width=jamba)
 
-    # flash-decode: 16 slots against a 2048-entry cache, part empty
-    B, T, KV, G, D = 16, 2048, 4, 3, 64
-    H = KV * G
+    # flash-decode: 16 slots against a 2048-entry cache, part empty, at
+    # exanode-100m's 12 / 4 heads of 64 and jamba-v0.1-52b's 32 / 8 of 128
+    decode = {}
+    for arch, (KV, G, D) in (("exanode", (4, 3, 64)), ("jamba", (8, 4, 128))):
+        decode[arch] = decode_case(torch, timer, gen, B=16, T=2048, KV=KV,
+                                   G=G, D=D)
+    out["decode_attention"] = dict(decode["exanode"],
+                                   jamba_width=decode["jamba"])
+    out.update(paged_kernels(torch, timer))
+    out.update(backward_kernels(torch, timer))
+    out.update(mlstm_kernel(torch, timer))
+    out.update(quant_kernels(torch, timer))
+    out.update(ssm_kernel(torch, timer))
+    return out
+
+
+def decode_inputs(torch, gen, B: int, T: int, KV: int, G: int, D: int):
+    """B slots against a T-entry cache with seeded lengths 64-T: (lens,
+    kv_pos, pos, q, k, v), q/k/v f32 on the card."""
     lens = torch.randint(64, T + 1, (B,), generator=gen, device="cuda")
     t_idx = torch.arange(T, device="cuda")
     kv_pos = torch.where(t_idx[None] < lens[:, None], t_idx[None],
                          -1).to(torch.int32).contiguous()
     pos = (lens - 1).to(torch.int32)
-    q32, k32, v32 = randn(B, H, D), randn(B, T, KV, D), randn(B, T, KV, D)
+    q, k, v = (torch.randn(*s, generator=gen, device="cuda")
+               for s in ((B, KV * G, D), (B, T, KV, D), (B, T, KV, D)))
+    return lens, kv_pos, pos, q, k, v
+
+
+def split_sweep(torch, gpu: str, iters: int,
+                counts=(2, 3, 4, 6, 8, 12, 16)) -> str:
+    """The kernels phase's second line: device-only time
+    (``Timer.device_ms``) of the split kernels at the serve shapes in bf16
+    (#3 at exanode-100m's and jamba-v0.1-52b's widths, #8) with the split
+    count forced to each of ``counts``, beside the planner's own choice
+    (``decode_attention.plan_splits``) and beside a contiguous read of the
+    same valid K/V bytes (``torch.sum`` over one bf16 tensor of that size)
+    on the same timer: what streaming those bytes costs after its L2
+    flush, whose 128 MB of zeros the reads must first write back."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    timer = Timer(torch, iters)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = {}
+    for arch, (KV, G, D) in (("exanode", (4, 3, 64)), ("jamba", (8, 4, 128))):
+        lens, kv_pos, pos, q, k, v = decode_inputs(torch, gen, 16, 2048, KV,
+                                                   G, D)
+        q, k, v = (t.to(bf16) for t in (q, k, v))
+        cases[f"decode_attention {arch}"] = (
+            functools.partial(da.decode_attention, q, k, v, kv_pos, pos),
+            16 * KV, 2 * int(lens.sum()) * KV * D)
+    c = paged_case(torch, KV=4, G=3, D=64, seed=3)
+    a = (c["q"].to(bf16), c["kp"].to(bf16), c["vp"].to(bf16), c["pos_pool"],
+         c["table"], c["pos"])
+    cases["paged_decode_attention"] = (
+        functools.partial(pa.paged_decode_attention, *a), 16 * 4,
+        2 * c["blocks"] * c["bs"] * 4 * 64)
+    saved = da.TARGET_BLOCKS, da.SPLIT_ENTRIES
+    parts = []
+    try:
+        for name, (fn, rows, elems) in cases.items():
+            times = {"planner": timer.device_ms(fn)}
+            for n in counts:
+                da.TARGET_BLOCKS, da.SPLIT_ENTRIES = n * rows, 1 << 30
+                da.plan_splits.cache_clear()
+                times[n] = timer.device_ms(fn)
+            da.TARGET_BLOCKS, da.SPLIT_ENTRIES = saved
+            da.plan_splits.cache_clear()
+            x = torch.ones(elems, dtype=bf16, device="cuda")
+            read = timer.device_ms(x.sum)
+            del x
+            parts.append(f"{name}: " + ", ".join(
+                f"{n} {ms:.5f}" for n, ms in times.items())
+                + f"; a read of its {2 * elems / 1e6:.1f} MB of valid K/V "
+                  f"{read:.5f}")
+    finally:
+        da.TARGET_BLOCKS, da.SPLIT_ENTRIES = saved
+        da.plan_splits.cache_clear()
+    return ("split_sweep: device ms by forced split count, bf16, 16 slots, "
+            "2048 entries; " + "; ".join(parts) + f" [{gpu}]")
+
+
+def decode_case(torch, timer, gen, B: int, T: int, KV: int, G: int,
+                D: int) -> dict:
+    """#3 at B slots against a T-entry cache with seeded lengths 64-T:
+    checked in f32 and bf16 against the plain version, timed in bf16 on
+    all three timers beside the plain version and SDPA with the mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    H = KV * G
+    lens, kv_pos, pos, q32, k32, v32 = decode_inputs(torch, gen, B, T, KV,
+                                                     G, D)
     errs = {}
-    for dt in (f32, bf16):
+    for dt in (torch.float32, torch.bfloat16):
         q, k, v = (t.to(dt) for t in (q32, k32, v32))
         name = str(dt).split(".")[1]
         errs[name] = check(
             "decode_attention", da.decode_attention(q, k, v, kv_pos, pos),
             ref.ref_decode_attention(q, k, v, kv_pos, pos), name,
-            "part-empty cache")
-    q, k, v = (t.to(bf16) for t in (q32, k32, v32))
+            f"part-empty cache, {H} / {KV} heads of {D}")
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
     # the function reads only the valid K/V rows (every valid entry is at
     # or before its slot's pos): count those, not the whole cache
     valid = int(lens.sum())
@@ -517,23 +605,29 @@ def kernels_phase(torch, timer) -> dict:
                        4 * H * D * valid, "bfloat16")
     mask = ((kv_pos >= 0) & (kv_pos <= pos[:, None]))[:, None, None, :]
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    out["decode_attention"] = dict(
+    splits, split_len = da.plan_splits(B * KV, T,
+                                       da.tile_entries(D, k.element_size()))
+
+    def kern():
+        return da.decode_attention(q, k, v, kv_pos, pos)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+    return dict(
         shape=f"q [{B},{H},{D}] k/v [{B},{T},{KV},{D}] bf16, "
-              f"{valid} of {B * T} entries valid",
+              f"{valid} of {B * T} entries valid; {splits} splits of "
+              f"{split_len}",
+        splits=splits, split_len=split_len,
         max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
-        ms=timer.ms(lambda: da.decode_attention(q, k, v, kv_pos, pos)),
-        plain_ms=timer.ms(
-            lambda: ref.ref_decode_attention(q, k, v, kv_pos, pos)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)),
+        ms=timer.ms(kern), device_ms=timer.device_ms(kern),
+        host_us=timer.host_us(kern),
+        plain_ms=timer.ms(lambda: ref.ref_decode_attention(q, k, v, kv_pos,
+                                                           pos)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer.ms(library),
+        library_device_ms=timer.device_ms(library),
+        library_host_us=timer.host_us(library),
         library="torch.nn.functional.scaled_dot_product_attention")
-    out.update(paged_kernels(torch, timer))
-    out.update(backward_kernels(torch, timer))
-    out.update(mlstm_kernel(torch, timer))
-    out.update(quant_kernels(torch, timer))
-    out.update(ssm_kernel(torch, timer))
-    return out
 
 
 def ssm_kernel(torch, timer) -> dict:
@@ -833,6 +927,7 @@ def paged_kernels(torch, timer) -> dict:
     12 / 4 heads and 128 at llama3.2-3b's 24 / 8, f32) and their times at
     the serve shapes in the serving dtype (bf16; int8 pools with bf16 q)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     bf16 = torch.bfloat16
@@ -889,16 +984,29 @@ def paged_kernels(torch, timer) -> dict:
             return F.scaled_dot_product_attention(
                 a[0][:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
+        if quant:
+            plan = "one block per (slot, kv head)"
+        else:
+            splits, split_len = da.plan_splits(
+                B * KV, M * bs, da.tile_entries(D, 2), bs)
+            plan = f"{splits} splits of {split_len // bs} columns"
+
+        def run(kern=kern, a=a):
+            return kern(*a)
         out[name] = dict(
             shape=f"q [{B},{H},{D}] {'int8' if quant else 'bf16'} pools "
                   f"[{c['N']},{bs},{KV},{D}], table [{B},{M}], "
-                  f"{c['valid']} valid entries in {c['blocks']} blocks, bf16 q",
+                  f"{c['valid']} valid entries in {c['blocks']} blocks, "
+                  f"bf16 q; {plan}",
             max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
             max_abs_err_f32_d128=errs["float32_d128"],
-            ms=timer.ms(lambda: kern(*a)),
+            ms=timer.ms(run), device_ms=timer.device_ms(run),
+            host_us=timer.host_us(run),
             plain_ms=timer.ms(lambda: plain(*a)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=timer.ms(library),
+            library_device_ms=timer.device_ms(library),
+            library_host_us=timer.host_us(library),
             library=("two calls: the pools' block_table gather"
                      + (" with dequantization" if quant else "")
                      + " + torch.nn.functional.scaled_dot_product_attention"
@@ -1202,6 +1310,9 @@ FFN_FWD_KERNELS = ("ffn_fwd_kernel", "ffn_gate_up_tc_kernel",
                    "ffn_down_tc_kernel", "ffn_reduce_kernel")
 # #1: bf16 at head dims 64 and 128 on the tensor cores, else SIMT
 FLASH_FWD_KERNELS = ("flash_fwd_kernel", "flash_fwd_tc_kernel")
+# #3 and #8: the split kernel (f32 on the CUDA cores, bf16 on mma.sync)
+# over the dense or the paged cache policy; #9 is paged_kernel
+DECODE_KERNELS = ("split_decode_kernel", "split_decode_mma_kernel")
 PROFILE_GROUPS = (
     ("flash_attention (fwd)", FLASH_FWD_KERNELS),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -1356,7 +1467,7 @@ JAMBA_PROFILE_GROUPS = (
     ("ssm_scan", ("ssm_scan_kernel",)),
     ("fused_ffn", FFN_FWD_KERNELS),
     ("flash_attention", FLASH_FWD_KERNELS),
-    ("decode_attention", ("decode_kernel",)),
+    ("decode_attention", DECODE_KERNELS),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
 )
 
@@ -2179,7 +2290,7 @@ def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
 SCHED_PROFILE_GROUPS = (
     ("fused_ffn", FFN_FWD_KERNELS),
     ("flash_attention", FLASH_FWD_KERNELS),   # not on the chunk path
-    ("decode attention", ("decode_kernel", "paged_kernel")),
+    ("decode attention", DECODE_KERNELS + ("paged_kernel",)),
     ("int8 kernels", ("quantize_rows_kernel", "dequantize_rows_kernel",
                       "block_write_kernel")),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
@@ -2324,7 +2435,27 @@ def main() -> int:
                         entries["fused_ffn"]["jamba_width"].items())
             + "; flash_attention at jamba width "
             + wide(entries["flash_attention"]["jamba_width"])
+            + "; " + "; ".join(
+                f"{n} {e['shape']}: device {e['device_ms']:.4f} ms, host "
+                f"{e['host_us']:.1f} us (library device "
+                f"{e['library_device_ms']:.4f}, host "
+                f"{e['library_host_us']:.1f})"
+                for n, e in (
+                    ("decode_attention", entries["decode_attention"]),
+                    ("decode_attention at jamba width",
+                     entries["decode_attention"]["jamba_width"]),
+                    ("paged_decode_attention",
+                     entries["paged_decode_attention"])))
+            + f"; decode_attention at jamba width "
+            f"{entries['decode_attention']['jamba_width']['ms']:.3f} ms "
+            f"(plain "
+            f"{entries['decode_attention']['jamba_width']['plain_ms']:.3f}, "
+            f"library "
+            f"{entries['decode_attention']['jamba_width']['library_ms']:.3f},"
+            f" bound "
+            f"{entries['decode_attention']['jamba_width']['bound_ms']:.4f})"
             + f"; tolerances {TOL} [{gpu}]", flush=True)
+        print(split_sweep(torch, gpu, args.iters), flush=True)
     if "model" in phases:
         print(model_phase(torch), flush=True)
     by_path = {}       # path -> that run's launch counts

@@ -1,38 +1,51 @@
 // Single-token GQA decode attention over a paged KV pool, for Hopper sm_90a.
 //
 // Replaces: src/repro/kernels/paged_attention.py:75 _paged_kernel (reached
-// through paged_decode_attention:111, pallas_call at :147) and :92
-// _paged_q8_kernel (paged_decode_attention_q8:157, pallas_call at :200).
+// through paged_decode_attention:111, pallas_call at :147): pools in the
+// working dtype, repro_paged_decode_attention; and :92 _paged_q8_kernel
+// (paged_decode_attention_q8:157, pallas_call at :200): int8 pools,
+// repro_paged_decode_attention_q8.
 //
-// What bounds it on this card: one query token per head against a chain of
-// pool blocks does O(E*D) operations per O(E*D) bytes of K and V (E the
-// chain's entries), far below the card's operations-per-byte balance, so it
-// is bound by the bytes of the blocks the chains reach (int8 pools: a
+// What bounds them on this card: one query token per head against a chain
+// of pool blocks does 4*H*D operations per valid entry for 2*KV*D elements
+// of K and V, far below the card's operations-per-byte balance, so they
+// are bound by the bytes of the blocks the chains reach (int8 pools: a
 // quarter of f32's).
 //
-// What the design does about it: one block per (slot, kv head) walks its
-// table row in tiles of up to 64 entries (several pool blocks of the chain
-// at once), stages each tile's K/V in shared memory once for all G = H/KV q
-// heads of the kv head, and folds it into an f32 online softmax (m, l,
-// acc), so the gathered cache never exists in device memory.  The TPU
-// kernel scalar-prefetched the table and walked it as the minor grid axis;
-// here the block loads its table row into shared memory and the walk is a
-// loop.  Chains are contiguous, so a NULL column after column 0 ends the
-// chain and the walk stops there: the reference's NULL tiles add exactly 0
-// once a valid entry has been seen, and column 0 always holds position 0.
-// int8 pools are dequantized in registers while the tile is staged, by the
-// block's per-(block, kv head) f32 scale read through the same table;
-// full-precision K/V never exists in device memory.  Under-filling 132 SMs
-// (16 slots x 4 kv heads = 64 blocks), split-M with a combine pass and
-// cp.async/TMA staging are left to later work.
+// f32 / bf16 pools (#8): the split-KV flash-decode of split_decode.cuh.
+// The TPU kernel scalar-prefetched the table and walked it as the minor
+// grid axis, one (slot, kv head) at a time; here the walk is split over
+// whole table columns (a split is a run of pool blocks), each block holds
+// its slot's table row in shared memory, gathers only the tiles that hold
+// a valid entry, a kv head's [bs, D] rows of each pool block at a time, in
+// 16-byte cp.async pieces, and the last split of each (slot, kv head) to
+// finish combines the splits' f32 partials.  The cache policy below is the
+// whole of what is paged about it: entry t of the walk is offset t % bs of
+// pool block table[b, t / bs], and the walk ends at the first NULL column
+// after column 0 (chains are contiguous, so such columns are the chain's
+// unused tail: the reference's NULL tiles add exactly 0 once a valid entry
+// has been seen, and column 0 always holds position 0); a slot with no
+// valid entry averages V over the chain's entries, as the walk of the
+// first version did.
 //
-// Numerics follow the TPU kernel: q is pre-scaled by D^-0.5, an entry is
+// int8 pools (#9, paged_kernel<QT, int8_t>, still the first version): one
+// block per (slot, kv head) walks its table row in tiles of up to 64
+// entries (several pool blocks of the chain at once), dequantizes each
+// tile in registers by the block's per-(block, kv head) f32 scale while it
+// is staged in shared memory as f32 for all G = H/KV q heads of the kv
+// head, and folds it into an f32 online softmax (m, l, acc);
+// full-precision K/V never exists in device memory.  Under-filling 132 SMs
+// (16 slots x 4 kv heads = 64 blocks), it can take #8's design by a cache
+// policy that dequantizes.
+//
+// Numerics follow the TPU kernels: q is pre-scaled by D^-0.5, an entry is
 // attended iff kv_pos >= 0 && kv_pos <= pos, a masked score is -1e30 with m
 // starting at -inf, and l is clamped at 1e-30.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "split_decode.cuh"
 
 // Beside common.cuh's overloads, in the same (global) scope so that one
 // unqualified call finds all of them.
@@ -209,24 +222,79 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
+template <typename T>
+struct PagedCache {
+  const T* k;
+  const T* v;
+  const int* pos_pool;
+  const int* table;
+  int bs, M, KV, D;
+  int h, n_cols;
+  const int* ts;  // the slot's table row, in shared memory
+
+  __device__ void prepare(int b, int h_, unsigned char* extra) {
+    __shared__ int cols;
+    int* row = reinterpret_cast<int*>(extra);
+    for (int j = threadIdx.x; j < M; j += blockDim.x)
+      row[j] = table[(int64_t)b * M + j];
+    if (threadIdx.x == 0) cols = M;
+    __syncthreads();
+    for (int j = threadIdx.x + 1; j < M; j += blockDim.x)
+      if (row[j] == kNull) atomicMin(&cols, j);
+    __syncthreads();
+    h = h_;
+    n_cols = cols;
+    ts = row;
+  }
+  __device__ int length() const { return n_cols * bs; }
+  __device__ int64_t entry(int t) const {
+    const int col = t / bs;
+    return (int64_t)ts[col] * bs + (t - col * bs);
+  }
+  __device__ int64_t row(int t) const { return (entry(t) * KV + h) * D; }
+  __device__ int position(int t) const { return pos_pool[entry(t)]; }
+};
+
+template <typename T>
+cudaError_t launch_split(const void* q, const void* k_pool,
+                         const void* v_pool, const void* pos_pool,
+                         const void* table, const void* pos, void* out,
+                         void* part, void* arrived, int B, int H, int KV,
+                         int D, int bs, int M, int splits, int split_cols,
+                         cudaStream_t stream) {
+  PagedCache<T> cache{static_cast<const T*>(k_pool),
+                      static_cast<const T*>(v_pool),
+                      static_cast<const int*>(pos_pool),
+                      static_cast<const int*>(table), bs, M, KV, D, 0, 0,
+                      nullptr};
+  return split_decode::launch<PagedCache<T>, T>(
+      cache, q, pos, part, arrived, out, B, H, KV, D, 0, splits,
+      split_cols * bs, M * (int)sizeof(int), stream);
+}
+
 }  // namespace
 
 // q [B,H,D]; k_pool/v_pool [N,bs,KV,D] in q's dtype; pos_pool [N,bs] int32
 // (-1 = empty); table [B,M] int32 of block ids in [0, N); pos [B] int32;
-// out [B,H,D]; all contiguous.  H % KV == 0, (H/KV)*D <= 1024.
+// out [B,H,D]; part f32 scratch [B*KV*splits*G*(D+2)]; arrived int32
+// [B*KV], zero (left zero); all contiguous.  H/KV <= 8, D in {16, 32, 64,
+// 128, 256}; split_cols table columns a split, splits * split_cols >= M,
+// split_cols * bs <= 8192, splits <= 128.  One launch on `stream`.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* pos_pool, const void* table, const void* pos, void* out,
-    int B, int H, int KV, int D, int bs, int M, int dtype, void* stream) {
+    void* part, void* arrived, int B, int H, int KV, int D, int bs, int M,
+    int splits, int split_cols, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((int64_t)splits * split_cols < M) return cudaErrorInvalidValue;
   if (dtype == kF32)
-    return launch<float, float>(q, k_pool, v_pool, nullptr, nullptr,
-                                pos_pool, table, pos, out, B, H, KV, D, bs,
-                                M, s);
+    return launch_split<float>(q, k_pool, v_pool, pos_pool, table, pos, out,
+                               part, arrived, B, H, KV, D, bs, M, splits,
+                               split_cols, s);
   if (dtype == kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_pool, v_pool, nullptr, nullptr, pos_pool, table, pos, out, B, H,
-        KV, D, bs, M, s);
+    return launch_split<__nv_bfloat16>(q, k_pool, v_pool, pos_pool, table,
+                                       pos, out, part, arrived, B, H, KV, D,
+                                       bs, M, splits, split_cols, s);
   return cudaErrorInvalidValue;
 }
 

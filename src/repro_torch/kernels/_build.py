@@ -15,6 +15,7 @@ kernels never fall back to their plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 SOURCES = ("flash_attention", "flash_attention_bwd", "fused_ffn",
            "fused_ffn_bwd", "decode_attention", "paged_attention",
@@ -112,3 +115,15 @@ def check(name: str, code: int, what: str) -> None:
     if code != 0:
         msg = library(name).repro_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(dev) -> contextlib.AbstractContextManager:
+    """The device guard a launch on ``dev`` needs: none when ``dev`` is
+    the current device (a launch's common case, where entering
+    ``torch.cuda.device`` would set the device twice for nothing)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(dev)

@@ -146,6 +146,216 @@ def test_decode_plain_matches_pallas(jref, window):
     _close(got, oracle, TOL["decode"][torch.float32], "vs jnp oracle")
 
 
+def _edge_rows(T: int = 2048):
+    """kv_pos [6,T] / pos [6] (numpy int32) for the split kernels' edge
+    rows: 1, 64, 1000 and 2048 valid entries from the start; one whose
+    only valid entries are the last 100 (the others hold stale positions
+    above its pos: a ring that wrapped); an idle row, every kv_pos -1."""
+    kv_pos = np.full((6, T), -1, np.int32)
+    pos = np.zeros(6, np.int32)
+    for b, n in enumerate((1, 64, 1000, T)):
+        kv_pos[b, :n] = np.arange(n)
+        pos[b] = n - 1
+    kv_pos[4] = np.arange(T) + 5000
+    kv_pos[4, T - 100:] = np.arange(100)
+    pos[4] = 99
+    return kv_pos, pos
+
+
+def _split_rehearsal(q, k, v, kv_pos, pos, *, window, tile, splits,
+                     split_len):
+    """csrc/split_decode.cuh's split-and-combine arithmetic in plain torch
+    (f32, natural exp where the kernels take exp2 of scores scaled by
+    log2(e): the same numbers) over a dense cache: per (row, kv head) each
+    split lists the
+    tiles holding a valid entry; a split without one gives an empty
+    partial (m = -inf, l = 0) unless the row has no valid entry at all,
+    when every tile of the split goes in with its scores at -1e30; tiles
+    fold into an online softmax (masked -1e30, past the walk -inf); the
+    combine rescales by exp(m_s - m) and divides by max(l, 1e-30)."""
+    B, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qs = q.float() * D ** -0.5
+    valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+    if window > 0:
+        valid &= kv_pos > (pos[:, None] - window)
+    out = torch.empty(B, H, D)
+    for b in range(B):
+        row_any = bool(valid[b].any())
+        for h in range(KV):
+            parts = []
+            for s in range(splits):
+                t0 = s * split_len
+                n = min(split_len, T - t0)
+                if n <= 0:
+                    continue
+                vs = valid[b, t0:t0 + n]
+                n_tiles = -(-n // tile)
+                listed = [j for j in range(n_tiles)
+                          if vs[j * tile:(j + 1) * tile].any()]
+                idle = not listed and not row_any
+                if not listed and not idle:
+                    parts.append((torch.full((G,), -torch.inf),
+                                  torch.zeros(G), None))
+                    continue
+                m = torch.full((G,), -torch.inf)
+                l, acc = torch.zeros(G), torch.zeros(G, D)
+                for j in (range(n_tiles) if idle else listed):
+                    e = torch.arange(j * tile, (j + 1) * tile)
+                    inside = e < n
+                    t = t0 + torch.clamp(e, max=n - 1)
+                    kk = k[b, t, h].float()
+                    vv = torch.where(inside[:, None], v[b, t, h].float(),
+                                     torch.zeros(()))
+                    sc = qs[b, h * G:(h + 1) * G] @ kk.T
+                    ok = inside & vs[torch.clamp(e, max=n - 1)] & (not idle)
+                    sc = torch.where(ok, sc, torch.tensor(-1e30))
+                    sc = torch.where(inside, sc, torch.tensor(-torch.inf))
+                    m_new = torch.maximum(m, sc.max(-1).values)
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[:, None] + p @ vv
+                    m = m_new
+                parts.append((m, l, acc))
+            mx = torch.stack([pm for pm, _, _ in parts]).max(0).values
+            num, den = torch.zeros(G, D), torch.zeros(G)
+            for pm, pl_, pa in parts:
+                if pa is None:
+                    continue
+                w = torch.exp(pm - mx)
+                num += w[:, None] * pa
+                den += w * pl_
+            den = torch.clamp(den, min=1e-30)
+            out[b, h * G:(h + 1) * G] = num / den[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("plan", ["planner", (8, 256), (3, 704)])
+@pytest.mark.parametrize("window", [0, 300])
+def test_split_decode_rehearsal_matches_reference_and_pallas(jref, plan,
+                                                             window):
+    """The split kernels' rules (empty splits, skipped tiles, the idle
+    row's uniform mean, the combine) give the reference's numbers on the
+    edge rows, in f32, before any card runs them."""
+    jnp = jref["jnp"]
+    B, H, KV, T, D = 6, 8, 2, 2048, 64
+    q, k, v = (_rand((B, H, D), 40), _rand((B, T, KV, D), 41),
+               _rand((B, T, KV, D), 42))
+    kv_pos, pos = _edge_rows(T)
+    tile = da_kernel.tile_entries(D, 2)
+    splits, split_len = (da_kernel.plan_splits(B * KV, T, tile)
+                         if plan == "planner" else plan)
+    assert splits * split_len >= T
+    args = (q, k, v, kv_pos, pos)
+    got = _split_rehearsal(*(torch.from_numpy(a) for a in args),
+                           window=window, tile=tile, splits=splits,
+                           split_len=split_len)
+    want = ref.ref_decode_attention(*(torch.from_numpy(a) for a in args),
+                                    window=window)
+    _close(got, want, TOL["decode"][torch.float32], "vs plain version")
+    pallas = jref["decode"].decode_attention(
+        *(jnp.asarray(a) for a in args), window=window, bk=512,
+        interpret=True)
+    _close(got, pallas, TOL["decode"][torch.float32], "vs Pallas")
+    idle = np.asarray(want[5])                 # the uniform mean of V
+    _close(idle, np.repeat(v[5].mean(0), H // KV, axis=0),
+           TOL["decode"][torch.float32], "idle row")
+
+
+@pytest.mark.parametrize("rows,length,tile,unit,want", [
+    (16 * 4, 2048, 64, 1, (8, 256)),       # exanode-100m serve, bf16
+    (16 * 8, 2048, 64, 1, (8, 256)),       # jamba-v0.1-52b, bf16 D 128
+    (16 * 8, 2048, 16, 1, (8, 256)),       # the same in f32
+    (16 * 4, 128 * 16, 64, 16, (8, 256)),  # the paged pool, 128 columns
+    (4, 2048, 64, 1, (32, 64)),            # one row: a tile a split
+    (1024, 2048, 64, 1, (8, 256)),         # many rows: runs of 256
+    (64, 64, 64, 1, (1, 64)),              # a walk of one tile
+    (1, 1 << 20, 64, 1, (128, 8192)),      # the longest walk taken
+    (3, 300, 32, 1, (10, 32)),
+    (64, 100, 64, 48, (2, 96)),            # blocks that do not tile
+])
+def test_split_plan(rows, length, tile, unit, want):
+    splits, split_len = da_kernel.plan_splits(rows, length, tile, unit)
+    assert (splits, split_len) == want
+    assert split_len % unit == 0 and split_len >= tile
+    assert splits * split_len >= length > (splits - 1) * split_len
+    assert split_len <= da_kernel.MAX_SPLIT_LEN
+
+
+def test_split_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="splits"):
+        da_kernel.plan_splits(1, (1 << 20) + 1, 64)
+    with pytest.raises(ValueError, match="outgrows"):
+        da_kernel.plan_splits(4, 20000, 64, 10000)
+
+
+@pytest.mark.parametrize("D,itemsize,tile", [
+    (16, 2, 64), (64, 2, 64), (128, 2, 64), (256, 2, 64), (16, 4, 128),
+    (64, 4, 32), (128, 4, 16), (256, 4, 16)])
+def test_split_tile_matches_the_kernel_layouts(D, itemsize, tile):
+    """csrc MmaLayout::kTile (bf16: 16 entries a warp, 4 warps) and
+    SimtLayout::kTile (f32: 4 passes of 4 warps, 32 / (D * 4 / 16) rows a
+    pass: 16 bytes a lane, at most 32 lanes a row)."""
+    assert da_kernel.tile_entries(D, itemsize) == tile
+    ring = da_kernel.stage_bytes(D, itemsize)
+    assert ring == (4 * tile * (D + 8) * 2 if itemsize == 2
+                    else 6 * tile * D * 4)
+
+
+def _paged_chains(M: int = 128, bs: int = 16, N: int = 300, KV: int = 2,
+                  D: int = 64, H: int = 8, seed: int = 50):
+    """Pools and a table for chains of 1 and M blocks (row 1 sharing row
+    0's first block), a 37-block chain and an idle row (table all NULL);
+    numpy, f32."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((4, H, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((N, bs, KV, D)).astype(np.float32)
+              for _ in range(2))
+    pos_pool = np.full((N, bs), -1, np.int32)
+    table = np.zeros((4, M), np.int32)
+    free = list(rng.permutation(np.arange(2, N)))
+    lens = (bs - 5, M * bs, 37 * bs - 3, 0)
+    for b, L in enumerate(lens):
+        for j in range(-(-L // bs)):
+            if b == 1 and j == 0:
+                table[1, 0] = table[0, 0]
+                continue
+            bid = table[b, j] = free.pop()
+            t = np.arange(j * bs, (j + 1) * bs)
+            pos_pool[bid] = np.where(t < L, t, -1)
+    pos = np.array([max(L - 1, 0) for L in lens], np.int32)
+    return q, kp, vp, pos_pool, table, pos
+
+
+def test_paged_split_rehearsal_matches_reference():
+    """The same rehearsal over a paged walk (the table's columns up to the
+    first NULL after column 0, split over whole columns) against the
+    plain paged version: chains of 1 and 128 blocks sharing their first
+    block, a 37-block chain, an idle row."""
+    q, kp, vp, pos_pool, table, pos = (torch.from_numpy(a)
+                                       for a in _paged_chains())
+    B, M = table.shape
+    bs = kp.shape[1]
+    tile = da_kernel.tile_entries(q.shape[2], 2)
+    splits, split_len = da_kernel.plan_splits(B * kp.shape[2], M * bs, tile,
+                                              bs)
+    got = torch.empty_like(q)
+    for b in range(B):
+        nulls = (table[b, 1:] == 0).nonzero()
+        cols = 1 + int(nulls[0]) if len(nulls) else M
+        flat = table[b, :cols].long()
+        k = kp[flat].reshape(1, cols * bs, *kp.shape[2:])
+        v = vp[flat].reshape(1, cols * bs, *vp.shape[2:])
+        kv_pos = pos_pool[flat].reshape(1, cols * bs)
+        got[b:b + 1] = _split_rehearsal(q[b:b + 1], k, v, kv_pos,
+                                        pos[b:b + 1], window=0, tile=tile,
+                                        splits=splits, split_len=split_len)
+    want = ref.ref_paged_decode_attention(q, kp, vp, pos_pool, table, pos)
+    _close(got, want, TOL["paged"][torch.float32])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ffn_plain_matches_pallas(jref, dtype):
     jnp = jref["jnp"]
@@ -573,6 +783,97 @@ def test_decode_kernel_matches_plain(cuda, dtype, window):
     want = ref.ref_decode_attention(q, k, v, kv_pos, pos, window=window)
     torch.cuda.synchronize()
     _close(got.float().cpu(), want.float().cpu(), TOL["decode"][dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("H,KV,D", [(12, 4, 64), (32, 8, 128), (24, 8, 128),
+                                    (8, 8, 64), (16, 2, 32), (8, 4, 256)])
+def test_decode_split_kernel_matches_plain(cuda, dtype, window, H, KV, D):
+    """The split kernel on the edge rows at T = 2048: 1, 64, 1000 and
+    2048 valid entries, valid entries only in the last split, an idle
+    row; exanode-100m's 12 / 4 heads of 64, jamba-v0.1-52b's 32 / 8 and
+    llama3.2-3b's 24 / 8 heads of 128, and other groups and head dims."""
+    T = 2048
+    kv_pos, pos = (torch.from_numpy(a).to(cuda) for a in _edge_rows(T))
+    B = pos.shape[0]
+    q = torch.from_numpy(_rand((B, H, D), 43)).to(cuda, dtype)
+    k = torch.from_numpy(_rand((B, T, KV, D), 44)).to(cuda, dtype)
+    v = torch.from_numpy(_rand((B, T, KV, D), 45)).to(cuda, dtype)
+    got = da_kernel.decode_attention(q, k, v, kv_pos, pos, window=window)
+    want = ref.ref_decode_attention(q, k, v, kv_pos, pos, window=window)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["decode"][dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", [(1, 2048), (16, 2048), (3, 100), (2, 20000)])
+def test_decode_split_kernel_matches_plain_across_plans(cuda, dtype, B, T):
+    """Other split plans: one row (a tile a split), the serve batch, a
+    walk shorter than a split's tile, one longer than a split's 8192."""
+    H, KV, D = 12, 4, 64
+    rng = np.random.default_rng(46)
+    lens = rng.integers(1, T + 1, B)
+    t = np.arange(T)
+    kv_pos = torch.from_numpy(np.where(t[None] < lens[:, None], t[None], -1)
+                              .astype(np.int32)).to(cuda)
+    pos = torch.from_numpy((lens - 1).astype(np.int32)).to(cuda)
+    q = torch.from_numpy(_rand((B, H, D), 47)).to(cuda, dtype)
+    k = torch.from_numpy(_rand((B, T, KV, D), 48)).to(cuda, dtype)
+    v = torch.from_numpy(_rand((B, T, KV, D), 49)).to(cuda, dtype)
+    got = da_kernel.decode_attention(q, k, v, kv_pos, pos)
+    want = ref.ref_decode_attention(q, k, v, kv_pos, pos)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["decode"][dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(8, 2, 64), (12, 4, 64), (24, 8, 128)])
+def test_paged_split_kernel_matches_plain_on_long_chains(cuda, dtype, H, KV,
+                                                         D):
+    """Chains of 1 and 128 blocks sharing their first block, a 37-block
+    chain and an idle row (table all NULL), 128 table columns."""
+    q, kp, vp, pos_pool, table, pos = (
+        torch.from_numpy(a).to(cuda)
+        for a in _paged_chains(KV=KV, D=D, H=H))
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    got = pa_kernel.paged_decode_attention(q, kp, vp, pos_pool, table, pos)
+    want = ref.ref_paged_decode_attention(q, kp, vp, pos_pool, table, pos)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["paged"][dtype])
+
+
+@pytest.mark.cuda
+def test_split_kernels_leave_their_arrival_counters_zero(cuda):
+    """The last split of each (row, kv head) combines and resets its
+    counter, so back-to-back launches of both split kernels reuse one
+    zeroed buffer and agree with their plain versions every time."""
+    T = 2048
+    kv_pos, pos = (torch.from_numpy(a).to(cuda) for a in _edge_rows(T))
+    B, H, KV, D = pos.shape[0], 12, 4, 64
+    q = torch.from_numpy(_rand((B, H, D), 60)).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(_rand((B, T, KV, D), 61)).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(_rand((B, T, KV, D), 62)).to(cuda, torch.bfloat16)
+    pq, kp, vp, pos_pool, table, ppos = (
+        torch.from_numpy(a).to(cuda) for a in _paged_chains(KV=KV, D=D, H=H))
+    pq, kp, vp = (t.to(torch.bfloat16) for t in (pq, kp, vp))
+    want = ref.ref_decode_attention(q, k, v, kv_pos, pos)
+    want_p = ref.ref_paged_decode_attention(pq, kp, vp, pos_pool, table, ppos)
+    for _ in range(3):
+        got = da_kernel.decode_attention(q, k, v, kv_pos, pos)
+        got_p = pa_kernel.paged_decode_attention(pq, kp, vp, pos_pool, table,
+                                                 ppos)
+        torch.cuda.synchronize()
+        _close(got.float().cpu(), want.float().cpu(),
+               TOL["decode"][torch.bfloat16])
+        _close(got_p.float().cpu(), want_p.float().cpu(),
+               TOL["paged"][torch.bfloat16])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    counters = da_kernel.arrival_counters(q.device, stream, B * KV)
+    assert int(counters.abs().sum()) == 0
 
 
 def _paged_case(H, KV, D, seed, bs=16, M=6, N=24, B=4):
