@@ -30,9 +30,12 @@ Phases, in order, each printing one line:
            flash-decode (#3) also at jamba-v0.1-52b's 32 / 8 heads of 128
            (checked in f32 and bf16, timed in bf16), #3 and #8 printing
            the split count each case used, and a second line of their
-           device time with the split count forced to 2-16; #1, #3, #6,
-           #7, #8, #9 and their yardsticks also on device time alone and
-           with their host enqueue (``Timer``);
+           device time with the split count forced to 2-16; the int8
+           paged decode (#9) runs the same split kernel over int8 pools,
+           checked also at gemma-2b's 8 / 1 heads of 256, and is in that
+           line too; #1, #3, #6-#9, #11 and their yardsticks also on
+           device time alone and with their host enqueue (``Timer``); #11
+           as the int8 chunk append calls it, K and V in one launch;
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -527,12 +530,13 @@ def split_sweep(torch, gpu: str, iters: int,
                 counts=(2, 3, 4, 6, 8, 12, 16)) -> str:
     """The kernels phase's second line: device-only time
     (``Timer.device_ms``) of the split kernels at the serve shapes in bf16
-    (#3 at exanode-100m's and jamba-v0.1-52b's widths, #8) with the split
-    count forced to each of ``counts``, beside the planner's own choice
+    (#3 at exanode-100m's and jamba-v0.1-52b's widths, #8, and #9 over
+    the int8 pools with bf16 q) with the split count forced to each of
+    ``counts``, beside the planner's own choice
     (``decode_attention.plan_splits``) and beside a contiguous read of the
-    same valid K/V bytes (``torch.sum`` over one bf16 tensor of that size)
-    on the same timer: what streaming those bytes costs after its L2
-    flush, whose 128 MB of zeros the reads must first write back."""
+    same valid K/V bytes (``torch.sum`` over that many bytes, read as
+    bf16) on the same timer: what streaming those bytes costs after its
+    L2 flush, whose 128 MB of zeros the reads must first write back."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
     timer = Timer(torch, iters)
@@ -545,17 +549,22 @@ def split_sweep(torch, gpu: str, iters: int,
         q, k, v = (t.to(bf16) for t in (q, k, v))
         cases[f"decode_attention {arch}"] = (
             functools.partial(da.decode_attention, q, k, v, kv_pos, pos),
-            16 * KV, 2 * int(lens.sum()) * KV * D)
+            16 * KV, 2 * int(lens.sum()) * KV * D, bf16)
     c = paged_case(torch, KV=4, G=3, D=64, seed=3)
     a = (c["q"].to(bf16), c["kp"].to(bf16), c["vp"].to(bf16), c["pos_pool"],
          c["table"], c["pos"])
+    elems = 2 * c["blocks"] * c["bs"] * 4 * 64
     cases["paged_decode_attention"] = (
-        functools.partial(pa.paged_decode_attention, *a), 16 * 4,
-        2 * c["blocks"] * c["bs"] * 4 * 64)
+        functools.partial(pa.paged_decode_attention, *a), 16 * 4, elems,
+        bf16)
+    cases["paged_decode_attention_q8 (int8 pools)"] = (
+        functools.partial(pa.paged_decode_attention_q8, c["q"].to(bf16),
+                          c["kq"], c["vq"], c["ks"], c["vs"], c["pos_pool"],
+                          c["table"], c["pos"]), 16 * 4, elems, torch.int8)
     saved = da.TARGET_BLOCKS, da.SPLIT_ENTRIES
     parts = []
     try:
-        for name, (fn, rows, elems) in cases.items():
+        for name, (fn, rows, elems, dtype) in cases.items():
             times = {"planner": timer.device_ms(fn)}
             for n in counts:
                 da.TARGET_BLOCKS, da.SPLIT_ENTRIES = n * rows, 1 << 30
@@ -563,13 +572,15 @@ def split_sweep(torch, gpu: str, iters: int,
                 times[n] = timer.device_ms(fn)
             da.TARGET_BLOCKS, da.SPLIT_ENTRIES = saved
             da.plan_splits.cache_clear()
-            x = torch.ones(elems, dtype=bf16, device="cuda")
+            # the same bytes read as bf16 (PyTorch's int8 sum is no
+            # streaming read: it widens every byte)
+            x = torch.ones(elems, dtype=dtype, device="cuda").view(bf16)
             read = timer.device_ms(x.sum)
-            del x
             parts.append(f"{name}: " + ", ".join(
                 f"{n} {ms:.5f}" for n, ms in times.items())
-                + f"; a read of its {2 * elems / 1e6:.1f} MB of valid K/V "
+                + f"; a read of its {nbytes(x) / 1e6:.1f} MB of valid K/V "
                   f"{read:.5f}")
+            del x
     finally:
         da.TARGET_BLOCKS, da.SPLIT_ENTRIES = saved
         da.plan_splits.cache_clear()
@@ -736,8 +747,9 @@ def quant_kernels(torch, timer) -> dict:
       layer stack's prefill caches for a 16 x 1024 bucket, x [12, 16, 2048,
       4, 64] bf16, 64 columns of 16 (timed there);
     * #11 dequantize_int8 at [256, 256] and as the chunk append's gather,
-      one row of 128 blocks x 16 of a [2050, 16, 4, 64] pool to bf16
-      (timed there);
+      one row of 128 blocks x 16 of [2050, 16, 4, 64] pools to bf16, K and
+      V in one launch as the path calls it (timed there, on all three
+      timers) and one leaf alone (timed too);
     * the int8 pool write at a decode tick (16 rows, ten slots on their
       own blocks, six inactive rows colliding on the trash block; timed
       there) and at a 32-token chunk, K and V in one launch, three writes
@@ -746,12 +758,13 @@ def quant_kernels(torch, timer) -> dict:
 
     Each bound counts the bytes the function needs once: #10 the tiles'
     entries read and the payload and scales written; #11 the table's
-    blocks and scales read and the gather written; the write the new
-    entries, bids and offsets read, and each touched block's payload and
-    scales read and written.  Library yardsticks: #11 one torch.mul of
+    blocks and scales read and the gather written, per leaf; the write the
+    new entries, bids and offsets read, and each touched block's payload
+    and scales read and written.  Library yardsticks: #11 a torch.mul of
     the same 128 blocks' payload by their scales, stored contiguously (the
-    function without the table's indirection); none for #10 and the write:
-    no single PyTorch call computes a per-row max-abs int8 quantization."""
+    function without the table's indirection), one a leaf; none for #10
+    and the write: no single PyTorch call computes a per-row max-abs int8
+    quantization."""
     from repro_torch.kernels import quant as qt
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -797,31 +810,65 @@ def quant_kernels(torch, timer) -> dict:
     same(qt.NAME_DEQUANT, qt.dequantize_rows(q, s),
          ref.ref_dequantize_rows(q, s), "[256, 256]")
     N, M = 2050, 128
-    pool = torch.randint(-127, 128, (N, bs, KV, D), generator=gen,
-                         device="cuda", dtype=torch.int8)
-    scale = torch.rand(N, KV, generator=gen, device="cuda") * 0.05
+    pools = [torch.randint(-127, 128, (N, bs, KV, D), generator=gen,
+                           device="cuda", dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand(N, KV, generator=gen, device="cuda") * 0.05
+              for _ in range(2)]
     table = (torch.randperm(N - 2, generator=gen, device="cuda")[:M] + 2) \
         .to(torch.int32)[None].contiguous()
     for dt in (torch.float32, bf16):
-        same(qt.NAME_DEQUANT, qt.dequantize_rows(pool, scale, table, dt),
-             ref.ref_dequantize_gather(pool, scale, table, dt),
+        same(qt.NAME_DEQUANT,
+             qt.dequantize_rows(pools[0], scales[0], table, dt),
+             ref.ref_dequantize_gather(pools[0], scales[0], table, dt),
              f"gather to {dt}")
-    blocks = pool[table[0].long()].contiguous()
-    bscale = scale[table[0].long()][:, None, :, None].contiguous()
-    b_ms, b_by = bound(M * (bs * KV * D + KV * 4) + M * 4
-                       + M * bs * KV * D * 2, M * bs * KV * D, "float32")
+        pair = qt.dequantize_rows(pools, scales, table, dt)
+        for got, pool, scale in zip(pair, pools, scales):
+            same(qt.NAME_DEQUANT, got,
+                 ref.ref_dequantize_gather(pool, scale, table, dt),
+                 f"K and V gather to {dt}")
+    tbl = table[0].long()
+    blocks = [x[tbl].contiguous() for x in pools]
+    bscale = [x[tbl][:, None, :, None].contiguous() for x in scales]
+    leaf = M * (bs * KV * D + KV * 4) + M * bs * KV * D * 2
+    one_b = bound(leaf + M * 4, M * bs * KV * D, "float32")
+    two_b = bound(2 * leaf + M * 4, 2 * M * bs * KV * D, "float32")
+
+    def kern_one():
+        return qt.dequantize_rows(pools[0], scales[0], table, bf16)
+
+    def kern_two():
+        return qt.dequantize_rows(pools, scales, table, bf16)
+
+    def lib_one():
+        return torch.mul(blocks[0], bscale[0])
+
+    def lib_two():
+        return torch.mul(blocks[0], bscale[0]), torch.mul(blocks[1],
+                                                          bscale[1])
+
+    def times(kern, plain, lib, b):
+        return dict(ms=timer.ms(kern), device_ms=timer.device_ms(kern),
+                    host_us=timer.host_us(kern), plain_ms=timer.ms(plain),
+                    bound_ms=b[0], bound_by=b[1], library_ms=timer.ms(lib),
+                    library_device_ms=timer.device_ms(lib),
+                    library_host_us=timer.host_us(lib))
+
     out[qt.NAME_DEQUANT] = dict(
-        shape=f"pool [{N},{bs},{KV},{D}] int8 + scales [{N},{KV}], table "
-              f"[1,{M}] -> [1,{M * bs},{KV},{D}] bf16 (the int8 chunk "
-              f"append's gather, capacity 2048); also [256, 256] -> f32",
+        shape=f"K and V pools [{N},{bs},{KV},{D}] int8 + scales [{N},{KV}], "
+              f"table [1,{M}] -> 2 x [1,{M * bs},{KV},{D}] bf16 in one "
+              f"launch (the int8 chunk append's gather, capacity 2048); "
+              f"also one leaf, and [256, 256] -> f32",
         max_abs_err=0.0,
-        ms=timer.ms(lambda: qt.dequantize_rows(pool, scale, table, bf16)),
-        plain_ms=timer.ms(
-            lambda: ref.ref_dequantize_gather(pool, scale, table, bf16)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=timer.ms(lambda: torch.mul(blocks, bscale)),
-        library="torch.mul of the same 128 blocks, stored contiguously, by "
-                "their scales (no table indirection)")
+        **times(kern_two, lambda: [ref.ref_dequantize_gather(
+            x, sc, table, bf16) for x, sc in zip(pools, scales)], lib_two,
+            two_b),
+        library="two torch.mul, one a leaf, of the same 128 blocks, stored "
+                "contiguously, by their scales (no table indirection)",
+        one_leaf=dict(
+            shape=f"K alone -> [1,{M * bs},{KV},{D}] bf16",
+            **times(kern_one, lambda: ref.ref_dequantize_gather(
+                pools[0], scales[0], table, bf16), lib_one, one_b)))
 
     # the int8 pool write
     keep = torch.arange(N, device="cuda") != 1
@@ -924,8 +971,10 @@ def paged_case(torch, KV: int, G: int, D: int, seed: int, B: int = 16,
 def paged_kernels(torch, timer) -> dict:
     """The paged decode kernels against their plain versions (f32 and bf16
     pools, int8 pools with f32 and bf16 q; head dim 64 at exanode-100m's
-    12 / 4 heads and 128 at llama3.2-3b's 24 / 8, f32) and their times at
-    the serve shapes in the serving dtype (bf16; int8 pools with bf16 q)."""
+    12 / 4 heads, 128 at llama3.2-3b's 24 / 8 and, for int8, 256 at
+    gemma-2b's 8 / 1, which the int8 kernel's first version refused) and
+    their times at the serve shapes in the serving dtype (bf16; int8
+    pools with bf16 q).  Both run the split kernel: each names its plan."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
@@ -946,19 +995,24 @@ def paged_kernels(torch, timer) -> dict:
                             ref.ref_paged_decode_attention_q8, q8_args)}
     c = paged_case(torch, KV=4, G=3, D=64, seed=3)
     wide = paged_case(torch, KV=8, G=3, D=128, seed=4)
+    gemma = paged_case(torch, KV=1, G=8, D=256, seed=5)
     out = {}
     for name, (kern, plain, args) in kernels.items():
-        errs = {}
-        for dt in (torch.float32, bf16):
-            a = args(c, dt)
-            dname = str(dt).split(".")[1]
-            errs[dname] = check(name, kern(*a), plain(*a), dname,
-                                "serve shapes")
-        a = args(wide, torch.float32)
-        errs["float32_d128"] = check(name, kern(*a), plain(*a), "float32",
-                                     "D=128, 24/8 heads")
-        a = args(c, bf16)
         quant = name == pa.NAME_Q8
+        errs = {}
+        for case, what, suffix in (
+                (c, "serve shapes", ""), (wide, "D=128, 24/8 heads", "_d128"),
+                (gemma, "D=256, 8/1 heads", "_d256")):
+            if case is gemma and not quant:
+                continue
+            for dt in (torch.float32, bf16):
+                a = args(case, dt)
+                dname = str(dt).split(".")[1]
+                tag = "_f32" if dt == torch.float32 else (
+                    "_bf16" if suffix else "")
+                errs[f"max_abs_err{tag}{suffix}"] = check(
+                    name, kern(*a), plain(*a), dname, what)
+        a = args(c, bf16)
         B, H, KV, D, bs, M = (c[k] for k in ("B", "H", "KV", "D", "bs", "M"))
         pool_el = 1 if quant else 2
         # each distinct block that valid entries reach, read once (the
@@ -984,12 +1038,9 @@ def paged_kernels(torch, timer) -> dict:
             return F.scaled_dot_product_attention(
                 a[0][:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
-        if quant:
-            plan = "one block per (slot, kv head)"
-        else:
-            splits, split_len = da.plan_splits(
-                B * KV, M * bs, da.tile_entries(D, 2), bs)
-            plan = f"{splits} splits of {split_len // bs} columns"
+        splits, split_len = da.plan_splits(B * KV, M * bs,
+                                           da.tile_entries(D, 2), bs)
+        plan = f"{splits} splits of {split_len // bs} columns"
 
         def run(kern=kern, a=a):
             return kern(*a)
@@ -998,8 +1049,7 @@ def paged_kernels(torch, timer) -> dict:
                   f"[{c['N']},{bs},{KV},{D}], table [{B},{M}], "
                   f"{c['valid']} valid entries in {c['blocks']} blocks, "
                   f"bf16 q; {plan}",
-            max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
-            max_abs_err_f32_d128=errs["float32_d128"],
+            splits=splits, split_len=split_len, **errs,
             ms=timer.ms(run), device_ms=timer.device_ms(run),
             host_us=timer.host_us(run),
             plain_ms=timer.ms(lambda: plain(*a)),
@@ -1310,8 +1360,8 @@ FFN_FWD_KERNELS = ("ffn_fwd_kernel", "ffn_gate_up_tc_kernel",
                    "ffn_down_tc_kernel", "ffn_reduce_kernel")
 # #1: bf16 at head dims 64 and 128 on the tensor cores, else SIMT
 FLASH_FWD_KERNELS = ("flash_fwd_kernel", "flash_fwd_tc_kernel")
-# #3 and #8: the split kernel (f32 on the CUDA cores, bf16 on mma.sync)
-# over the dense or the paged cache policy; #9 is paged_kernel
+# #3, #8 and #9: the split kernel (f32 on the CUDA cores, bf16 on
+# mma.sync) over the dense, the paged or the int8 paged cache policy
 DECODE_KERNELS = ("split_decode_kernel", "split_decode_mma_kernel")
 PROFILE_GROUPS = (
     ("flash_attention (fwd)", FLASH_FWD_KERNELS),
@@ -2141,8 +2191,12 @@ def plain_int8_ops():
         for pool, scale, new in zip(pools, scale_pools, news):
             ref.ref_quantized_block_write(pool, scale, new, write_bids, off)
 
+    def gather(pools, scales, block_table, dtype):      # K and V
+        return tuple(ref.ref_dequantize_gather(p, s, block_table, dtype)
+                     for p, s in zip(pools, scales))
+
     ops.quantized_block_write = write
-    ops.dequantize_gather = ref.ref_dequantize_gather
+    ops.dequantize_gather = gather
     try:
         yield
     finally:
@@ -2290,7 +2344,7 @@ def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
 SCHED_PROFILE_GROUPS = (
     ("fused_ffn", FFN_FWD_KERNELS),
     ("flash_attention", FLASH_FWD_KERNELS),   # not on the chunk path
-    ("decode attention", DECODE_KERNELS + ("paged_kernel",)),
+    ("decode attention", DECODE_KERNELS),
     ("int8 kernels", ("quantize_rows_kernel", "dequantize_rows_kernel",
                       "block_write_kernel")),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
@@ -2445,7 +2499,12 @@ def main() -> int:
                     ("decode_attention at jamba width",
                      entries["decode_attention"]["jamba_width"]),
                     ("paged_decode_attention",
-                     entries["paged_decode_attention"])))
+                     entries["paged_decode_attention"]),
+                    ("paged_decode_attention_q8",
+                     entries["paged_decode_attention_q8"]),
+                    ("dequantize_int8", entries["dequantize_int8"]),
+                    ("dequantize_int8 one leaf",
+                     entries["dequantize_int8"]["one_leaf"])))
             + f"; decode_attention at jamba width "
             f"{entries['decode_attention']['jamba_width']['ms']:.3f} ms "
             f"(plain "

@@ -27,6 +27,7 @@ namespace {
 
 template <typename T>
 struct DenseCache {
+  using Storage = T;
   const T* k;
   const T* v;
   const int* kv_pos;

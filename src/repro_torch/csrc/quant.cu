@@ -23,10 +23,15 @@
 //    then each element x / scale in IEEE f32 division, rintf (round half
 //    to even, as jnp.round) and a clip to +-127.  The TPU kernel moved
 //    64 rows of 256 through VMEM a grid step; here the rows are the grid.
-//  * dequantize_rows (#11): one block per row, q * scale in f32, written
-//    in the output type.  With a block table, row (b, m) is pool block
-//    table[b, m] and the output is the contiguous [B, M*bs, KV, D] gather
-//    the int8 chunk append attends over, cast to the activation dtype.
+//  * dequantize_rows (#11): a thread takes 16 int8 values with one 16-byte
+//    load (D % 16 == 0, so they lie in one (entry, kv head) row and share
+//    one scale, found once from the chunk's index), multiplies them by the
+//    scale in f32 and writes them, rounded once, in 16-byte stores.  With
+//    a block table, row (b, m) is pool block table[b, m] and the output is
+//    the contiguous [B, M*bs, KV, D] gather the int8 chunk append attends
+//    over, cast to the activation dtype.  K and V are the two rows of the
+//    grid's y axis: one launch per layer.  A first version ran a block a
+//    row with 1-byte loads and a (i / D) % KV per element.
 //  * quantized_block_write: the write's four phases (clear the scales of
 //    blocks written at offset 0, grow each block's scale by the new
 //    entries' max, requantize the block's payload by round(q * old / new),
@@ -107,22 +112,61 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   if (threadIdx.x == 0) scale[row] = s;
 }
 
-// q: [N, bs, KV, D] int8 blocks, scale [N, KV]; row r reads block
-// table[r] (r itself without a table); out: [rows, bs * KV * D].
+// Sixteen values x * s, rounded once to OT, in 16-byte stores.
+__device__ __forceinline__ void store16(float* dst, const int4& x, float s) {
+  const int w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4 o;
+    o.x = static_cast<float>(static_cast<int8_t>(w[i])) * s;
+    o.y = static_cast<float>(static_cast<int8_t>(w[i] >> 8)) * s;
+    o.z = static_cast<float>(static_cast<int8_t>(w[i] >> 16)) * s;
+    o.w = static_cast<float>(static_cast<int8_t>(w[i] >> 24)) * s;
+    reinterpret_cast<float4*>(dst)[i] = o;
+  }
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* dst, const int4& x,
+                                        float s) {
+  const int w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          static_cast<float>(static_cast<int8_t>(w[i] >> (16 * k))) * s,
+          static_cast<float>(static_cast<int8_t>(w[i] >> (16 * k + 8))) * s);
+      o[2 * i + k] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+struct DequantLeaf {
+  const int8_t* q;     // [N, bs, KV, D] int8 blocks
+  const float* scale;  // [N, KV]
+  void* out;           // [rows, bs * KV * D]
+};
+
+// Leaf blockIdx.y: row r reads block table[r] (r itself without a table);
+// `chunks` 16-value pieces in all, `row_chunks` of them a row.
 template <typename OT>
 __global__ void __launch_bounds__(kThreads)
-dequantize_rows_kernel(const int8_t* __restrict__ q,
-                       const float* __restrict__ scale,
-                       const int* __restrict__ table, OT* __restrict__ out,
-                       int bs, int KV, int D) {
-  const long long r = blockIdx.x;
+dequantize_rows_kernel(DequantLeaf k, DequantLeaf v,
+                       const int* __restrict__ table, long long chunks,
+                       int row_chunks, int KV, int D) {
+  const DequantLeaf L = blockIdx.y == 0 ? k : v;
+  const long long c = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (c >= chunks) return;
+  const long long r = c / row_chunks;
+  const int w = static_cast<int>(c - r * row_chunks);  // chunk in the row
   const long long blk = table != nullptr ? table[r] : r;
-  const int n = bs * KV * D;
-  const int8_t* src = q + blk * n;
-  const float* sc = scale + blk * KV;
-  OT* dst = out + r * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    dst[i] = from_f32<OT>(static_cast<float>(src[i]) * sc[(i / D) % KV]);
+  const float s = L.scale[blk * KV + (w * 16 / D) % KV];
+  const int4 x = __ldg(reinterpret_cast<const int4*>(L.q) +
+                       blk * row_chunks + w);
+  store16(static_cast<OT*>(L.out) + c * 16, x, s);
 }
 
 struct Leaf {
@@ -225,24 +269,35 @@ extern "C" int repro_quantize_rows(const void* x, void* q, void* scale,
   return cudaGetLastError();
 }
 
-// q: [N, bs, KV, D] int8, scale: [N, KV] f32; table: [rows] int32 block
-// ids or null (row r reads block r); out: [rows, bs, KV, D] in dtype.
-extern "C" int repro_dequantize_rows(const void* q, const void* scale,
-                                     const void* table, void* out,
+// For one or two leaves (K, V; nleaves 1 leaves the second set unused):
+// q [N, bs, KV, D] int8, scale [N, KV] f32, out [rows, bs, KV, D] in
+// dtype; table: [rows] int32 block ids or null (row r reads block r).
+// D % 16 == 0; q and out 16-byte aligned.
+extern "C" int repro_dequantize_rows(const void* k_q, const void* k_scale,
+                                     void* k_out, const void* v_q,
+                                     const void* v_scale, void* v_out,
+                                     const void* table, int nleaves,
                                      long long rows, int bs, int KV, int D,
                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(rows));
-  const int8_t* qq = static_cast<const int8_t*>(q);
-  const float* sc = static_cast<const float*>(scale);
+  const int row_chunks = bs * KV * D / 16;
+  const long long chunks = rows * row_chunks;
+  const long long blocks = (chunks + kThreads - 1) / kThreads;
+  if (rows <= 0 || D % 16 || row_chunks <= 0 || nleaves < 1 ||
+      nleaves > 2 || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const DequantLeaf k{static_cast<const int8_t*>(k_q),
+                      static_cast<const float*>(k_scale), k_out};
+  const DequantLeaf v{static_cast<const int8_t*>(v_q),
+                      static_cast<const float*>(v_scale), v_out};
+  const dim3 grid(static_cast<unsigned>(blocks), nleaves);
   const int* tb = static_cast<const int*>(table);
   if (dtype == kF32)
     dequantize_rows_kernel<float><<<grid, kThreads, 0, s>>>(
-        qq, sc, tb, static_cast<float*>(out), bs, KV, D);
+        k, v, tb, chunks, row_chunks, KV, D);
   else if (dtype == kBF16)
     dequantize_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        qq, sc, tb, static_cast<__nv_bfloat16*>(out), bs, KV, D);
+        k, v, tb, chunks, row_chunks, KV, D);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -118,6 +118,18 @@ def check(name: str, code: int, what: str) -> None:
 
 
 _CURRENT = contextlib.nullcontext()
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(dev) -> int:
+    """The ``cudaStream_t`` of ``dev``'s current stream, as an int: from
+    PyTorch's raw accessor where the build has one (the public
+    ``torch.cuda.current_stream`` builds a ``Stream`` object a call, a few
+    microseconds of a short kernel's enqueue)."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(dev).cuda_stream
+    return _RAW_STREAM(torch.cuda.current_device() if dev.index is None
+                       else dev.index)
 
 
 def on_device(dev) -> contextlib.AbstractContextManager:

@@ -44,24 +44,36 @@ launches = 0
 
 @functools.cache
 def tile_entries(head_dim: int, itemsize: int) -> int:
-    """Entries of one K/V tile of the split kernel: in bf16 (csrc
+    """Entries of one K/V tile of the split kernel for q of ``itemsize``
+    bytes (the pools' storage does not change it): in bf16 (csrc
     ``MmaLayout::kTile``) 16 entries for each of the 4 warps; in f32
     (``SimtLayout::kTile``) 4 row passes of 4 warps, each pass as many rows
-    as a warp's 32 lanes hold at 16 bytes a lane."""
+    as a warp's 32 lanes hold at 4 values a lane."""
     if itemsize == 2:
         return 64
-    lanes = min(32, head_dim * itemsize // 16)
+    lanes = min(32, head_dim // 4)
     return 16 * (32 // lanes)
 
 
 @functools.cache
-def stage_bytes(head_dim: int, itemsize: int) -> int:
-    """Shared memory of the split kernel's K/V ring: bf16, 2 stages of
-    rows padded by 16 bytes; f32, 3 stages."""
+def stage_bytes(head_dim: int, itemsize: int,
+                pool_itemsize: int | None = None) -> int:
+    """Dynamic shared memory of the split kernel besides a cache policy's
+    own (csrc ``MmaLayout`` / ``SimtLayout::kBytes``), for q of
+    ``itemsize`` bytes over K/V stored in ``pool_itemsize`` (default q's;
+    1 is int8, which also stages each entry's two f32 scales): bf16 q, 2
+    stages of K and V [64] rows padded by 16 bytes; f32 q, 3 stages of
+    [tile][D] rows.  At least what a split reuses at its end: the 4 warps'
+    acc [8][D] f32 and the combine's 2 * 128 * 8 + 16 floats."""
+    S = itemsize if pool_itemsize is None else pool_itemsize
     tile = tile_entries(head_dim, itemsize)
+    scales = 8 * tile if S == 1 else 0
     if itemsize == 2:
-        return 2 * 2 * tile * (head_dim + 8) * 2
-    return 3 * 2 * tile * head_dim * 4
+        ring = 2 * (2 * tile * (head_dim * S + 16) + scales)
+    else:
+        ring = 3 * (2 * tile * head_dim * S + scales)
+    return max(ring, 4 * MAX_GROUP * head_dim * 4,
+               (2 * MAX_SPLITS * MAX_GROUP + 2 * MAX_GROUP) * 4)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -174,7 +186,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     part = scratch(B, KV, H // KV, D, splits, dev)
     with _build.on_device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = _build.stream_handle(dev)
         arrived = arrival_counters(dev, stream, B * KV)
         code = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         kv_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),

@@ -226,9 +226,15 @@ def dequantize_int8(q, scale):
 def dequantize_gather(pool, scale, block_table, dtype):
     """int8 pool [N,bs,KV,Dh], f32 scales [N,KV], block_table [B,M] ->
     each row's blocks [B, M*bs, KV, Dh] dequantized in f32 and rounded to
-    ``dtype`` (the reference's ``_dequantize_gather``)."""
-    if pool.device.type == "cpu":
-        return ref.ref_dequantize_gather(pool, scale, block_table, dtype)
+    ``dtype`` (the reference's ``_dequantize_gather``).  ``pool`` and
+    ``scale`` may also be pairs (K and V): a pair of results, from one
+    launch on the card."""
+    if isinstance(pool, torch.Tensor):
+        if pool.device.type == "cpu":
+            return ref.ref_dequantize_gather(pool, scale, block_table, dtype)
+    elif pool[0].device.type == "cpu":
+        return tuple(ref.ref_dequantize_gather(p, s, block_table, dtype)
+                     for p, s in zip(pool, scale))
     return _qt.dequantize_rows(pool, scale, block_table, dtype)
 
 

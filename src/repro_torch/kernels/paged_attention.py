@@ -17,14 +17,16 @@ Two entry points, each with its own launch counter:
   combines the splits' f32 partials, which this wrapper allocates.
 * :func:`paged_decode_attention_q8` replaces ``:92`` ``_paged_q8_kernel``
   (``paged_decode_attention_q8:157``): int8 pools with f32 per-(block,
-  kv head) scales, dequantized in registers as each tile is staged; one
-  CUDA block per (slot, kv head) follows the slot's table row through the
-  pool in tiles of up to 64 entries (the first version's design).
+  kv head) scales, through the same split kernel and planner.  The int8
+  rows move as int8 with each entry's two scales staged beside them; K's
+  scale multiplies the entry's f32 score and V's its p.  With bf16 q each
+  lane widens the int8 it loads to exact bf16 ``mma.sync`` fragments in
+  registers; with f32 q the CUDA-core kernel widens them to f32.
 
 Both walks stop at the first NULL column after column 0 (chains are
 contiguous, so such columns are the chain's unused tail); a slot with no
-valid entry averages V over its chain's entries.  The mask is the
-reference's: ``kv_pos >= 0 and kv_pos <= pos``.
+valid entry averages V (dequantized, for int8) over its chain's entries.
+The mask is the reference's: ``kv_pos >= 0 and kv_pos <= pos``.
 
 The plain versions are ``kernels.ref.ref_paged_decode_attention`` and
 ``ref_paged_decode_attention_q8``; ``kernels.ops`` dispatches by device.
@@ -42,10 +44,7 @@ from repro_torch.kernels import decode_attention as _da
 SOURCE = "paged_attention"
 NAME = "paged_decode_attention"
 NAME_Q8 = "paged_decode_attention_q8"
-MAX_HEAD_DIM = 256
-MAX_GROUP_WIDTH = 1024   # q8: G * D outputs per block (8 per thread)
 MAX_SMEM = 227 * 1024    # bytes of shared memory a block may use
-TARGET_TILE = 64         # q8: entries per tile (csrc kTargetTile)
 SPLIT_STATIC_SMEM = 4 * 1024   # the split kernel's bit mask, tile list,
                                # warp maxima
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,8 +65,8 @@ def _entry(name: str, n_ptrs: int, n_ints: int):
 
 
 def _check(q, k_pool, v_pool, pos_pool, block_table, pos, extra=()):
-    """Shape, type, device and layout checks shared by both entry points;
-    returns (B, H, KV, D, bs, M)."""
+    """Shape, type, device and layout checks shared by both entry
+    points."""
     ts = (q, k_pool, v_pool, pos_pool, block_table, pos, *extra)
     for t in ts:
         if not t.is_cuda:
@@ -102,7 +101,38 @@ def _check(q, k_pool, v_pool, pos_pool, block_table, pos, extra=()):
             raise ValueError("paged decode inputs must be on one device")
         if not t.is_contiguous():
             raise ValueError("paged decode kernels need contiguous inputs")
-    return B, H, KV, D, bs, block_table.shape[1]
+
+
+def _launch(name: str, q, pools, scales, pos_pool, block_table, pos,
+            pool_itemsize: int) -> torch.Tensor:
+    """Plan, allocate and launch one split decode over the paged pools
+    (``scales``: the int8 pools' two [N,KV] scale tensors, else none)."""
+    B, H, D = q.shape
+    bs, KV = pools[0].shape[1:3]
+    M = block_table.shape[1]
+    itemsize = q.element_size()
+    smem = (_da.stage_bytes(D, itemsize, pool_itemsize) + 4 * M
+            + SPLIT_STATIC_SMEM)
+    if D not in _da.HEAD_DIMS or H // KV > _da.MAX_GROUP or smem > MAX_SMEM:
+        raise ValueError(f"unsupported paged decode shape M={M} D={D} "
+                         f"G={H // KV} (D in {_da.HEAD_DIMS}, G <= "
+                         f"{_da.MAX_GROUP}, {smem} of {MAX_SMEM} bytes of "
+                         f"shared memory)")
+    splits, split_len = _da.plan_splits(B * KV, M * bs,
+                                        _da.tile_entries(D, itemsize), bs)
+    out = torch.empty_like(q)
+    dev = q.device
+    part = _da.scratch(B, KV, H // KV, D, splits, dev)
+    ptrs = [t.data_ptr() for t in (q, *pools, *scales, pos_pool, block_table,
+                                   pos, out, part)]
+    with _build.on_device(dev):
+        stream = _build.stream_handle(dev)
+        arrived = _da.arrival_counters(dev, stream, B * KV)
+        code = _entry(name, len(ptrs) + 1, 9)(
+            *ptrs, arrived.data_ptr(), B, H, KV, D, bs, M, splits,
+            split_len // bs, DTYPES[q.dtype], stream)
+    _build.check(SOURCE, code, f"{name} launch")
+    return out
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -115,32 +145,12 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     pos [B] int32; all contiguous on one CUDA device -> [B,H,D] in q's
     dtype."""
     global launches
-    B, H, KV, D, bs, M = _check(q, k_pool, v_pool, pos_pool, block_table,
-                                pos)
+    _check(q, k_pool, v_pool, pos_pool, block_table, pos)
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(f"q and the pools must share one dtype; got "
                          f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
-    itemsize = q.element_size()
-    smem = _da.stage_bytes(D, itemsize) + 4 * M + SPLIT_STATIC_SMEM
-    if D not in _da.HEAD_DIMS or H // KV > _da.MAX_GROUP or smem > MAX_SMEM:
-        raise ValueError(f"unsupported paged decode shape M={M} D={D} "
-                         f"G={H // KV} (D in {_da.HEAD_DIMS}, G <= "
-                         f"{_da.MAX_GROUP}, {smem} of {MAX_SMEM} bytes of "
-                         f"shared memory)")
-    splits, split_len = _da.plan_splits(B * KV, M * bs,
-                                        _da.tile_entries(D, itemsize), bs)
-    out = torch.empty_like(q)
-    dev = q.device
-    part = _da.scratch(B, KV, H // KV, D, splits, dev)
-    with _build.on_device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        arrived = _da.arrival_counters(dev, stream, B * KV)
-        code = _entry(NAME, 9, 9)(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            pos_pool.data_ptr(), block_table.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), part.data_ptr(), arrived.data_ptr(), B, H, KV, D,
-            bs, M, splits, split_len // bs, DTYPES[q.dtype], stream)
-    _build.check(SOURCE, code, "paged_decode_attention launch")
+    out = _launch(NAME, q, (k_pool, v_pool), (), pos_pool, block_table, pos,
+                  q.element_size())
     launches += 1
     return out
 
@@ -151,21 +161,12 @@ def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
                               block_table: torch.Tensor,
                               pos: torch.Tensor) -> torch.Tensor:
     """As :func:`paged_decode_attention` over int8 pools [N,bs,KV,D] with
-    f32 k_scale/v_scale [N,KV]; q f32 or bf16 -> [B,H,D] in q's dtype
-    (D <= 256, G * D <= 1024)."""
+    f32 k_scale/v_scale [N,KV] (one scale per pool block and kv head); q
+    f32 or bf16 -> [B,H,D] in q's dtype.  The same limits: H / KV <= 8, D
+    in ``decode_attention.HEAD_DIMS``."""
     global launches_q8
-    B, H, KV, D, bs, M = _check(q, k_pool, v_pool, pos_pool, block_table,
-                                pos, (k_scale, v_scale))
-    N = k_pool.shape[0]
-    G = H // KV
-    tile = bs * max(1, TARGET_TILE // bs)
-    smem = 4 * (G * D + tile * (2 * D + 1) + G * tile + 3 * G + M + tile)
-    if not 0 < D <= MAX_HEAD_DIM or G * D > MAX_GROUP_WIDTH \
-            or smem > MAX_SMEM:
-        raise ValueError(f"unsupported paged decode shape M={M} D={D} G={G} "
-                         f"bs={bs} (D <= {MAX_HEAD_DIM}, G*D <= "
-                         f"{MAX_GROUP_WIDTH}, {smem} of {MAX_SMEM} bytes of "
-                         f"shared memory)")
+    _check(q, k_pool, v_pool, pos_pool, block_table, pos, (k_scale, v_scale))
+    N, _, KV = k_pool.shape[:3]
     if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
         raise ValueError(f"the q8 kernel takes int8 pools; got "
                          f"{k_pool.dtype}, {v_pool.dtype}")
@@ -174,14 +175,7 @@ def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"k_scale/v_scale must be f32 [{N},{KV}]; got "
                          f"{k_scale.dtype} {tuple(k_scale.shape)}, "
                          f"{v_scale.dtype} {tuple(v_scale.shape)}")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        code = _entry(NAME_Q8, 9, 7)(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), pos_pool.data_ptr(),
-            block_table.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, KV,
-            D, bs, M, DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(SOURCE, code, "paged_decode_attention_q8 launch")
+    out = _launch(NAME_Q8, q, (k_pool, v_pool), (k_scale, v_scale), pos_pool,
+                  block_table, pos, 1)
     launches_q8 += 1
     return out

@@ -14,6 +14,9 @@ Three entry points, each with its own launch counter:
   table it emits each table row's blocks as one contiguous
   [B, M*bs, KV, Dh] gather in the activation dtype (the int8 chunk
   append's ``_dequantize_gather``, ``repro/models/attention.py:406``).
+  A thread moves 16 values (one 16-byte load of one (entry, kv head)
+  row's int8, one scale), so rows must be multiples of 16 long; K and V
+  go in one launch.
 * :func:`quantized_block_write` is the int8 pool's entry write
   (``repro/models/attention.py:378``, the reference's jnp form of
   ``block_quant``): clear the scales of blocks written at offset 0, grow
@@ -60,6 +63,7 @@ def _entry(name: str, argtypes: tuple):
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_DEQUANT_ARGS = (_P,) * 7 + (_I, _L) + (_I,) * 4 + (_P,)
 
 
 def _cuda(*ts, what: str) -> torch.device:
@@ -69,10 +73,6 @@ def _cuda(*ts, what: str) -> torch.device:
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"{what} inputs must be on one device")
     return ts[0].device
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def quantize_rows(x: torch.Tensor, *, block_size: Optional[int] = None,
@@ -106,62 +106,92 @@ def quantize_rows(x: torch.Tensor, *, block_size: Optional[int] = None,
                         device=dev)
         scale = torch.empty(R, B, nb, KV, dtype=torch.float32, device=dev)
         args = (R * B, T * KV * Dh, nb, block_size, KV, Dh, T)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         code = _entry("quantize_rows", (_P, _P, _P, _L, _L) + (_I,) * 6
                       + (_P,))(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                               *args, DTYPES[x.dtype], _stream(dev))
+                               *args, DTYPES[x.dtype],
+                               _build.stream_handle(dev))
     _build.check(SOURCE, code, "quantize_rows launch")
     launches_quant += 1
     return q, scale
 
 
-def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
-                    block_table: Optional[torch.Tensor] = None,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def dequantize_rows(q, scale, block_table: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.float32):
     """Without a table: q int8 [rows, n] x scale f32 [rows] -> f32
-    [rows, n].  With ``block_table`` [B,M] int32: int8 pool q [N,bs,KV,Dh]
-    with scale [N,KV] -> each row's blocks [B, M*bs, KV, Dh] in ``dtype``
-    (f32 or bf16; the product is taken in f32 and rounded once).  All
-    contiguous on one CUDA device."""
+    [rows, n] (n % 16 == 0).  With ``block_table`` [B,M] int32: int8 pool
+    q [N,bs,KV,Dh] with scale [N,KV] -> each row's blocks [B, M*bs, KV, Dh]
+    in ``dtype`` (f32 or bf16; the product is taken in f32 and rounded
+    once; Dh % 16 == 0).  ``q`` and ``scale`` are one tensor each, or two
+    (K and V, of one shape): then one launch computes both into one
+    buffer, returned as a pair of contiguous views.  All contiguous and
+    16-byte aligned on one CUDA device."""
     global launches_dequant
-    ts = (q, scale) + ((block_table,) if block_table is not None else ())
-    dev = _cuda(*ts, what="dequantize_rows")
-    if q.dtype != torch.int8 or scale.dtype != torch.float32 \
-            or dtype not in DTYPES:
-        raise ValueError(f"dequantize_rows takes int8 q, f32 scales and an "
-                         f"f32 or bf16 output; got {q.dtype}, {scale.dtype}, "
-                         f"{dtype}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("dequantize_rows needs contiguous inputs")
+    pair = not isinstance(q, torch.Tensor)
+    qs, ss = (tuple(q), tuple(scale)) if pair else ((q,), (scale,))
+    n = len(qs)
+    if not 1 <= n <= 2 or len(ss) != n:
+        raise ValueError("dequantize_rows takes one or two leaves")
+    q0, s0 = qs[0], ss[0]
+    idx = q0.get_device()
+    if idx < 0:
+        raise ValueError("dequantize_rows takes CUDA tensors; kernels.ops "
+                         "dispatches CPU tensors to the plain version")
+    if dtype not in DTYPES:
+        raise ValueError(f"dequantize_rows writes f32 or bf16; got {dtype}")
+    ts = qs + ss + (() if block_table is None else (block_table,))
+    for t in ts:
+        if t.get_device() != idx or not t.is_contiguous():
+            raise ValueError("dequantize_rows needs contiguous inputs on "
+                             "one CUDA device")
+    qshape, sshape = q0.shape, s0.shape
+    if any(x.dtype != torch.int8 for x in qs) \
+            or any(sc.dtype != torch.float32 for sc in ss) \
+            or (n == 2 and (qs[1].shape != qshape or ss[1].shape != sshape)):
+        got = [(t.dtype, tuple(t.shape)) for t in qs + ss]
+        raise ValueError(f"dequantize_rows takes int8 q and f32 scales of "
+                         f"one shape each; got {got}")
     if block_table is None:
-        if q.ndim != 2 or tuple(scale.shape) != (q.shape[0],) \
-                or 0 in q.shape:
-            raise ValueError(f"expected q [rows, n], scale [rows]; got "
-                             f"{tuple(q.shape)}, {tuple(scale.shape)}")
-        rows, (bs, KV, D) = q.shape[0], (1, 1, q.shape[1])
-        out = torch.empty(q.shape, dtype=dtype, device=dev)
+        if len(qshape) != 2 or sshape != qshape[:1] or 0 in qshape \
+                or qshape[1] % 16:
+            raise ValueError(f"expected q [rows, n] with n % 16 == 0, scale "
+                             f"[rows]; got {tuple(qshape)}, {tuple(sshape)}")
+        rows, bs, KV, D = qshape[0], 1, 1, qshape[1]
+        shape = qshape
         tbl = None
     else:
-        if q.ndim != 4 or tuple(scale.shape) != (q.shape[0], q.shape[2]) \
-                or block_table.ndim != 2 or block_table.dtype != torch.int32 \
-                or 0 in block_table.shape:
-            raise ValueError(f"expected pool [N,bs,KV,Dh], scale [N,KV], "
-                             f"int32 table [B,M]; got {tuple(q.shape)}, "
-                             f"{tuple(scale.shape)}, {block_table.dtype} "
-                             f"{tuple(block_table.shape)}")
-        B, M = block_table.shape
-        _, bs, KV, D = q.shape
+        tshape = block_table.shape
+        if len(qshape) != 4 or sshape != (qshape[0], qshape[2]) \
+                or qshape[3] % 16 or len(tshape) != 2 or 0 in tshape \
+                or block_table.dtype != torch.int32:
+            raise ValueError(f"expected pool [N,bs,KV,Dh] (Dh % 16 == 0), "
+                             f"scale [N,KV], int32 table [B,M]; got "
+                             f"{tuple(qshape)}, {tuple(sshape)}, "
+                             f"{block_table.dtype} {tuple(tshape)}")
+        B, M = tshape
+        _, bs, KV, D = qshape
         rows = B * M
-        out = torch.empty(B, M * bs, KV, D, dtype=dtype, device=dev)
+        shape = (B, M * bs, KV, D)
         tbl = block_table.data_ptr()
-    with torch.cuda.device(dev):
-        code = _entry("dequantize_rows", (_P, _P, _P, _P, _L) + (_I,) * 4
-                      + (_P,))(q.data_ptr(), scale.data_ptr(), tbl,
-                               out.data_ptr(), rows, bs, KV, D,
-                               DTYPES[dtype], _stream(dev))
+    dev = q0.device
+    out = torch.empty((n, *shape) if pair else shape, dtype=dtype,
+                      device=dev)
+    o = out.data_ptr()
+    step = out.numel() // n * out.element_size()   # bytes of a leaf's out
+    leaves = [(x.data_ptr(), sc.data_ptr(), o + i * step)
+              for i, (x, sc) in enumerate(zip(qs, ss))]
+    if any(leaf[0] % 16 for leaf in leaves):
+        raise ValueError("dequantize_rows reads q in 16-byte pieces: its "
+                         "data must be 16-byte aligned")
+    if n == 1:
+        leaves.append((None, None, None))
+    with _build.on_device(dev):
+        code = _entry("dequantize_rows", _DEQUANT_ARGS)(
+            *leaves[0], *leaves[1], tbl, n, rows, bs, KV, D, DTYPES[dtype],
+            _build.stream_handle(dev))
     _build.check(SOURCE, code, "dequantize_rows launch")
     launches_dequant += 1
-    return out
+    return out.unbind(0) if pair else out
 
 
 def quantized_block_write(pools: Sequence[torch.Tensor],
@@ -206,10 +236,11 @@ def quantized_block_write(pools: Sequence[torch.Tensor],
             for p, s, x in zip(pools, scale_pools, news)]
     if n == 1:
         ptrs.append((None, None, None))
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         code = _entry("quantized_block_write", (_P,) * 8 + (_I,) * 6
                       + (_P,))(*ptrs[0], *ptrs[1], write_bids.data_ptr(),
                                off.data_ptr(), n, R, bs, KV, D,
-                               DTYPES[news[0].dtype], _stream(dev))
+                               DTYPES[news[0].dtype],
+                               _build.stream_handle(dev))
     _build.check(SOURCE, code, "quantized_block_write launch")
     launches_write += 1

@@ -310,8 +310,9 @@ def attention_chunk_append_paged(x: torch.Tensor, params: dict,
             [k_pool, v_pool], [k_scale_pool, v_scale_pool],
             [k_new.reshape(B * C, KV, Dh), v_new.reshape(B * C, KV, Dh)],
             write_bids.reshape(-1), off.reshape(-1))
-        k = ops.dequantize_gather(k_pool, k_scale_pool, block_table, x.dtype)
-        v = ops.dequantize_gather(v_pool, v_scale_pool, block_table, x.dtype)
+        k, v = ops.dequantize_gather((k_pool, v_pool),
+                                     (k_scale_pool, v_scale_pool),
+                                     block_table, x.dtype)
     else:
         k_pool[bids, off.long()] = k_new.to(k_pool.dtype)
         v_pool[bids, off.long()] = v_new.to(v_pool.dtype)

@@ -163,7 +163,7 @@ def _edge_rows(T: int = 2048):
 
 
 def _split_rehearsal(q, k, v, kv_pos, pos, *, window, tile, splits,
-                     split_len):
+                     split_len, k_scale=None, v_scale=None, p_bf16=False):
     """csrc/split_decode.cuh's split-and-combine arithmetic in plain torch
     (f32, natural exp where the kernels take exp2 of scores scaled by
     log2(e): the same numbers) over a dense cache: per (row, kv head) each
@@ -172,7 +172,12 @@ def _split_rehearsal(q, k, v, kv_pos, pos, *, window, tile, splits,
     partial (m = -inf, l = 0) unless the row has no valid entry at all,
     when every tile of the split goes in with its scores at -1e30; tiles
     fold into an online softmax (masked -1e30, past the walk -inf); the
-    combine rescales by exp(m_s - m) and divides by max(l, 1e-30)."""
+    combine rescales by exp(m_s - m) and divides by max(l, 1e-30).
+
+    int8 K/V come with per-entry scales ``k_scale``/``v_scale`` [B,T,KV]:
+    K's multiplies the entry's score, V's its p (l sums p).  ``p_bf16``
+    rounds as the tensor-core kernel does: l sums p rounded to bf16 and
+    P·V takes p·vs rounded to bf16."""
     B, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -209,14 +214,20 @@ def _split_rehearsal(q, k, v, kv_pos, pos, *, window, tile, splits,
                     vv = torch.where(inside[:, None], v[b, t, h].float(),
                                      torch.zeros(()))
                     sc = qs[b, h * G:(h + 1) * G] @ kk.T
+                    if k_scale is not None:
+                        sc = sc * k_scale[b, t, h]
                     ok = inside & vs[torch.clamp(e, max=n - 1)] & (not idle)
                     sc = torch.where(ok, sc, torch.tensor(-1e30))
                     sc = torch.where(inside, sc, torch.tensor(-torch.inf))
                     m_new = torch.maximum(m, sc.max(-1).values)
                     corr = torch.exp(m - m_new)
                     p = torch.exp(sc - m_new[:, None])
+                    pv = p if v_scale is None else p * v_scale[b, t, h]
+                    if p_bf16:
+                        p = p.bfloat16().float()
+                        pv = pv.bfloat16().float()
                     l = l * corr + p.sum(-1)
-                    acc = acc * corr[:, None] + p @ vv
+                    acc = acc * corr[:, None] + pv @ vv
                     m = m_new
                 parts.append((m, l, acc))
             mx = torch.stack([pm for pm, _, _ in parts]).max(0).values
@@ -291,17 +302,26 @@ def test_split_plan_refuses_what_the_kernel_cannot_take():
         da_kernel.plan_splits(4, 20000, 64, 10000)
 
 
-@pytest.mark.parametrize("D,itemsize,tile", [
-    (16, 2, 64), (64, 2, 64), (128, 2, 64), (256, 2, 64), (16, 4, 128),
-    (64, 4, 32), (128, 4, 16), (256, 4, 16)])
-def test_split_tile_matches_the_kernel_layouts(D, itemsize, tile):
+@pytest.mark.parametrize("D,itemsize,pool,tile,ring", [
+    (16, 2, 2, 64, None), (64, 2, 2, 64, None), (128, 2, 2, 64, None),
+    (256, 2, 2, 64, None), (16, 4, 4, 128, None), (64, 4, 4, 32, None),
+    (128, 4, 4, 16, None), (256, 4, 4, 16, None),
+    # int8 pools (#9): bf16 q, 2 stages of [64][D + 16] int8 K and V + 64 K
+    # and 64 V f32 scales; f32 q, 3 stages of [tile][D] int8 + scales, at
+    # least the 4 warps' f32 acc [8][D]
+    (64, 2, 1, 64, 21504), (128, 2, 1, 64, 37888), (256, 2, 1, 64, 70656),
+    (64, 4, 1, 32, 13056), (128, 4, 1, 16, 16384), (256, 4, 1, 16, 32768)])
+def test_split_tile_matches_the_kernel_layouts(D, itemsize, pool, tile,
+                                               ring):
     """csrc MmaLayout::kTile (bf16: 16 entries a warp, 4 warps) and
-    SimtLayout::kTile (f32: 4 passes of 4 warps, 32 / (D * 4 / 16) rows a
-    pass: 16 bytes a lane, at most 32 lanes a row)."""
+    SimtLayout::kTile (f32: 4 passes of 4 warps, 32 / (D / 4) rows a pass:
+    4 values a lane, at most 32 lanes a row), and each layout's kBytes
+    (the ring of stages, for int8 with the entries' scales)."""
     assert da_kernel.tile_entries(D, itemsize) == tile
-    ring = da_kernel.stage_bytes(D, itemsize)
-    assert ring == (4 * tile * (D + 8) * 2 if itemsize == 2
-                    else 6 * tile * D * 4)
+    if ring is None:
+        ring = (4 * tile * (D + 8) * 2 if itemsize == 2
+                else 6 * tile * D * 4)
+    assert da_kernel.stage_bytes(D, itemsize, pool) == ring
 
 
 def _paged_chains(M: int = 128, bs: int = 16, N: int = 300, KV: int = 2,
@@ -354,6 +374,67 @@ def test_paged_split_rehearsal_matches_reference():
                                         splits=splits, split_len=split_len)
     want = ref.ref_paged_decode_attention(q, kp, vp, pos_pool, table, pos)
     _close(got, want, TOL["paged"][torch.float32])
+
+
+def _quantize_pools(kp, vp):
+    """int8 pools and their f32 per-(block, kv head) max-abs / 127 scales
+    [N,KV] from f32 pools [N,bs,KV,D] (torch)."""
+    out = []
+    for x in (kp, vp):
+        sc = x.abs().amax(dim=(1, 3)) / 127.0
+        out.append((torch.round(x / sc[:, None, :, None]).to(torch.int8), sc))
+    (kq, ks), (vq, vs) = out
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("bs", [16, 48])
+@pytest.mark.parametrize("p_bf16", [False, True])
+def test_paged_q8_split_rehearsal_matches_reference_and_pallas(jref, bs,
+                                                               p_bf16):
+    """The split rules over int8 pools, with K's scale on the score and
+    V's folded into p, on chains of 1 and 128 blocks sharing their first
+    block, a 37-block chain and an idle row, at a block size that tiles
+    and one (48) whose blocks straddle the kernels' tiles: against the
+    plain version and the reference's Pallas kernel (interpret mode) in
+    f32; with p and p·vs rounded to bf16 as the tensor-core kernel rounds
+    them, against the plain version at the bf16 tolerance.  The idle row
+    is the uniform mean of the dequantized V its walk covers (column 0,
+    the NULL block)."""
+    from repro.kernels.paged_attention import paged_decode_attention_q8
+    jnp = jref["jnp"]
+    q, kp, vp, pos_pool, table, pos = (torch.from_numpy(a) for a in
+                                       _paged_chains(bs=bs, seed=51))
+    kq, vq, ks, vs = _quantize_pools(kp, vp)
+    B, M = table.shape
+    KV, D = kp.shape[2], q.shape[2]
+    G = q.shape[1] // KV
+    # the tile of the kernel that rounds so: bf16 q on the tensor cores
+    tile = da_kernel.tile_entries(D, 2 if p_bf16 else 4)
+    splits, split_len = da_kernel.plan_splits(B * KV, M * bs, tile, bs)
+    got = torch.empty_like(q)
+    for b in range(B):
+        nulls = (table[b, 1:] == 0).nonzero()
+        cols = 1 + int(nulls[0]) if len(nulls) else M
+        flat = table[b, :cols].long()
+        k = kq[flat].reshape(1, cols * bs, KV, D)
+        v = vq[flat].reshape(1, cols * bs, KV, D)
+        k_scale, v_scale = (x[flat].repeat_interleave(bs, 0)[None]
+                            for x in (ks, vs))
+        kv_pos = pos_pool[flat].reshape(1, cols * bs)
+        got[b:b + 1] = _split_rehearsal(
+            q[b:b + 1], k, v, kv_pos, pos[b:b + 1], window=0, tile=tile,
+            splits=splits, split_len=split_len, k_scale=k_scale,
+            v_scale=v_scale, p_bf16=p_bf16)
+    args = (q, kq, vq, ks, vs, pos_pool, table, pos)
+    want = ref.ref_paged_decode_attention_q8(*args)
+    tol = TOL["paged"][torch.bfloat16 if p_bf16 else torch.float32]
+    _close(got, want, tol, "vs plain version")
+    if not p_bf16:
+        pallas = paged_decode_attention_q8(
+            *(jnp.asarray(a.numpy()) for a in args), interpret=True)
+        _close(got, pallas, tol, "vs Pallas")
+    idle = (vq[0].float() * vs[0][None, :, None]).mean(0)     # [KV, D]
+    _close(got[3], idle.repeat_interleave(G, 0), tol, "idle row")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -919,21 +1000,61 @@ def test_paged_kernel_matches_plain(cuda, dtype, H, KV, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KV,D", [(8, 2, 64), (6, 1, 64), (4, 4, 64),
-                                    (12, 4, 64), (24, 8, 128)])
+                                    (12, 4, 64), (24, 8, 128), (16, 2, 128),
+                                    (16, 2, 256), (8, 1, 256)])
 def test_paged_q8_kernel_matches_plain(cuda, dtype, H, KV, D):
+    """Also 8 q heads a kv head at head dims 128 and 256 (gemma-2b's int8
+    pool: G * D up to 2048, which the first version refused)."""
     q, kp, vp, pos_pool, table, pos = (
         torch.from_numpy(a).to(cuda) for a in _paged_case(H, KV, D, 31))
     q = q.to(dtype)
-    ks = kp.abs().amax(dim=(1, 3)) / 127.0                  # [N, KV]
-    vs = vp.abs().amax(dim=(1, 3)) / 127.0
-    kq = torch.round(kp / ks[:, None, :, None]).to(torch.int8)
-    vq = torch.round(vp / vs[:, None, :, None]).to(torch.int8)
+    kq, vq, ks, vs = _quantize_pools(kp, vp)
     got = pa_kernel.paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
                                               table, pos)
     want = ref.ref_paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
                                              table, pos)
     torch.cuda.synchronize()
     _close(got.float().cpu(), want.float().cpu(), TOL["paged"][dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 48])
+@pytest.mark.parametrize("H,KV,D", [(8, 2, 64), (12, 4, 64), (24, 8, 128),
+                                    (16, 2, 256)])
+def test_paged_q8_split_kernel_matches_plain_on_long_chains(cuda, dtype, bs,
+                                                            H, KV, D):
+    """The int8 split kernel on chains of 1 and 128 blocks sharing their
+    first block, a 37-block chain and an idle row (table all NULL), 128
+    table columns, at a block size that tiles and one that does not."""
+    q, kp, vp, pos_pool, table, pos = (
+        torch.from_numpy(a).to(cuda)
+        for a in _paged_chains(bs=bs, KV=KV, D=D, H=H, seed=52))
+    kq, vq, ks, vs = _quantize_pools(kp, vp)
+    args = (q.to(dtype), kq, vq, ks, vs, pos_pool, table, pos)
+    got = pa_kernel.paged_decode_attention_q8(*args)
+    want = ref.ref_paged_decode_attention_q8(*args)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["paged"][dtype])
+
+
+@pytest.mark.cuda
+def test_paged_q8_kernel_takes_the_split_limits(cuda):
+    """#9 takes #8's limits: G <= 8 at any head dim of HEAD_DIMS (the
+    first version's G * D <= 1024 is gone); G > 8 is refused."""
+    q, kp, vp, pos_pool, table, pos = (
+        torch.from_numpy(a).to(cuda) for a in _paged_case(16, 1, 256, 32))
+    kq, vq, ks, vs = _quantize_pools(kp, vp)
+    with pytest.raises(ValueError, match="G=16"):
+        pa_kernel.paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
+                                            table, pos)
+    q = q.reshape(q.shape[0], 2, 8, 256)[:, 0].contiguous()   # G * D 2048
+    got = pa_kernel.paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
+                                              table, pos)
+    want = ref.ref_paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
+                                             table, pos)
+    torch.cuda.synchronize()
+    _close(got.cpu(), want.cpu(), TOL["paged"][torch.float32])
 
 
 @pytest.mark.cuda
@@ -1218,6 +1339,25 @@ def test_quant_kv_tiles_plain_equals_rows():
     assert not q[:, :, 20:].any()
 
 
+def test_dequantize_gather_of_two_leaves_equals_two_calls():
+    """``ops.dequantize_gather`` over K and V at once (the int8 chunk
+    append's one call a layer) gives each leaf's one-leaf gather exactly,
+    in f32 and bf16."""
+    rng = np.random.default_rng(45)
+    pools = [torch.from_numpy(rng.integers(-127, 128, (40, 8, 2, 16))
+                              .astype(np.int8)) for _ in range(2)]
+    scales = [torch.from_numpy((rng.random((40, 2)) * 0.05)
+                               .astype(np.float32)) for _ in range(2)]
+    table = torch.from_numpy(rng.integers(2, 40, (3, 5)).astype(np.int32))
+    for dtype in (torch.float32, torch.bfloat16):
+        got = ops.dequantize_gather(pools, scales, table, dtype)
+        assert isinstance(got, tuple) and len(got) == 2
+        for g, p, sc in zip(got, pools, scales):
+            one = ops.dequantize_gather(p, sc, table, dtype)
+            assert g.dtype == dtype and g.shape == (3, 40, 2, 16)
+            assert torch.equal(g, one)
+
+
 def _write_case(kind, seed, N=64, bs=16, KV=4, Dh=64):
     """int8 pools (recycled storage: random payload and scales) and a write
     plan: ``decode`` is 16 one-token rows (active slots on distinct blocks,
@@ -1293,6 +1433,29 @@ def test_dequantize_gather_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_gather_kernel_takes_k_and_v_in_one_launch(cuda, dtype):
+    """#11 over K and V pools at once: one launch, two contiguous views of
+    one buffer, each bit for bit the plain gather of its leaf."""
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    pools = [torch.randint(-127, 128, (2050, 16, 4, 64), generator=gen,
+                           device=cuda, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(2050, 4, generator=gen, device=cuda) * 0.05
+              for _ in range(2)]
+    table = torch.zeros(3, 128, dtype=torch.int32, device=cuda)
+    table[:, :90] = (torch.randperm(2048, generator=gen, device=cuda)[:270]
+                     + 2).reshape(3, 90)
+    before = qt_kernel.launches_dequant
+    got = qt_kernel.dequantize_rows(pools, scales, table, dtype)
+    assert qt_kernel.launches_dequant == before + 1
+    for g, p, sc in zip(got, pools, scales):
+        assert g.shape == (3, 2048, 4, 64) and g.is_contiguous()
+        assert torch.equal(g, ref.ref_dequantize_gather(p, sc, table, dtype))
+    assert got[1].data_ptr() == got[0].data_ptr() + got[0].nbytes
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["decode", "chunk"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_block_write_kernel_matches_plain(cuda, kind, dtype):
@@ -1324,6 +1487,11 @@ def test_quant_kernels_refuse_bad_inputs(cuda):
     q = torch.zeros(4, 16, device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError, match="int8 q"):
         qt_kernel.dequantize_rows(q.float(), torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError, match="n % 16"):
+        qt_kernel.dequantize_rows(q[:, :12].contiguous(),
+                                  torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError, match="one or two leaves"):
+        qt_kernel.dequantize_rows([q] * 3, [torch.zeros(4, device=cuda)] * 3)
     idx = torch.zeros(2, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         qt_kernel.quantized_block_write(
