@@ -1073,7 +1073,8 @@ def grad_errs(errs: dict, i: int) -> dict:
                max_abs_want=bf["max"])
     for case, rs in errs.items():
         if case != "bfloat16":
-            key = "f32" if case == "float32" else f"f32_{case}"
+            key = ("f32" if case == "float32" else
+                   case if case.startswith("bf16_") else f"f32_{case}")
             out[f"max_abs_err_{key}"] = rs[i]["err"]
             out[f"rel_err_{key}"] = rs[i]["rel"]
     return out
@@ -1084,9 +1085,10 @@ def backward_kernels(torch, timer) -> dict:
     train path's shapes (exanode-100m, batch 8 x 512: attention q in the
     model's [B,S,H,D] -> [B,H,S,D] view, FFN rows 4096), f32 and bf16;
     attention also ragged with a window and at llama3.2-3b's 24 / 8 heads
-    of dim 128, the FFN at llama3.2-3b's widths, both f32.  Times in bf16.
-    The plain versions and the library yardsticks compute all of a pair's
-    grads in one call, so each pair's two rows share those times."""
+    of dim 128 (f32 and bf16), the FFN at llama3.2-3b's widths in f32.
+    Times in bf16, attention at both head dims.  The plain versions and
+    the library yardsticks compute all of a pair's grads in one call, so
+    each pair's two rows share those times."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ffn
@@ -1119,40 +1121,75 @@ def backward_kernels(torch, timer) -> dict:
     for dt in (f32, bf16):
         name = str(dt).split(".")[1]
         errs[name] = attn_errs(*(t.to(dt) for t in base), name, "causal")
-    errs["ragged"] = attn_errs(*(t[:, :, :500] for t in base), "float32",
-                               "S=500 window=128", window=128)
-    errs["d128"] = attn_errs(*attn(2, 512, 24, 8, 128), "float32",
+    for dt in ("float32", "bfloat16"):
+        tag = "" if dt == "float32" else "bf16_"
+        cut = (t[:, :, :500].to(getattr(torch, dt)) for t in base)
+        errs[tag + "ragged"] = attn_errs(*cut, dt, "S=500 window=128",
+                                         window=128)
+    # llama3.2-3b's 24 / 8 heads of 128 at its train shape, batch 8 x 512
+    wide = attn(8, 512, 24, 8, 128)
+    errs["d128"] = attn_errs(*(t[:2] for t in wide), "float32",
                              "24/8 heads of dim 128")
-    q, k, v, do = (t.to(bf16) for t in base)
-    o, lse = fa.flash_attention(q, k, v, causal=True)
-    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
-    pairs = B * H * S * (S + 1) / 2                 # causal pairs only
-    stats = B * H * S * 4                           # one f32 per row
-    plain_ms = timer.ms(lambda: ref.ref_attention_bwd(q, k, v, o, lse, do))
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                        enable_gqa=True)
-    library_ms = timer.ms(lambda: torch.autograd.grad(
-        ol, (ql, kl, vl), do, retain_graph=True))
-    shape = (f"q/dO [{B},{H},{S},{D}] k/v [{B},{KV},{S},{D}] causal bf16, "
-             f"q/k/v/dO strided [B,S,H,D] views")
-    common = dict(plain_ms=plain_ms, library_ms=library_ms,
-                  plain="ref_attention_bwd (dq, dk, dv in one call)",
+    errs["bf16_d128"] = attn_errs(*(t.to(bf16) for t in wide), "bfloat16",
+                                  "24/8 heads of dim 128")
+    common = dict(plain="ref_attention_bwd (dq, dk, dv in one call)",
                   library="backward of torch.nn.functional."
                           "scaled_dot_product_attention with enable_gqa "
                           "(dq, dk, dv in one call)")
-    out = {}
-    for i, (name, fn, nb, flops) in enumerate((
-            (fa.NAME_BWD_DQ,
-             lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do),
-             nbytes(q, k, v, o, do, q) + 2 * stats, 6 * D * pairs),
-            (fa.NAME_BWD_DKV,
-             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-             nbytes(q, k, v, do, k, v) + 2 * stats, 8 * D * pairs))):
-        b_ms, b_by = bound(nb, flops, "bfloat16")
-        out[name] = dict(
-            shape=shape, **grad_errs(errs, i), ms=timer.ms(fn),
-            bound_ms=b_ms, bound_by=b_by, **common)
+
+    def attn_times(q, k, v, do) -> dict:
+        """#4 and #5 at one shape: each kernel's times, the two as the
+        train path launches them, the plain backward and SDPA's backward,
+        whose times both rows share."""
+        B, H, S, D = q.shape
+        o, lse = fa.flash_attention(q, k, v, causal=True)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+        pairs = B * H * S * (S + 1) / 2                 # causal pairs only
+        stats = B * H * S * 4                           # one f32 per row
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                            enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(ol, (ql, kl, vl), do,
+                                       retain_graph=True)
+
+        def bwd():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do)
+        shared = dict(
+            plain_ms=timer.ms(lambda: ref.ref_attention_bwd(q, k, v, o, lse,
+                                                            do)),
+            library_ms=timer.ms(library),
+            library_device_ms=timer.device_ms(library),
+            library_host_us=timer.host_us(library),
+            backward_ms=timer.ms(bwd), backward_device_ms=timer.device_ms(bwd),
+            backward_host_us=timer.host_us(bwd),
+            backward="flash_attention_bwd: the inputs checked once, #4 then "
+                     "#5, as ops.FlashAttention.backward runs them")
+        rows = {}
+        for name, fn, nb, flops in (
+                (fa.NAME_BWD_DQ,
+                 lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do),
+                 nbytes(q, k, v, o, do, q) + 2 * stats, 6 * D * pairs),
+                (fa.NAME_BWD_DKV,
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                    delta),
+                 nbytes(q, k, v, do, k, v) + 2 * stats, 8 * D * pairs)):
+            b_ms, b_by = bound(nb, flops, "bfloat16")
+            rows[name] = dict(
+                shape=f"q/dO [{B},{H},{S},{D}] k/v {list(k.shape)} causal "
+                      f"bf16, q/k/v/dO strided [B,S,H,D] views (route "
+                      f"{fa.route_bwd(q.dtype, D)})",
+                ms=timer.ms(fn), device_ms=timer.device_ms(fn),
+                host_us=timer.host_us(fn),
+                bound_ms=b_ms, bound_by=b_by, **shared, **common)
+        return rows
+
+    out = attn_times(*(t.to(bf16) for t in base))
+    d128 = attn_times(*(t.to(bf16) for t in wide))
+    del wide
+    for i, name in enumerate((fa.NAME_BWD_DQ, fa.NAME_BWD_DKV)):
+        out[name].update(grad_errs(errs, i), d128=d128[name])
 
     N, D, Fd = 4096, 768, 2048
 
@@ -1279,6 +1316,28 @@ def backward_kernels(torch, timer) -> dict:
     return out
 
 
+def flash_bwd_line(entries: dict, gpu: str) -> str:
+    """#4 and #5 at both head dims: device and host time of each kernel,
+    the pair as the train path launches it, and SDPA's backward."""
+    parts = []
+    for key in (None, "d128"):
+        dq, dkv = (entries[n] if key is None else entries[n][key]
+                   for n in ("flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv"))
+        parts.append(
+            f"{dq['shape']}: dq {dq['ms']:.4f} ms, device "
+            f"{dq['device_ms']:.4f}, host {dq['host_us']:.1f} us; dkv "
+            f"{dkv['ms']:.4f} ms, device {dkv['device_ms']:.4f}, host "
+            f"{dkv['host_us']:.1f} us; both {dq['backward_ms']:.4f} "
+            f"ms, device {dq['backward_device_ms']:.4f}, host "
+            f"{dq['backward_host_us']:.1f} us; SDPA backward "
+            f"{dq['library_ms']:.4f} ms, device "
+            f"{dq['library_device_ms']:.4f}, host "
+            f"{dq['library_host_us']:.1f} us; plain {dq['plain_ms']:.3f} "
+            f"ms; bounds {dq['bound_ms']:.5f} / {dkv['bound_ms']:.5f}")
+    return "flash_bwd: " + " | ".join(parts) + f" [{gpu}]"
+
+
 def train_phase(torch, gpu: str) -> tuple[str, dict]:
     """Full-width training: an f32 step's loss and grads on the card
     against the CPU, then the bf16 training run with the launch counters
@@ -1365,8 +1424,10 @@ FLASH_FWD_KERNELS = ("flash_fwd_kernel", "flash_fwd_tc_kernel")
 DECODE_KERNELS = ("split_decode_kernel", "split_decode_mma_kernel")
 PROFILE_GROUPS = (
     ("flash_attention (fwd)", FLASH_FWD_KERNELS),
-    ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",
+                                "flash_bwd_dq_tc_kernel")),
+    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",
+                                 "flash_bwd_dkv_tc_kernel")),
     ("fused_ffn (fwd)", FFN_FWD_KERNELS),
     ("fused_ffn_bwd_dx", ("ffn_bwd_dx_kernel", "ffn_bwd_grad_tc_kernel",
                           "ffn_bwd_dx_tc_kernel")),
@@ -1443,6 +1504,9 @@ def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
     for key, us in per.items():
         name = next((n for n, subs in PROFILE_GROUPS
                      if any(x in key for x in subs)), "other")
+        if name == "other" and "flash_" in key:
+            raise AssertionError(f"train_profile: flash kernel {key} falls "
+                                 f"in no group")
         groups[name] += us
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
@@ -2514,6 +2578,7 @@ def main() -> int:
             f" bound "
             f"{entries['decode_attention']['jamba_width']['bound_ms']:.4f})"
             + f"; tolerances {TOL} [{gpu}]", flush=True)
+        print(flash_bwd_line(entries, gpu), flush=True)
         print(split_sweep(torch, gpu, args.iters), flush=True)
     if "model" in phases:
         print(model_phase(torch), flush=True)

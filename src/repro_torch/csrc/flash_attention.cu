@@ -17,7 +17,8 @@
 // 64, 64 at D 128) through a ring of shared-memory stages (4-D tensor maps
 // over (D, rows, heads, batch) with the tensors' own strides, so the
 // model's [B,S,H,D] views are read as they lie; 128-byte swizzle;
-// mbarriers, as gemm_sm90.cuh).  The consumer warpgroup computes S = Q·Kᵀ
+// mbarriers, as gemm_sm90.cuh; the pieces the backward shares are in
+// flash_tc.cuh).  The consumer warpgroup computes S = Q·Kᵀ
 // on wgmma (Q and K both K-major from shared memory, f32 accumulators in
 // registers), runs the online softmax on those registers (the row max and
 // sum over the four threads that share a row; the scale applied once, to
@@ -45,7 +46,7 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "gemm_sm90.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -265,13 +266,14 @@ constexpr int kCW = 1;                // consumer warpgroups
 constexpr int kBQ = 64 * kCW;         // q rows a block
 constexpr int kThreads = 128 * kCW + 32;
 constexpr int kBlocksPerSM = 2;
-constexpr float kLog2e = 1.4426950408889634f;
+using flash_tc::exp2_approx;
+using flash_tc::kLog2e;
 
 template <int D>
 struct Tile {
   static constexpr int BK = D == 64 ? 128 : 64;   // keys a stage
   static constexpr int DC = D / 64;                // 64-wide column chunks
-  static constexpr int kChunk = 64 * 64 * 2;       // one Q box [64 rows][64]
+  static constexpr int kChunk = flash_tc::kChunk;  // one Q box [64 rows][64]
   static constexpr int kKBytes = BK * D * 2;       // K (and V) of a stage
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kStageBytes = 2 * kKBytes;
@@ -284,13 +286,6 @@ struct Tile {
   static_assert(kStages >= 2, "two K/V stages do not fit");
 };
 
-// 2^x (PTX ex2.approx: relative error ~2^-22; results below 2^-126 are 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 struct Params {
   CUtensorMap q, k, v;  // (D, rows, heads, batch), boxes (64, 64 | BK, 1, 1)
   __nv_bfloat16* o;
@@ -299,25 +294,6 @@ struct Params {
   int B, H, group, S, T, n_qt, causal, window;
   float scale;  // D^-0.5
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-template <int N>
-__device__ __forceinline__ void mma_qk(float (&d)[N / 2], uint64_t a,
-                                       uint64_t b) {
-  if constexpr (N == 128) tc::wgmma_n128<0, 0>(d, a, b, 1);
-  else tc::wgmma_n64<0, 0>(d, a, b, 1);
-}
-
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&d)[D / 2],
-                                       const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 128) tc::wgmma_rs_n128(d, a, b);
-  else tc::wgmma_rs_n64(d, a, b);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
@@ -408,9 +384,9 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int c = kk / 4, off = (kk % 4) * 32;
-      mma_qk<BK>(sc,
-                 tc::desc(qs + (wg * DC + c) * Tl::kChunk + off, 16, 1024),
-                 tc::desc(st + c * BK * 128 + off, 16, 1024));
+      flash_tc::mma_kk<BK>(
+          sc, tc::desc(qs + (wg * DC + c) * Tl::kChunk + off, 16, 1024),
+          tc::desc(st + c * BK * 128 + off, 16, 1024));
     }
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
@@ -468,21 +444,16 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
       }
     }
 
-    // P in bf16 as wgmma's register A: k16 step kk's four registers are
-    // the accumulator pairs 8 kk + {0, 2, 4, 6}
+    // P in bf16 as wgmma's register A
     uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+    flash_tc::to_a<BK>(pa, sc);
     tc::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       // V MN-major: 64-wide D chunks BK*128 bytes apart (LBO), 8-key groups
       // 1024 bytes apart (SBO), k16 steps 16 keys = 2 KB
-      mma_pv<D>(o, pa[kk],
-                tc::desc(st + Tl::kKBytes + kk * 16 * 128, BK * 128, 1024));
+      flash_tc::mma_rs<D>(o, pa[kk], tc::desc(st + Tl::kKBytes + kk * 2048,
+                                              BK * 128, 1024));
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::mbar_arrive(empty0 + 8 * s);
@@ -508,32 +479,7 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// The 4-D map of a bf16 tensor [batch][heads][rows][D] with element strides
-// (sb, sh, sr) and a contiguous D, read in boxes of (64, box_rows, 1, 1),
-// 128-byte swizzle, zeros past the edges.
-cudaError_t map_4d(CUtensorMap* map, const void* ptr, int B, int H, int rows,
-                   int D, int64_t sb, int64_t sh, int64_t sr, int box_rows) {
-  tc::EncodeTiled fn = tc::encoder();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || sb % 8 || sh % 8 || sr % 8)
-    return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sr) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                          const_cast<void*>(ptr), dims, strides, box, elem,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
+using flash_tc::map_4d;
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,

@@ -31,8 +31,14 @@ The backward (:func:`flash_attention_bwd`) replaces the TPU kernels
 (one block per batch, head and 64-row q tile) also writes ``delta =
 rowsum(dO ⊙ O)`` for the dkv kernel (one block per batch, kv head and
 64-key tile, looping over the kv head's q heads, so grouped dK/dV are
-summed in f32 inside the block).  Both recompute ``p = exp(s − lse)`` from
-the forward's lse, with p = 0 where the forward masked.
+summed in f32 inside the block, without atomics).  Both recompute ``p =
+exp(s − lse)`` from the forward's lse, with p = 0 where the forward
+masked.  :func:`route_bwd` picks them as :func:`route` picks the forward:
+bf16 at head dims 64 and 128 on the tensor cores (TMA loads of
+q/k/v/dO, wgmma products, P and dS rounded to bf16 as register A; dO is
+copied when TMA cannot load it as it lies), f32 and bf16 at 16 and 32 on
+the SIMT kernels.  Head dim 256 has no backward (dK and dV alone would
+take 256 f32 registers a thread).
 
 The plain versions are ``kernels.ref.ref_attention`` and
 ``ref_attention_bwd``; ``kernels.ops`` dispatches between them and the
@@ -53,7 +59,7 @@ NAME_BWD_DKV = "flash_attention_bwd_dkv"
 BWD_LIB = "flash_attention_bwd"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128)            # bf16 on the tensor cores
-BWD_HEAD_DIMS = (16, 32, 64, 128)   # the backward's f32 tiles in smem
+BWD_HEAD_DIMS = (16, 32, 64, 128)   # the backward's (no 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -67,16 +73,19 @@ launches_dkv = 0
 
 @functools.cache
 def _bwd_entries():
+    """(dq, dkv) SIMT entries, then (dq, dkv) tensor-core ones; the latter
+    take no dtype."""
     lib = _build.library(BWD_LIB)
-    common = ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
-              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    dq = lib.repro_flash_attention_bwd_dq
-    dq.argtypes = [ctypes.c_void_p] * 8 + common
-    dq.restype = ctypes.c_int
-    dkv = lib.repro_flash_attention_bwd_dkv
-    dkv.argtypes = [ctypes.c_void_p] * 8 + common
-    dkv.restype = ctypes.c_int
-    return dq, dkv
+    common = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+              + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 2)
+    fns = (lib.repro_flash_attention_bwd_dq, lib.repro_flash_attention_bwd_dkv,
+           lib.repro_flash_attention_bwd_dq_tc,
+           lib.repro_flash_attention_bwd_dkv_tc)
+    for i, fn in enumerate(fns):
+        fn.argtypes = common + ([ctypes.c_int] if i < 2 else []) + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
 
 
 @functools.cache
@@ -99,19 +108,25 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
             else "simt")
 
 
+def _tma_able(t: torch.Tensor) -> bool:
+    """Whether a TMA map can take ``t`` as it lies: 16-byte aligned, each
+    (batch, head, row) stride a multiple of 8 elements (16 bytes), but a
+    size-1 dim's, which is never stepped."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def _tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
-    """The (batch, head, row) element strides a TMA map of ``t`` takes:
-    each a multiple of 8 elements (16 bytes); a size-1 dim's stride is never
-    stepped, so it is taken as 8.  Raises on any other layout."""
-    out = tuple(st if n > 1 else 8 for n, st in zip(t.shape[:3],
-                                                     t.stride()[:3]))
-    if any(st % 8 for st in out) or t.data_ptr() % 16:
+    """The (batch, head, row) element strides a TMA map of ``t`` takes (a
+    size-1 dim's as 8).  Raises where :func:`_tma_able` says no."""
+    if not _tma_able(t):
         raise ValueError(
             f"the tensor-core flash kernel's TMA loads need 16-byte aligned "
             f"tensors and strides that are multiples of 8 elements; got "
             f"strides {tuple(t.stride())} at offset {t.data_ptr() % 16} "
             f"(copy the tensor to take it)")
-    return out
+    return tuple(st if n > 1 else 8 for n, st in zip(t.shape[:3],
+                                                      t.stride()[:3]))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -166,6 +181,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse
 
 
+def route_bwd(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels for (dtype, head dim), as :func:`route` names
+    the forward's: ``"tc"`` (bf16 at head dims 64 and 128, on the tensor
+    cores) or ``"simt"`` (f32; bf16 at head dims 16 and 32).  Head dim 256
+    has no backward (dK and dV alone would take 256 f32 registers a
+    thread): it raises."""
+    if head_dim not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in {BWD_HEAD_DIMS} "
+                         f"(backward)")
+    return route(dtype, head_dim)
+
+
 def _check_bwd(q, k, v, rows: tuple, stats: tuple, what: str):
     """Validate backward inputs: q and ``rows`` (out / dout) [B,H,S,D],
     k/v [B,Hkv,T,D] in one dtype, ``stats`` (lse / delta) contiguous f32
@@ -191,8 +218,6 @@ def _check_bwd(q, k, v, rows: tuple, stats: tuple, what: str):
            or not t.is_contiguous() for t in stats):
         raise ValueError(f"lse/delta must be contiguous f32 [B,H,S]; got "
                          f"{[(t.dtype, tuple(t.shape)) for t in stats]}")
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {BWD_HEAD_DIMS} (backward)")
     if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
         raise ValueError(f"q/k/v/out/dout must share one dtype of "
                          f"{list(DTYPES)}; got {[t.dtype for t in ts]}")
@@ -203,8 +228,17 @@ def _check_bwd(q, k, v, rows: tuple, stats: tuple, what: str):
     return B, H, Hkv, S, k.shape[2], D
 
 
-def _strides(*ts):
-    return (ctypes.c_int64 * 18)(*(x for t in ts for x in t.stride()[:3]))
+def _strides(tc: bool, ins, outs):
+    """The 18 (batch, head, row) element strides of the six tensors a
+    backward kernel takes: its inputs through :func:`_tma_strides` on the
+    tensor-core route, as they are on the SIMT one; its outputs as they
+    are."""
+    if tc:
+        ins = [x for t in ins for x in _tma_strides(t)]
+    else:
+        ins = [x for t in ins for x in t.stride()[:3]]
+    return (ctypes.c_int64 * 18)(*ins, *(x for t in outs
+                                           for x in t.stride()[:3]))
 
 
 def _window(causal: bool, window: int) -> int:
@@ -213,28 +247,65 @@ def _window(causal: bool, window: int) -> int:
     return int(window) if causal else 0
 
 
+def _tc(q) -> bool:
+    return route_bwd(q.dtype, q.shape[-1]) == "tc"
+
+
+def _dq(q, k, v, out, lse, dout, shape, causal, window, tc):
+    """Launch the dq kernel on checked inputs -> (dq, delta)."""
+    global launches_dq
+    B, H, Hkv, S, T, D = shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = _strides(tc, (q, k, v, out, dout), (dq,))
+    dev = q.device
+    fns = _bwd_entries()
+    with _build.on_device(dev):
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), B, H, Hkv, S, T, D, strides, int(causal),
+                window)
+        stream = _build.stream_handle(dev)
+        code = (fns[2](*args, stream) if tc
+                else fns[0](*args, DTYPES[q.dtype], stream))
+    _build.check(BWD_LIB, code, "flash_attention_bwd_dq launch")
+    launches_dq += 1
+    return dq, delta
+
+
+def _dkv(q, k, v, dout, lse, delta, shape, causal, window, tc):
+    """Launch the dkv kernel on checked inputs -> (dk, dv)."""
+    global launches_dkv
+    B, H, Hkv, S, T, D = shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    strides = _strides(tc, (q, k, v, dout), (dk, dv))
+    dev = q.device
+    fns = _bwd_entries()
+    with _build.on_device(dev):
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, H, Hkv, S, T, D, strides, int(causal),
+                window)
+        stream = _build.stream_handle(dev)
+        code = (fns[3](*args, stream) if tc
+                else fns[1](*args, DTYPES[q.dtype], stream))
+    _build.check(BWD_LIB, code, "flash_attention_bwd_dkv launch")
+    launches_dkv += 1
+    return dk, dv
+
+
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True,
                            window: int = 0):
     """Backward kernel #1 (replaces ``_bwd_dq_kernel``): q/out/dout
     [B,H,S,D], k/v [B,Hkv,T,D] in one dtype, lse [B,H,S] f32, on one CUDA
     device -> (dq in q's dtype and layout, delta = rowsum(dout ⊙ out)
     [B,H,S] f32).  Strided inputs are taken as they are when their head
-    dim is contiguous."""
-    global launches_dq
-    B, H, Hkv, S, T, D = _check_bwd(q, k, v, (out, dout), (lse,),
-                                    NAME_BWD_DQ)
-    dq = torch.empty_like(q)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        code = _bwd_entries()[0](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            B, H, Hkv, S, T, D, _strides(q, k, v, out, dout, dq),
-            int(causal), _window(causal, window), DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(BWD_LIB, code, "flash_attention_bwd_dq launch")
-    launches_dq += 1
-    return dq, delta
+    dim is contiguous (on the tensor-core route, when :func:`_tma_strides`
+    takes them too).  The kernel is :func:`route_bwd`'s."""
+    shape = _check_bwd(q, k, v, (out, dout), (lse,), NAME_BWD_DQ)
+    return _dq(q, k, v, out, lse, dout, shape, causal,
+               _window(causal, window), _tc(q))
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
@@ -242,21 +313,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
     """Backward kernel #2 (replaces ``_bwd_dkv_kernel``): as
     :func:`flash_attention_bwd_dq`, with its ``delta`` -> (dk, dv) in k's
     and v's dtype and layouts, summed over each kv head's q heads."""
-    global launches_dkv
-    B, H, Hkv, S, T, D = _check_bwd(q, k, v, (dout,), (lse, delta),
-                                    NAME_BWD_DKV)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        code = _bwd_entries()[1](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Hkv, S, T, D, _strides(q, k, v, dout, dk, dv),
-            int(causal), _window(causal, window), DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(BWD_LIB, code, "flash_attention_bwd_dkv launch")
-    launches_dkv += 1
-    return dk, dv
+    shape = _check_bwd(q, k, v, (dout,), (lse, delta), NAME_BWD_DKV)
+    return _dkv(q, k, v, dout, lse, delta, shape, causal,
+                _window(causal, window), _tc(q))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -264,13 +323,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         window: int = 0):
     """The backward of :func:`flash_attention` from its inputs, output and
-    lse residual: the dq kernel (which also writes delta), then the dkv
-    kernel -> (dq, dk, dv).  ``dout`` (whatever layout autograd hands
-    over) is made contiguous only when its head dim is not."""
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
-    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout,
-                                       causal=causal, window=window)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                     causal=causal, window=window)
+    lse residual: the inputs checked once, then the dq kernel (which also
+    writes delta) and the dkv kernel, both on :func:`route_bwd`'s route ->
+    (dq, dk, dv).  ``dout`` (whatever layout autograd hands over) is
+    copied only when its head dim is not contiguous or, on the
+    tensor-core route, when TMA cannot load it as it lies."""
+    tc = _tc(q)
+    if dout.stride(-1) != 1 or (tc and not _tma_able(dout)):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    shape = _check_bwd(q, k, v, (out, dout), (lse,), "flash_attention_bwd")
+    window = _window(causal, window)
+    dq, delta = _dq(q, k, v, out, lse, dout, shape, causal, window, tc)
+    dk, dv = _dkv(q, k, v, dout, lse, delta, shape, causal, window, tc)
     return dq, dk, dv

@@ -22,9 +22,11 @@ the CPU's own f32 product is 1.02x that 1e-4 away from its f64 value), so
 the f32 weight grads are held to 1e-4 * max(1, sqrt(N / 256)).
 
 The bf16 tensor-core kernels round more than their plain versions do: the
-dW kernel reads dg, du and h rounded to bf16, and the flash forward rounds
-p to bf16 for P·V.  Two CPU tests hold that extra rounding, in plain torch
-at the kernels' widths, within the unchanged bf16 tolerances.
+dW kernel reads dg, du and h rounded to bf16, the flash forward rounds p
+to bf16 for P·V, and the flash backward rounds P and dS to bf16 for its
+four second products.  Three CPU tests hold that extra rounding, in plain
+torch at the kernels' widths, within the unchanged bf16 tolerances (the
+backward's also against the Pallas kernels in interpret mode).
 """
 import numpy as np
 import pytest
@@ -599,6 +601,80 @@ def test_bf16_p_keeps_attention_within_the_bf16_bound(D):
     _close(got.float(), want.float(), TOL["flash"][torch.bfloat16])
 
 
+def _tc_bwd_rehearsal(q, k, v, o, lse, do, *, causal, window):
+    """The bf16 tensor-core backward's arithmetic in plain torch: raw
+    scores as f32 sums of the bf16 products, p = exp(s·scale − lse) (0
+    where masked), δ = rowsum(dO ⊙ O) and dS = p ⊙ (dO·Vᵀ − δ) in f32; P
+    and dS rounded to bf16 before their products (dV = Pᵀ·dO, dQ = dS·K,
+    dK = dSᵀ·Q, f32 sums), dQ and dK scaled in f32 after them, the group
+    summed in f32 and each grad rounded to bf16 once."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G, scale = H // Hkv, D ** -0.5
+    qf, dof = q.float(), do.float()
+    kf, vf = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    p = torch.exp(torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+                  - lse[..., None])
+    if causal:
+        qp, kp = torch.arange(S)[:, None], torch.arange(T)[None, :]
+        seen = (kp <= qp) & ((kp > qp - window) if window else True)
+        p = p.masked_fill(~seen, 0.0)
+    delta = (dof * o.float()).sum(-1)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", dof, vf) - delta[..., None])
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.einsum("bhst,bhtd->bhsd", dsb, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", dsb, qf) * scale
+    dv = torch.einsum("bhst,bhsd->bhtd", pb, dof)
+    dk, dv = (t.view(B, Hkv, G, T, D).sum(2) for t in (dk, dv))
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("S,T,H,Hkv,D,causal,window", [
+    (256, 256, 12, 4, 64, True, 0), (128, 128, 24, 8, 128, True, 0),
+    (200, 200, 4, 2, 64, True, 0), (256, 256, 4, 1, 64, True, 100),
+    (130, 70, 4, 4, 64, False, 0)])
+def test_tc_bwd_rehearsal_matches_pallas_vjp_and_plain(jref, S, T, H, Hkv,
+                                                       D, causal, window):
+    """The tensor-core backward's roundings (P and dS in bf16 for their
+    products) keep bf16 grads within the bf16 flash bounds (2e-2 atol +
+    rtol, ||err|| / ||want|| <= 1e-2) of jax.vjp through the Pallas flash
+    kernel (interpret mode, f32 over the same bf16 values, grouped K/V
+    repeated as the reference's model does) and of ref_attention_bwd:
+    exanode's 12 / 4 heads of 64, llama3.2-3b's 24 / 8 of 128, a ragged
+    S, a window and a non-causal S x T."""
+    jax = pytest.importorskip("jax")
+    jnp = jref["jnp"]
+    G = H // Hkv
+    q, do = (torch.from_numpy(_rand((1, H, S, D), s)).bfloat16()
+             for s in (93, 94))
+    k, v = (torch.from_numpy(_rand((1, Hkv, T, D), s)).bfloat16()
+            for s in (95, 96))
+
+    def fwd(q, k, v):
+        return jref["flash"].flash_attention(
+            q, jnp.repeat(k, G, axis=1), jnp.repeat(v, G, axis=1),
+            causal=causal, window=window, interpret=True)
+
+    _, vjp = jax.vjp(fwd, *(jnp.asarray(t.float().numpy())
+                            for t in (q, k, v)))
+    pallas = vjp(jnp.asarray(do.float().numpy()))
+    out, lse = ref.ref_attention(q, k, v, causal=causal, window=window)
+    got = _tc_bwd_rehearsal(q, k, v, out, lse, do, causal=causal,
+                            window=window)
+    plain = ref.ref_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                  window=window)
+    tol = TOL["flash_bwd"][torch.bfloat16]
+    for name, g, w_pallas, w_plain in zip(("dq", "dk", "dv"), got, pallas,
+                                          plain):
+        assert g.shape == w_plain.shape and g.dtype == torch.bfloat16
+        for what, w in (("Pallas vjp", np.asarray(w_pallas)),
+                        ("ref_attention_bwd", w_plain.float().numpy())):
+            _close(g.float(), w, tol, f"{name} vs {what}")
+            w = torch.tensor(np.asarray(w, np.float32))
+            assert float((g.float() - w).norm() / w.norm()) <= 1e-2, \
+                (name, what)
+
+
 @pytest.mark.parametrize("op", ["flash", "ffn"])
 def test_autograd_functions_take_plain_backward_on_cpu(op):
     """With grad, ops.flash_attention / ops.swiglu_ffn go through their
@@ -819,6 +895,19 @@ def test_flash_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, D):
     assert set(fa_kernel.TC_HEAD_DIMS) <= set(fa_kernel.HEAD_DIMS)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", fa_kernel.BWD_HEAD_DIMS)
+def test_flash_bwd_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, D):
+    """The backward's route matches the forward's: bf16 at head dims 64
+    and 128 on the tensor cores, f32 and bf16 at 16 and 32 on the SIMT
+    kernels; head dim 256 has no backward."""
+    want = "tc" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    assert fa_kernel.route_bwd(dtype, D) == want
+    assert 256 not in fa_kernel.BWD_HEAD_DIMS
+    with pytest.raises(ValueError, match="head dim 256"):
+        fa_kernel.route_bwd(dtype, 256)
+
+
 def test_flash_route_takes_tensor_cores_on_the_bf16_model_paths():
     """The configs whose attention runs on the card in bf16 (exanode-100m
     serving and training, llama3.2-3b, jamba-v0.1-52b's attention layer)
@@ -826,6 +915,8 @@ def test_flash_route_takes_tensor_cores_on_the_bf16_model_paths():
     for arch in ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b"):
         assert fa_kernel.route(torch.bfloat16,
                                get_config(arch).head_dim) == "tc", arch
+        assert fa_kernel.route_bwd(torch.bfloat16,
+                                   get_config(arch).head_dim) == "tc", arch
 
 
 # -- Hopper kernels against their plain versions (CUDA only) -----------------
@@ -1123,10 +1214,99 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, H, Hkv, D, S, T, causal,
     want = ref.ref_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                  window=window)
     torch.cuda.synchronize()
+    _check_flash_grads(got, want, dtype)
+
+
+def _check_flash_grads(got, want, dtype):
+    """The backward kernels' bounds: TOL["flash_bwd"] atol + rtol, and in
+    bf16 ||err|| / ||want|| <= 1e-2 (a zeroed grad passes an absolute bound
+    where the grads are small, never this one)."""
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
-        _close(g.float().cpu(), w.float().cpu(), TOL["flash_bwd"][dtype],
-               name)
+        g, w = g.float().cpu(), w.float().cpu()
+        _close(g, w, TOL["flash_bwd"][dtype], name)
+        if dtype == torch.bfloat16:
+            assert float((g - w).norm() / w.norm()) <= 1e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain_at_the_train_shape(cuda, dtype):
+    """exanode-100m's train step (batch 8 x 512, 12 / 4 heads of 64, the
+    model's strided views): 768 dq and 256 dkv blocks, several waves."""
+    q, k, v, out, lse, do = _flash_bwd_case(cuda, dtype, 8, 12, 4, 512, 512,
+                                            64, True, 0, seed=83)
+    got = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do)
+    want = ref.ref_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    _check_flash_grads(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_tc_kernels_are_deterministic(cuda, D):
+    """Grouped dK/dV are summed inside the dkv block, without atomics: two
+    launches give bit-identical dq, dk and dv."""
+    q, k, v, out, lse, do = _flash_bwd_case(cuda, torch.bfloat16, 2, 12, 4,
+                                            300, 300, D, True, 0, seed=84)
+    first = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do)
+    second = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def _bwd_kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if "flash_bwd" in e.key}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_bwd_route_launches_tc_kernels_for_bf16_at_64_and_128(
+        cuda, dtype, D):
+    """route_bwd sends bf16 at head dims 64 and 128 to the tensor-core
+    kernels and f32 (and bf16 at 32) to the SIMT ones: the kernels the
+    profiler sees launched are the route's, and their grads match."""
+    q, k, v, out, lse, do = _flash_bwd_case(cuda, dtype, 1, 4, 2, 128, 128,
+                                            D, True, 0, seed=85)
+    tc = fa_kernel.route_bwd(dtype, D) == "tc"
+    assert tc == (dtype == torch.bfloat16 and D in (64, 128))
+    got = []
+    names = _bwd_kernel_names(
+        lambda: got.extend(fa_kernel.flash_attention_bwd(q, k, v, out, lse,
+                                                         do)))
+    want = ("_tc_kernel" if tc else "_kernel<")
+    assert len(names) == 2 and all(
+        any(f"flash_bwd_{x}{want}" in n for n in names)
+        for x in ("dq", "dkv")), names
+    _check_flash_grads(got, ref.ref_attention_bwd(q, k, v, out, lse, do),
+                       dtype)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tc_copies_a_dout_tma_cannot_load(cuda):
+    """On the tensor-core route a dout whose layout TMA cannot load (a
+    misaligned view, a non-contiguous head dim) is copied, not sent to the
+    SIMT kernels: the grads match; q/k/v that TMA cannot load raise."""
+    q, k, v, out, lse, do = _flash_bwd_case(cuda, torch.bfloat16, 1, 4, 2,
+                                            96, 96, 64, True, 0, seed=86)
+    want = ref.ref_attention_bwd(q, k, v, out, lse, do)
+    buf = torch.empty(do.numel() + 1, device=cuda, dtype=do.dtype)
+    shifted = buf[1:].view(do.shape)
+    shifted.copy_(do)
+    wide = torch.empty(*do.shape[:3], 128, device=cuda, dtype=do.dtype)
+    wide[..., ::2] = do
+    for dout in (shifted, wide[..., ::2]):
+        _check_flash_grads(fa_kernel.flash_attention_bwd(q, k, v, out, lse,
+                                                         dout),
+                           want, torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_kernel.flash_attention_bwd(shifted, k, v, out, lse, do)
 
 
 @pytest.mark.cuda
