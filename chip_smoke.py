@@ -12,7 +12,8 @@ Phases, in order, each printing one line:
   kernels  holds each kernel against its plain PyTorch version on the card
            at its path's shapes (serving; for the four backward kernels,
            training at batch 8 x 512; the mLSTM scan at xlstm-125m's
-           prefill, q [4,4,1024,384], chunk 256, f32; the Mamba scan at
+           prefill, q [4,4,1024,384], chunk 256, f32, also from a state,
+           and timed at the xlstm profile's 16 x 1024; the Mamba scan at
            jamba-v0.1-52b's, dt/x [4,1024,8192], N 16), in f32 and bf16 (the
            paged kernels also with int8 pools; the paged and backward
            attention kernels also at llama3.2-3b's head dim 128 with 24 / 8
@@ -135,9 +136,11 @@ PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "jamba",
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor-core FLOP/s
 # and f32 FLOP/s outside the tensor cores (f32 work in f32: TF32 would
-# round it).  Rates assume the full 700 W power limit.
+# round it).  "tfloat32" is the TF32 tensor-core rate: the bound of #13,
+# whose f32 products run there (3xTF32, so its own work is 3x the FLOPs).
+# Rates assume the full 700 W power limit.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 494.7e12}
 
 # Tolerances: the reference's own (tests/test_kernels.py,
 # tests/test_paged.py).  Backward kernels: in f32 the reference's grad
@@ -689,53 +692,78 @@ def ssm_kernel(torch, timer) -> dict:
 
 
 def mlstm_kernel(torch, timer) -> dict:
-    """#13 against its plain version at xlstm-125m's prefill shape (4
-    prompts x 1024 tokens, 4 heads of dh 384, chunk 256, f32; the reference
-    test's inputs: k scaled by dh^-0.5, f_log = log_sigmoid(N(0,1) + 2)):
-    y and the final (C, n, m), then times.  The bound counts each input
-    and output once and the operations these inputs need: q·k and P·v
-    over the causal pairs of each chunk, the carry's q·Cᵀ and q·n in every
-    chunk but the first (its carry is zero), and the C and n updates of
-    every chunk, at f32's rate.  No single PyTorch call computes a
+    """#13 against its plain version at xlstm-125m's prefill shapes, f32,
+    chunk 256, the reference test's inputs (k scaled by dh^-0.5, f_log =
+    log_sigmoid(N(0,1) + 2)): the kernels phase's 4 prompts x 1024 tokens,
+    4 heads of dh 384 (y and the final (C, n, m); the second half again
+    from the first half's carry), then the xlstm profile's prefill, 16 x
+    1024; both timed on the ``ms`` and ``device_ms`` timers.
+
+    The bound counts each input and output once and the operations these
+    inputs need: q·k and P·v over the causal pairs of each chunk, the
+    carry's q·Cᵀ and q·n in every chunk but the first (its carry is zero),
+    and the C and n updates of every chunk, at the TF32 tensor-core rate,
+    where the kernel's products run.  No single PyTorch call computes a
     chunkwise mLSTM, so there is no library yardstick."""
     from repro_torch.kernels import mlstm_scan as ml
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(6)
-    B, H, S, dh, L = 4, 4, 1024, 384, 256
+    H, S, dh, L = 4, 1024, 384, 256
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    q, v = randn(B, H, S, dh), randn(B, H, S, dh)
-    k = randn(B, H, S, dh) * dh ** -0.5
-    ig = randn(B, H, S)
-    fl = torch.nn.functional.logsigmoid(randn(B, H, S) + 2.0)
-    args = (q, k, v, ig, fl)
-    y, carry = ml.mlstm_scan(*args, chunk=L)
-    wy, wcarry = ref.ref_mlstm_scan(*args, chunk=L)
-    errs, rels = {}, {}
-    for name, g, w in zip(("y", "C", "n", "m"), (y,) + carry,
-                          (wy,) + wcarry):
-        errs[name] = check("mlstm_scan", g, w, "float32", name)
-        rels[name] = rel_err(g, w)
-        if not rels[name] <= MLSTM_REL_TOL:
-            raise AssertionError(f"mlstm_scan {name}: ||err|| / ||want|| "
-                                 f"{rels[name]:.3g} over {MLSTM_REL_TOL}")
-    pairs = B * H * (S // L) * L * (L + 1) / 2
-    flops = (4 * dh * pairs                           # q·k, P·v
-             + 2 * B * H * (S - L) * (dh * dh + dh)   # q·Cᵀ, q·n
-             + 2 * B * H * S * (dh * dh + dh))        # C, n updates
-    b_ms, b_by = bound(nbytes(*args, y, *carry), flops, "float32")
-    return {ml.NAME: dict(
-        shape=f"q/k/v [{B},{H},{S},{dh}], chunk {L}, f32; final carry "
-              f"C [{B},{H},{dh},{dh}]",
-        max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
-        rel_err_by_output=rels,
-        ms=timer.ms(lambda: ml.mlstm_scan(*args, chunk=L)),
-        plain_ms=timer.ms(lambda: ref.ref_mlstm_scan(*args, chunk=L)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        library="none: no single PyTorch call computes a chunkwise mLSTM",
-        flops_counted=flops)}
+    def case(B: int, state_check: bool) -> dict:
+        q, v = randn(B, H, S, dh), randn(B, H, S, dh)
+        k = randn(B, H, S, dh) * dh ** -0.5
+        ig = randn(B, H, S)
+        fl = torch.nn.functional.logsigmoid(randn(B, H, S) + 2.0)
+        args = (q, k, v, ig, fl)
+        y, carry = ml.mlstm_scan(*args, chunk=L)
+        wy, wcarry = ref.ref_mlstm_scan(*args, chunk=L)
+        checks = [("", (y,) + carry, (wy,) + wcarry)]
+        if state_check:
+            half = [t[:, :, S // 2:].contiguous() for t in args]
+            _, first = ml.mlstm_scan(*(t[:, :, :S // 2].contiguous()
+                                       for t in args), chunk=L)
+            gy, gc = ml.mlstm_scan(*half, chunk=L, state=first)
+            wy2, wc2 = ref.ref_mlstm_scan(*half, chunk=L, state=first)
+            checks.append(("from a state ", (gy,) + gc, (wy2,) + wc2))
+        errs, rels = {}, {}
+        for what, gots, wants in checks:
+            for name, g, w in zip(("y", "C", "n", "m"), gots, wants):
+                key = what + name
+                errs[key] = check("mlstm_scan", g, w, "float32",
+                                  f"B={B} {key}")
+                rels[key] = rel_err(g, w)
+                if not rels[key] <= MLSTM_REL_TOL:
+                    raise AssertionError(
+                        f"mlstm_scan B={B} {key}: ||err|| / ||want|| "
+                        f"{rels[key]:.3g} over {MLSTM_REL_TOL}")
+        pairs = B * H * (S // L) * L * (L + 1) / 2
+        flops = (4 * dh * pairs                           # q·k, P·v
+                 + 2 * B * H * (S - L) * (dh * dh + dh)   # q·Cᵀ, q·n
+                 + 2 * B * H * S * (dh * dh + dh))        # C, n updates
+        nb = nbytes(*args, y, *carry)
+        b_ms, b_by = bound(nb, flops, "tfloat32")
+
+        def kern():
+            return ml.mlstm_scan(*args, chunk=L)
+        return dict(
+            shape=f"q/k/v [{B},{H},{S},{dh}], chunk {L}, f32; final carry "
+                  f"C [{B},{H},{dh},{dh}]",
+            max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
+            rel_err_by_output=rels,
+            ms=timer.ms(kern), device_ms=timer.device_ms(kern),
+            plain_ms=timer.ms(lambda: ref.ref_mlstm_scan(*args, chunk=L)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=None,
+            library="none: no single PyTorch call computes a chunkwise mLSTM",
+            flops_counted=flops, bytes_counted=nb)
+
+    entry = case(4, state_check=True)
+    entry["xlstm_profile_shape"] = case(16, state_check=False)
+    return {ml.NAME: entry}
 
 
 def quant_kernels(torch, timer) -> dict:
@@ -1440,15 +1468,22 @@ PROFILE_GROUPS = (
 def device_events(prof) -> tuple[dict, int]:
     """Device microseconds by kernel name in a profile (user annotations
     left out: a trace may hold device-side copies of them, which span the
-    kernels they enclose) and the number of device events."""
+    kernels they enclose) and the number of device events.  The times are
+    the union of the events' intervals: where two overlap (#13's output
+    kernel starts inside the walk it depends on), the overlap counts once,
+    for the event that started first, so the values sum to the time the
+    device was busy."""
     from torch.autograd import DeviceType
-    per, count = {}, 0
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != DeviceType.CUDA or ev.is_user_annotation():
-            continue
-        per[ev.name()] = per.get(ev.name(), 0) + ev.duration_ns() / 1e3
-        count += 1
-    return per, count
+    spans = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns(),
+                    ev.name())
+                   for ev in prof.profiler.kineto_results.events()
+                   if ev.device_type() == DeviceType.CUDA
+                   and not ev.is_user_annotation())
+    per, busy_to = {}, float("-inf")
+    for start, end, name in spans:
+        per[name] = per.get(name, 0) + max(0, end - max(start, busy_to)) / 1e3
+        busy_to = max(busy_to, end)
+    return per, len(spans)
 
 
 def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
@@ -1459,8 +1494,9 @@ def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
     device time / the unprofiled steps' host wall time, as the other
     profiles take it; one stream, so kernels do not overlap) and the host
     ops that take most of the profiled steps' CPU time (self time, which
-    the profiler inflates).  Device time sums the trace's device events
-    (kernels, copies, sets) but its user annotations: a trace may hold
+    the profiler inflates).  Device time is the union of the trace's
+    device events (kernels, copies, sets) but its user annotations: a
+    trace may hold
     device-side copies of those (the autograd Functions' names), which
     span the kernels they enclose and would count them twice.  A device
     time above the profiled wall time raises."""
@@ -1529,7 +1565,7 @@ def train_profile_phase(torch, gpu: str, steps: int = 3) -> str:
 
 
 XLSTM_PROFILE_GROUPS = (
-    ("mlstm_scan", ("mlstm_scan_kernel",)),
+    ("mlstm_scan", ("mlstm_carry_kernel", "mlstm_out_kernel")),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
 )
 

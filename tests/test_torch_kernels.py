@@ -1446,6 +1446,74 @@ def test_mlstm_kernel_continues_from_a_state_and_pads(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,dh,chunk", [
+    (2, 2, 192, 96, 192),    # nc = 1, a chunk of three 64-row q tiles
+    (2, 3, 240, 96, 80),     # dh 96: a 64-row C tile and a half; L 80
+    (3, 2, 144, 32, 48),     # dh 32 below one C tile; L 48 not a 32-piece
+    (1, 1, 100, 32, 20),     # L 20 inside one piece, five chunks
+    (2, 2, 1, 64, 256),      # a one-token prompt: L 1
+    (1, 3, 3, 32, 256),      # three tokens, one chunk of L 3
+    (2, 2, 128, 36, 64),     # dh 36: pieces and n8 tiles cut at 4 floats
+    (1, 2, 256, 512, 128),   # dh 512: two y tiles, four C tile columns
+    (8, 8, 1024, 64, 64),    # 1024 output blocks: past one wave
+    (4, 8, 512, 384, 128)])  # 576 carry blocks, 256 output blocks
+def test_mlstm_kernel_matches_plain_at_tile_edges(cuda, B, H, S, dh, chunk):
+    """The two kernels' edges: one chunk, dh and chunks that are not
+    multiples of the 64 / 128-wide tiles and 32-deep pieces, prompts of 1
+    and 3 tokens, and grids past one wave of 132 SMs."""
+    ins = [torch.from_numpy(a).to(cuda)
+           for a in _mlstm_inputs(B, H, S, dh, seed=60)]
+    got = ml_kernel.mlstm_scan(*ins, chunk=chunk)
+    _mlstm_check(got, ref.ref_mlstm_scan(*ins, chunk=chunk),
+                 f"{B}x{H}x{S}x{dh} chunk {chunk}")
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_follows_a_carry_dominated_chunk(cuda):
+    """A chunk whose own maximum a stays below the entering m (input gates
+    -30 after a chunk of +4): the carry's term outweighs the chunk's, and
+    the chunk-local stabilizer rescales by e^{A_c - M_L} << 1.  Also from
+    a given state whose m is above every a of the first chunk."""
+    B, H, S, dh, L = 2, 4, 512, 128, 128
+    q, k, v, ig, fl = (torch.from_numpy(a).to(cuda)
+                       for a in _mlstm_inputs(B, H, S, dh, seed=70))
+    ig = ig.clone()
+    ig[:, :, :L] += 4.0
+    ig[:, :, L:2 * L] -= 30.0
+    _mlstm_check(ml_kernel.mlstm_scan(q, k, v, ig, fl, chunk=L),
+                 ref.ref_mlstm_scan(q, k, v, ig, fl, chunk=L),
+                 "carry-dominated")
+    _, st = ref.ref_mlstm_scan(q, k, v, ig + 12.0, fl, chunk=L)
+    _mlstm_check(ml_kernel.mlstm_scan(q, k, v, ig, fl, chunk=L, state=st),
+                 ref.ref_mlstm_scan(q, k, v, ig, fl, chunk=L, state=st),
+                 "from a high-m state")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,dh,chunk", [(4, 4, 1024, 384, 256),
+                                            (3, 2, 144, 32, 48)])
+def test_mlstm_kernel_is_deterministic(cuda, B, H, S, dh, chunk):
+    """Two launches give the same bits: the carry walk and every sum run
+    in a fixed order, with no atomics."""
+    ins = [torch.from_numpy(a).to(cuda) for a in _mlstm_inputs(B, H, S, dh)]
+    first = ml_kernel.mlstm_scan(*ins, chunk=chunk)
+    second = ml_kernel.mlstm_scan(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    for a, b in zip((first[0],) + first[1], (second[0],) + second[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_names_its_limits(cuda):
+    ins = [torch.from_numpy(a).to(cuda) for a in _mlstm_inputs(1, 1, 512, 8)]
+    with pytest.raises(ValueError, match="MAX_CHUNK 256"):
+        ml_kernel.mlstm_scan(*ins, chunk=512)
+    odd = [torch.from_numpy(a).to(cuda) for a in _mlstm_inputs(1, 1, 64, 6)]
+    with pytest.raises(ValueError, match="HEAD_DIM_MULTIPLE 4"):
+        ml_kernel.mlstm_scan(*odd, chunk=64)
+
+
+@pytest.mark.cuda
 def test_mlstm_kernel_refuses_grads_and_other_dtypes(cuda):
     ins = [torch.from_numpy(a).to(cuda) for a in _mlstm_inputs(1, 1, 8, 8)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
