@@ -14,7 +14,8 @@ Phases, in order, each printing one line:
            training at batch 8 x 512; the mLSTM scan at xlstm-125m's
            prefill, q [4,4,1024,384], chunk 256, f32, also from a state,
            and timed at the xlstm profile's 16 x 1024; the Mamba scan at
-           jamba-v0.1-52b's, dt/x [4,1024,8192], N 16), in f32 and bf16 (the
+           jamba-v0.1-52b's, dt/x [4,1024,8192], N 16, timed also at the
+           jamba profile's 16 x 1024), in f32 and bf16 (the
            paged kernels also with int8 pools; the paged and backward
            attention kernels also at llama3.2-3b's head dim 128 with 24 / 8
            heads; the int8 kernels #10, #11 and the int8 pool write at the
@@ -34,9 +35,12 @@ Phases, in order, each printing one line:
            device time with the split count forced to 2-16; the int8
            paged decode (#9) runs the same split kernel over int8 pools,
            checked also at gemma-2b's 8 / 1 heads of 256, and is in that
-           line too; #1, #3, #6-#9, #11 and their yardsticks also on
-           device time alone and with their host enqueue (``Timer``); #11
-           as the int8 chunk append calls it, K and V in one launch;
+           line too; #1, #3, #6-#13, the int8 pool write and their
+           yardsticks also on device time alone and with their host
+           enqueue (``Timer``); #11 as the int8 chunk append calls it and
+           #10 as the admission splice calls it, K and V in one launch;
+           a scan_quant line has #12's, #10's and the pool write's times
+           beside their bounds and #12's SFU floor;
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -141,6 +145,10 @@ PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "jamba",
 # Rates assume the full 700 W power limit.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 494.7e12}
+# Exponentials (MUFU ex2) a clock an SM on compute capability 9.0 (CUDA C
+# Programming Guide, arithmetic instruction throughput: exp2f); #12's SFU
+# floor
+SFU_PER_CLOCK = 16
 
 # Tolerances: the reference's own (tests/test_kernels.py,
 # tests/test_paged.py).  Backward kernels: in f32 the reference's grad
@@ -644,51 +652,89 @@ def decode_case(torch, timer, gen, B: int, T: int, KV: int, G: int,
         library="torch.nn.functional.scaled_dot_product_attention")
 
 
+def sfu_floor_ms(torch, exps: float) -> float:
+    """The least time the card's special-function units take for ``exps``
+    exponentials: SFU_PER_CLOCK a clock an SM, at the card's SM count and
+    its highest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    mhz = float(out.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * exps / (SFU_PER_CLOCK * sms * mhz * 1e6)
+
+
 def ssm_kernel(torch, timer) -> dict:
     """#12 against its plain version at jamba-v0.1-52b's full-width
     prefill shape, 4 prompts x 1024 tokens: dt [4,1024,8192] f32 and A
     [8192,16] f32 with x [4,1024,8192] and B/C [4,1024,16] in f32 and in
     bf16 (the serving dtype; timed there), the reference test's inputs
-    (dt = softplus(N(0,1)), A = -exp(N(0,1))); y and the final h.  The
-    bound counts each input read once and y, h written once, and the
-    operations these inputs need at f32's rate: per (b, t, d, n) the exp
-    (one operation), dt·A, a·h, bx·B, the add and the FMA of y (two), and
-    per (b, t, d) dt·x.  No single PyTorch call computes a selective scan,
-    so there is no library yardstick."""
+    (dt = softplus(N(0,1)), A = -exp(N(0,1))); y and the final h.  Timed
+    on the ``ms``, ``device_ms`` and ``host_us`` timers there and at the
+    jamba profile's 16 x 1024 (bf16).  The bound counts each input read
+    once and y, h written once, and the operations these inputs need at
+    f32's rate: per (b, t, d, n) the exp (one operation), dt·A, a·h,
+    bx·B, the add and the FMA of y (two), and per (b, t, d) dt·x.  Beside
+    it, on the ``scan_quant:`` line only, the SFU floor: one exp per
+    (b, t, d, n) on the special-function units (``sfu_floor_ms``).  No
+    single PyTorch call computes a selective scan, so there is no library
+    yardstick."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as sk
     gen = torch.Generator(device="cuda").manual_seed(12)
-    B, S, Di, N = 4, 1024, 8192, 16
+    S, Di, N = 1024, 8192, 16
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    dt = torch.nn.functional.softplus(randn(B, S, Di))
-    A = -torch.exp(randn(Di, N))
-    x32, B32, C32 = randn(B, S, Di), randn(B, S, N), randn(B, S, N)
+    def inputs(B, dtype):
+        dt = torch.nn.functional.softplus(randn(B, S, Di))
+        A = -torch.exp(randn(Di, N))
+        return (dt, randn(B, S, N).to(dtype), randn(B, S, N).to(dtype),
+                randn(B, S, Di).to(dtype), A)
+
     errs = {}
+    B = 4
+    args32 = inputs(B, torch.float32)
     for dtype in (torch.float32, torch.bfloat16):
-        args = (dt, B32.to(dtype), C32.to(dtype), x32.to(dtype), A)
+        args = args32[:1] + tuple(t.to(dtype) for t in args32[1:4]) \
+            + args32[4:]
         y, h = sk.ssm_scan(*args)
         wy, wh = ref.ref_ssm_scan(*args)
         name = str(dtype).split(".")[1]
         errs[name] = max(check(sk.NAME, y, wy, name, "y"),
                          check(sk.NAME, h, wh, name, "h"))
-    args = (dt, B32.to(torch.bfloat16), C32.to(torch.bfloat16),
-            x32.to(torch.bfloat16), A)
-    y, h = sk.ssm_scan(*args)
-    flops = 7 * B * S * Di * N + B * S * Di
-    b_ms, b_by = bound(nbytes(*args, y, h), flops, "float32")
-    return {sk.NAME: dict(
-        shape=f"dt [{B},{S},{Di}] f32, x [{B},{S},{Di}] and B/C "
-              f"[{B},{S},{N}] bf16, A [{Di},{N}] f32 -> y f32, h "
-              f"[{B},{Di},{N}] f32 (a 4 x 1024 jamba prefill, one layer)",
+    del args32, y, h, wy, wh
+
+    def case(B: int, plain: bool) -> dict:
+        args = inputs(B, torch.bfloat16)
+        y, h = sk.ssm_scan(*args)
+        flops = 7 * B * S * Di * N + B * S * Di
+        b_ms, b_by = bound(nbytes(*args, y, h), flops, "float32")
+
+        def kern():
+            return sk.ssm_scan(*args)
+        out = dict(
+            shape=f"dt [{B},{S},{Di}] f32, x [{B},{S},{Di}] and B/C "
+                  f"[{B},{S},{N}] bf16, A [{Di},{N}] f32 -> y f32, h "
+                  f"[{B},{Di},{N}] f32 (a {B} x {S} jamba prefill, one "
+                  f"layer)",
+            ms=timer.ms(kern), device_ms=timer.device_ms(kern),
+            host_us=timer.host_us(kern),
+            plain_ms=timer.ms(lambda: ref.ref_ssm_scan(*args))
+            if plain else None,
+            bound_ms=b_ms, bound_by=b_by, flops_counted=flops,
+            exps_counted=B * S * Di * N)
+        return out
+
+    entry = case(4, plain=True)
+    entry.update(
         max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
-        ms=timer.ms(lambda: sk.ssm_scan(*args)),
-        plain_ms=timer.ms(lambda: ref.ref_ssm_scan(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_ms=None,
         library="none: no single PyTorch call computes a selective scan",
-        flops_counted=flops)}
+        jamba_profile_shape=case(16, plain=False))
+    return {sk.NAME: entry}
 
 
 def mlstm_kernel(torch, timer) -> dict:
@@ -773,15 +819,16 @@ def quant_kernels(torch, timer) -> dict:
     * #10 quantize_int8 at [nb, 256] (nb 64 and 256, f32) and at the int8
       pool's admission splice: the (block column, kv head) tiles of one
       layer stack's prefill caches for a 16 x 1024 bucket, x [12, 16, 2048,
-      4, 64] bf16, 64 columns of 16 (timed there);
+      4, 64] bf16, 64 columns of 16 (timed there on all three timers, one
+      leaf and K and V in one launch as the splice calls it);
     * #11 dequantize_int8 at [256, 256] and as the chunk append's gather,
       one row of 128 blocks x 16 of [2050, 16, 4, 64] pools to bf16, K and
       V in one launch as the path calls it (timed there, on all three
       timers) and one leaf alone (timed too);
     * the int8 pool write at a decode tick (16 rows, ten slots on their
       own blocks, six inactive rows colliding on the trash block; timed
-      there) and at a 32-token chunk, K and V in one launch, three writes
-      in a row; the trash block's payload is left out (its colliding
+      there on all three timers) and at a 32-token chunk, K and V in one
+      launch, three writes in a row; the trash block's payload is left out (its colliding
       writes land in no fixed order in the plain version's scatter).
 
     Each bound counts the bytes the function needs once: #10 the tiles'
@@ -816,20 +863,42 @@ def quant_kernels(torch, timer) -> dict:
     for n in (nb, 3):
         same(qt.NAME_QUANT, qt.quantize_rows(x, block_size=bs, nb=n),
              ref.ref_quantize_kv_tiles(x, bs, n), f"splice tiles nb={n}")
+    xv = torch.randn(R, B, T, KV, D, generator=gen, device="cuda").to(bf16)
+    pair = qt.quantize_rows((x, xv), block_size=bs, nb=nb)
+    for got, leaf in zip(pair, (x, xv)):
+        same(qt.NAME_QUANT, got, ref.ref_quantize_kv_tiles(leaf, bs, nb),
+             "splice K and V in one launch")
+    del pair
     used = R * B * nb * bs * KV * D
     b_ms, b_by = bound(used * 2 + used + R * B * nb * KV * 4,
                        3 * used, "float32")
+    b2_ms, b2_by = bound(2 * (used * 2 + used + R * B * nb * KV * 4),
+                         6 * used, "float32")
+
+    def leaf():
+        return qt.quantize_rows(x, block_size=bs, nb=nb)
+
+    def both():
+        return qt.quantize_rows((x, xv), block_size=bs, nb=nb)
+
     out[qt.NAME_QUANT] = dict(
         shape=f"prefill caches x [{R},{B},{T},{KV},{D}] bf16 -> {nb} "
               f"columns of {bs}: q int8 [{R},{B},{nb * bs},{KV},{D}], "
               f"scale [{R},{B},{nb},{KV}] (one leaf of a 16 x 1024 "
               f"admission splice); also [64|256, 256] f32",
         max_abs_err=0.0,
-        ms=timer.ms(lambda: qt.quantize_rows(x, block_size=bs, nb=nb)),
+        ms=timer.ms(leaf), device_ms=timer.device_ms(leaf),
+        host_us=timer.host_us(leaf),
         plain_ms=timer.ms(lambda: ref.ref_quantize_kv_tiles(x, bs, nb)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library="none: no single PyTorch call computes a per-row max-abs "
-                "int8 quantization")
+                "int8 quantization",
+        k_and_v=dict(shape="K and V of that splice layer in one launch, as "
+                           "the admission splice calls it",
+                     ms=timer.ms(both), device_ms=timer.device_ms(both),
+                     host_us=timer.host_us(both), bound_ms=b2_ms,
+                     bound_by=b2_by))
+    del xv
 
     # #11
     q = torch.randint(-127, 128, (256, 256), generator=gen, device="cuda",
@@ -943,14 +1012,17 @@ def quant_kernels(torch, timer) -> dict:
         for pp, ss, nn in zip(pools, scales, news):
             ref.ref_quantized_block_write(pp, ss, nn, bids_t, off_t)
 
+    def write():
+        qt.quantized_block_write(pools, scales, news, bids_t, off_t)
+
     out[qt.NAME_WRITE] = dict(
         shape=f"K and V: {rows} new entries [{rows},{KV},{D}] bf16 into int8 "
               f"pools [{N},{bs},{KV},{D}] + scales [{N},{KV}], {touched} "
               f"distinct blocks touched (a decode tick, 16 slots); also a "
               f"32-token chunk",
         max_abs_err=0.0,
-        ms=timer.ms(lambda: qt.quantized_block_write(pools, scales, news,
-                                                     bids_t, off_t)),
+        ms=timer.ms(write), device_ms=timer.device_ms(write),
+        host_us=timer.host_us(write),
         plain_ms=timer.ms(plain_write), bound_ms=b_ms, bound_by=b_by,
         library_ms=None,
         library="none: no single PyTorch call computes the int8 pool write",
@@ -1364,6 +1436,31 @@ def flash_bwd_line(entries: dict, gpu: str) -> str:
             f"{dq['library_host_us']:.1f} us; plain {dq['plain_ms']:.3f} "
             f"ms; bounds {dq['bound_ms']:.5f} / {dkv['bound_ms']:.5f}")
     return "flash_bwd: " + " | ".join(parts) + f" [{gpu}]"
+
+
+def scan_quant_line(torch, entries: dict, gpu: str) -> str:
+    """#12 at both prefill shapes and #10, its K-and-V launch and the int8
+    pool write: each kernel's times on the three timers beside its bound
+    (and #12's SFU floor, worked out here from the exps counted and kept
+    off the kernels' JSON line, which holds no unmeasured time but the
+    bound)."""
+    parts = []
+    scan = entries["ssm_scan"]
+    for e in (scan, scan["jamba_profile_shape"]):
+        parts.append(
+            f"ssm_scan {e['shape']}: {e['ms']:.4f} ms, device "
+            f"{e['device_ms']:.4f}, host {e['host_us']:.1f} us; bound "
+            f"{e['bound_ms']:.4f} {e['bound_by']}, SFU floor "
+            f"{sfu_floor_ms(torch, e['exps_counted']):.4f}")
+    q = entries["quantize_int8"]
+    for what, e in (("quantize_int8", q),
+                    ("quantize_int8 K and V", q["k_and_v"]),
+                    ("quantized_block_write",
+                     entries["quantized_block_write"])):
+        parts.append(f"{what}: {e['ms']:.4f} ms, device "
+                     f"{e['device_ms']:.4f}, host {e['host_us']:.1f} us; "
+                     f"bound {e['bound_ms']:.4f} {e['bound_by']}")
+    return "scan_quant: " + " | ".join(parts) + f" [{gpu}]"
 
 
 def train_phase(torch, gpu: str) -> tuple[str, dict]:
@@ -2615,6 +2712,7 @@ def main() -> int:
             f"{entries['decode_attention']['jamba_width']['bound_ms']:.4f})"
             + f"; tolerances {TOL} [{gpu}]", flush=True)
         print(flash_bwd_line(entries, gpu), flush=True)
+        print(scan_quant_line(torch, entries, gpu), flush=True)
         print(split_sweep(torch, gpu, args.iters), flush=True)
     if "model" in phases:
         print(model_phase(torch), flush=True)

@@ -14,15 +14,23 @@
 // element), so all three are bound by the bytes they must move.
 //
 // What the design does about it:
-//  * quantize_rows (#10): one block per row.  A row is a [bs, D] tile of
-//    one kv head, read in place from the [.., T, KV, D] layout with its
-//    strides (the admission splice's (block, kv head) tiles; a [nb, 256]
-//    matrix is the case bs = 1, KV = 1), so the caller never gathers the
-//    tiles into a copy.  Entries past T read as zero, which is the
-//    plain version's zero padding of a short tail.  A block-wide max,
-//    then each element x / scale in IEEE f32 division, rintf (round half
-//    to even, as jnp.round) and a clip to +-127.  The TPU kernel moved
-//    64 rows of 256 through VMEM a grid step; here the rows are the grid.
+//  * quantize_rows (#10): one warp per row (two, four or eight warps for
+//    rows of more than 1,024 values), eight warps a block; a row of more
+//    than 8,192 values takes a block and is read twice.  A row is a
+//    [bs, D] tile of one kv head, read in place from the [.., T, KV, D]
+//    layout with its strides (the admission splice's (block, kv head)
+//    tiles; a [nb, n] matrix is the case bs = 1, KV = 1), so the caller
+//    never gathers the tiles into a copy.  A lane takes up to four pieces
+//    of 8 values of one entry's D (16-byte loads of bf16, two of f32; D %
+//    8 == 0), holds them in registers from the load to the store, so the
+//    row is read once, and the row's max comes from xor shuffles (and,
+//    for a row of several warps, one __syncthreads over a slot a warp).
+//    Entries past T read as zero, which is the plain version's zero
+//    padding of a short tail.  Then each element x / scale in IEEE f32
+//    division, rintf (round half to even, as jnp.round) and a clip to
+//    +-127, stored 8 bytes a piece.  K and V are the two rows of the
+//    grid's y axis: one launch a splice layer.  The TPU kernel moved 64
+//    rows of 256 through VMEM a grid step.
 //  * dequantize_rows (#11): a thread takes 16 int8 values with one 16-byte
 //    load (D % 16 == 0, so they lie in one (entry, kv head) row and share
 //    one scale, found once from the chunk's index), multiplies them by the
@@ -56,60 +64,156 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTrash = 1;  // TRASH_BLOCK: the junk-write sink
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-  // max over the block's threads; every thread gets the result
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (blockDim.x >> 5) ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return v;
-}
-
 __device__ __forceinline__ int8_t quant1(float x, float safe) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(x / safe), -127.f), 127.f));
 }
 
-// x: n_outer rows of outer_stride elements, each [T, KV, D] (only the
-// first T_valid entries exist); row = (o, col, kv) -> tile of bs entries.
-// q: [n_outer, ncol * bs, KV, D] int8; scale: [n_outer, ncol, KV] f32.
+constexpr int kQWarps = 8;      // warps of a quantize_rows block
+constexpr int kPieces = 4;      // pieces of 8 values a lane holds at most
+constexpr int kPiece = 8;       // values of a piece
+
+struct QuantLeaf {
+  const void* x;  // n_outer rows of outer_stride elements
+  int8_t* q;      // [n_outer, ncol * bs, KV, D]
+  float* scale;   // [n_outer, ncol, KV]
+};
+
+// 8 values of x from 16 bytes (bf16) or 32 (f32), 16-byte aligned.
+__device__ __forceinline__ void load8(float (&v)[kPiece], const float* p) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(float (&v)[kPiece],
+                                      const __nv_bfloat16* p) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Row = (o, col, kv) of the leaf blockIdx.y -> the tile of bs entries
+// col * bs + j (j < bs), kv head kv, of outer row o; W warps a row.
+template <typename T, int W>
+__global__ void __launch_bounds__(kQWarps * 32, 4)
+quantize_rows_kernel(QuantLeaf k, QuantLeaf v, long long rows,
+                     long long outer_stride, int ncol, int bs, int KV, int D,
+                     int T_valid) {
+  __shared__ float red[kQWarps];
+  const QuantLeaf L = blockIdx.y == 0 ? k : v;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kQWarps / W) + warp / W;
+  const int part = warp % W;  // this warp's share of the row
+  const bool live = row < rows;
+  const int kv = static_cast<int>(row % KV);
+  const int col = static_cast<int>((row / KV) % ncol);
+  const long long o = row / (static_cast<long long>(KV) * ncol);
+  const int per_entry = D / kPiece;
+  const int pieces = live ? bs * per_entry : 0;
+  const T* xo = static_cast<const T*>(L.x) + o * outer_stride;
+  int8_t* qo = L.q + o * static_cast<long long>(ncol) * bs * KV * D;
+
+  float val[kPieces][kPiece];
+  int at[kPieces];  // the piece's offset in x's and q's [T, KV, D] slab
+  float m = 0.f;
+#pragma unroll
+  for (int u = 0; u < kPieces; ++u) {
+    const int e = (u * W + part) * 32 + lane;  // the piece in the row
+    const int j = e / per_entry;
+    const int t = col * bs + j;
+    at[u] = e < pieces ? (t * KV + kv) * D + (e - j * per_entry) * kPiece
+                       : 0;
+#pragma unroll
+    for (int i = 0; i < kPiece; ++i) val[u][i] = 0.f;
+    if (e < pieces && t < T_valid) load8(val[u], xo + at[u]);
+#pragma unroll
+    for (int i = 0; i < kPiece; ++i) m = fmaxf(m, fabsf(val[u][i]));
+  }
+#pragma unroll
+  for (int o2 = 16; o2 > 0; o2 >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(~0u, m, o2));
+  if constexpr (W > 1) {
+    if (lane == 0) red[warp] = m;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < W; ++w) m = fmaxf(m, red[warp - part + w]);
+  }
+  const float s = m / 127.f;
+  const float safe = s > 0.f ? s : 1.f;
+#pragma unroll
+  for (int u = 0; u < kPieces; ++u) {
+    const int e = (u * W + part) * 32 + lane;
+    if (e >= pieces) continue;
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < kPiece; ++i)
+      w[i / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      quant1(val[u][i], safe))) << (8 * (i % 4));
+    *reinterpret_cast<uint2*>(qo + at[u]) = make_uint2(w[0], w[1]);
+  }
+  if (live && part == 0 && lane == 0) L.scale[row] = s;
+}
+
+// A row of more than kQWarps * 32 * kPieces * kPiece values (8,192), too
+// long for the registers: a block a row, which reads the row twice, once
+// for its max and once for its write.  Same row layout as above.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ scale, long long outer_stride,
-                     int ncol, int bs, int KV, int D, int T_valid) {
-  __shared__ float red[kThreads / 32];
+__global__ void __launch_bounds__(kQWarps * 32)
+quantize_long_rows_kernel(QuantLeaf k, QuantLeaf v, long long outer_stride,
+                          int ncol, int bs, int KV, int D, int T_valid) {
+  __shared__ float red[kQWarps];
+  const QuantLeaf L = blockIdx.y == 0 ? k : v;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = blockIdx.x;
   const int kv = static_cast<int>(row % KV);
   const int col = static_cast<int>((row / KV) % ncol);
   const long long o = row / (static_cast<long long>(KV) * ncol);
-  const int n = bs * D;
-  const T* xo = x + o * outer_stride;
+  const int per_entry = D / kPiece;
+  const int pieces = bs * per_entry;
+  const T* xo = static_cast<const T*>(L.x) + o * outer_stride;
+  int8_t* qo = L.q + o * static_cast<long long>(ncol) * bs * KV * D;
+  // piece e of the row into val (zeros past T); its offset in the slab
+  auto piece = [&](int e, float (&val)[kPiece]) {
+    const int j = e / per_entry;
+    const int t = col * bs + j;
+    const int at = (t * KV + kv) * D + (e - j * per_entry) * kPiece;
+#pragma unroll
+    for (int i = 0; i < kPiece; ++i) val[i] = 0.f;
+    if (t < T_valid) load8(val, xo + at);
+    return at;
+  };
   float m = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int t = col * bs + i / D;
-    if (t < T_valid)
-      m = fmaxf(m, fabsf(to_f32(xo[(static_cast<long long>(t) * KV + kv) * D
-                                   + i % D])));
+  for (int e = threadIdx.x; e < pieces; e += kQWarps * 32) {
+    float val[kPiece];
+    piece(e, val);
+#pragma unroll
+    for (int i = 0; i < kPiece; ++i) m = fmaxf(m, fabsf(val[i]));
   }
-  m = block_max(m, red);
+#pragma unroll
+  for (int o2 = 16; o2 > 0; o2 >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(~0u, m, o2));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kQWarps; ++w) m = fmaxf(m, red[w]);
   const float s = m / 127.f;
   const float safe = s > 0.f ? s : 1.f;
-  int8_t* qo = q + o * static_cast<long long>(ncol) * bs * KV * D;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int t = col * bs + i / D;
-    const float v = t < T_valid
-        ? to_f32(xo[(static_cast<long long>(t) * KV + kv) * D + i % D]) : 0.f;
-    qo[(static_cast<long long>(t) * KV + kv) * D + i % D] = quant1(v, safe);
+  for (int e = threadIdx.x; e < pieces; e += kQWarps * 32) {
+    float val[kPiece];
+    const int at = piece(e, val);
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < kPiece; ++i)
+      w[i / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      quant1(val[i], safe))) << (8 * (i % 4));
+    *reinterpret_cast<uint2*>(qo + at) = make_uint2(w[0], w[1]);
   }
-  if (threadIdx.x == 0) scale[row] = s;
+  if (threadIdx.x == 0) L.scale[row] = s;
 }
 
 // Sixteen values x * s, rounded once to OT, in 16-byte stores.
@@ -243,30 +347,76 @@ block_write_kernel(Leaf k, Leaf v, const int* __restrict__ bids,
   }
 }
 
+template <typename T, int W>
+cudaError_t launch_quant(QuantLeaf k, QuantLeaf v, int nleaves,
+                         long long rows, long long outer_stride, int ncol,
+                         int bs, int KV, int D, int T_valid,
+                         cudaStream_t s) {
+  const long long blocks = (rows + kQWarps / W - 1) / (kQWarps / W);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  quantize_rows_kernel<T, W>
+      <<<dim3(static_cast<unsigned>(blocks), nleaves), kQWarps * 32, 0, s>>>(
+          k, v, rows, outer_stride, ncol, bs, KV, D, T_valid);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_quant(QuantLeaf k, QuantLeaf v, int nleaves,
+                           long long rows, long long outer_stride, int ncol,
+                           int bs, int KV, int D, int T_valid,
+                           cudaStream_t s) {
+  const int pieces = bs * D / kPiece;  // a warp holds 32 * kPieces
+  if (pieces <= 32 * kPieces)
+    return launch_quant<T, 1>(k, v, nleaves, rows, outer_stride, ncol, bs,
+                              KV, D, T_valid, s);
+  if (pieces <= 2 * 32 * kPieces)
+    return launch_quant<T, 2>(k, v, nleaves, rows, outer_stride, ncol, bs,
+                              KV, D, T_valid, s);
+  if (pieces <= 4 * 32 * kPieces)
+    return launch_quant<T, 4>(k, v, nleaves, rows, outer_stride, ncol, bs,
+                              KV, D, T_valid, s);
+  if (pieces <= kQWarps * 32 * kPieces)
+    return launch_quant<T, 8>(k, v, nleaves, rows, outer_stride, ncol, bs,
+                              KV, D, T_valid, s);
+  if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  quantize_long_rows_kernel<T>
+      <<<dim3(static_cast<unsigned>(rows), nleaves), kQWarps * 32, 0, s>>>(
+          k, v, outer_stride, ncol, bs, KV, D, T_valid);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x: [n_outer, outer_stride] elements, each row of x a [T, KV, D] slab of
+// For one or two leaves (K, V; nleaves 1 leaves the second set unused):
+// x [n_outer, outer_stride] elements, each row of x a [T, KV, D] slab of
 // which the first T_valid entries are read; dtype 0 = f32, 1 = bf16.
 // q: [n_outer, ncol * bs, KV, D] int8; scale: [n_outer, ncol, KV] f32.
-extern "C" int repro_quantize_rows(const void* x, void* q, void* scale,
-                                   long long n_outer, long long outer_stride,
-                                   int ncol, int bs, int KV, int D,
-                                   int T_valid, int dtype, void* stream) {
+// D % 8 == 0, outer_stride and ncol * bs * KV * D below 2^31, x 16-byte
+// aligned.
+extern "C" int repro_quantize_rows(const void* k_x, void* k_q, void* k_scale,
+                                   const void* v_x, void* v_q, void* v_scale,
+                                   int nleaves, long long n_outer,
+                                   long long outer_stride, int ncol, int bs,
+                                   int KV, int D, int T_valid, int dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = n_outer * ncol * KV;
-  if (rows <= 0 || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(rows));
-  if (dtype == kF32)
-    quantize_rows_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), outer_stride, ncol, bs, KV, D, T_valid);
-  else if (dtype == kBF16)
-    quantize_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), outer_stride, ncol, bs, KV, D, T_valid);
-  else
+  if (rows <= 0 || D <= 0 || D % kPiece || bs <= 0 ||
+      static_cast<long long>(ncol) * bs * KV * D > 0x7fffffffLL ||
+      outer_stride > 0x7fffffffLL ||
+      nleaves < 1 || nleaves > 2)
     return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  const QuantLeaf k{k_x, static_cast<int8_t*>(k_q),
+                    static_cast<float*>(k_scale)};
+  const QuantLeaf v{v_x, static_cast<int8_t*>(v_q),
+                    static_cast<float*>(v_scale)};
+  if (dtype == kF32)
+    return dispatch_quant<float>(k, v, nleaves, rows, outer_stride, ncol, bs,
+                                 KV, D, T_valid, s);
+  if (dtype == kBF16)
+    return dispatch_quant<__nv_bfloat16>(k, v, nleaves, rows, outer_stride,
+                                         ncol, bs, KV, D, T_valid, s);
+  return cudaErrorInvalidValue;
 }
 
 // For one or two leaves (K, V; nleaves 1 leaves the second set unused):

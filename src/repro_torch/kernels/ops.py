@@ -209,10 +209,17 @@ def quantize_int8(x):
 def quantize_kv_tiles(x, block_size: int, nb: int):
     """Prefill caches x [R,B,T,KV,Dh] -> (q int8 [R,B,nb*bs,KV,Dh], scale
     f32 [R,B,nb,KV]), one max-abs scale per (block column, kv head) tile
-    (the int8 pool's admission splice)."""
-    if x.device.type == "cpu":
-        return ref.ref_quantize_kv_tiles(x, block_size, nb)
-    return _qt.quantize_rows(x.contiguous(), block_size=block_size, nb=nb)
+    (the int8 pool's admission splice).  ``x`` may also be a pair (K and
+    V): a pair of results, from one launch on the card."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type == "cpu":
+            return ref.ref_quantize_kv_tiles(x, block_size, nb)
+        return _qt.quantize_rows(x.contiguous(), block_size=block_size,
+                                 nb=nb)
+    if x[0].device.type == "cpu":
+        return tuple(ref.ref_quantize_kv_tiles(t, block_size, nb) for t in x)
+    return _qt.quantize_rows(tuple(t.contiguous() for t in x),
+                             block_size=block_size, nb=nb)
 
 
 def dequantize_int8(q, scale):

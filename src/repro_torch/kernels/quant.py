@@ -8,7 +8,10 @@ Three entry points, each with its own launch counter:
   divides as 1), ``clip(round(x / scale), -127, 127)`` with round half to
   even.  A row is a [nb, 256] matrix's row, or a (block column, kv head)
   tile [bs, Dh] read in place from prefill caches [..., T, KV, Dh] (the
-  int8 pool's admission splice).
+  int8 pool's admission splice).  A warp takes a row of up to 1,024
+  values (more warps a longer row), holds it in registers between its max
+  and its write (a row of over 8,192 values is read twice), and K and V
+  go in one launch.
 * :func:`dequantize_rows` replaces ``:48`` ``_dequant_kernel``
   (``_dequantize_int8:102``): ``q * scale`` per row in f32; with a block
   table it emits each table row's blocks as one contiguous
@@ -45,6 +48,7 @@ NAME_DEQUANT = "dequantize_int8"
 NAME_WRITE = "quantized_block_write"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_KV_HEADS = 256
+ROW_MULTIPLE = 8      # values of a 16-byte piece of bf16 (two of f32)
 
 launches_quant = 0
 """``quantize_rows`` launches since the last reset."""
@@ -64,6 +68,7 @@ def _entry(name: str, argtypes: tuple):
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DEQUANT_ARGS = (_P,) * 7 + (_I, _L) + (_I,) * 4 + (_P,)
+_QUANT_ARGS = (_P,) * 6 + (_I, _L, _L) + (_I,) * 6 + (_P,)
 
 
 def _cuda(*ts, what: str) -> torch.device:
@@ -75,45 +80,72 @@ def _cuda(*ts, what: str) -> torch.device:
     return ts[0].device
 
 
-def quantize_rows(x: torch.Tensor, *, block_size: Optional[int] = None,
+def quantize_rows(x, *, block_size: Optional[int] = None,
                   nb: Optional[int] = None):
     """Without ``block_size``: x [rows, n] f32 or bf16 -> (q int8 [rows, n],
     scale f32 [rows]).  With ``block_size`` and ``nb``: prefill caches
     x [R, B, T, KV, Dh] -> (q int8 [R, B, nb*bs, KV, Dh], scale f32
     [R, B, nb, KV]), one scale per (block column, kv head) tile of the
     first ``nb * block_size`` entries; entries past T quantize as zeros.
-    x contiguous on a CUDA device."""
+    ``x`` is one tensor, or two (K and V, of one shape and dtype): then one
+    launch quantizes both and a pair of (q, scale) comes back, each a
+    contiguous view of one buffer.  A row (n, or bs * Dh) is read in
+    16-byte pieces of 8 values, so n or Dh must be a multiple of
+    ``ROW_MULTIPLE``; x contiguous and 16-byte aligned on a CUDA
+    device."""
     global launches_quant
-    dev = _cuda(x, what="quantize_rows")
-    if x.dtype not in DTYPES or not x.is_contiguous():
-        raise ValueError(f"quantize_rows takes a contiguous f32 or bf16 "
-                         f"tensor; got {x.dtype}, contiguous="
-                         f"{x.is_contiguous()}")
+    pair = not isinstance(x, torch.Tensor)
+    xs = tuple(x) if pair else (x,)
+    if not 1 <= len(xs) <= 2:
+        raise ValueError("quantize_rows takes one or two leaves")
+    dev = _cuda(*xs, what="quantize_rows")
+    x0 = xs[0]
+    if x0.dtype not in DTYPES or not all(t.is_contiguous() for t in xs) \
+            or any(t.dtype != x0.dtype or t.shape != x0.shape for t in xs):
+        raise ValueError(f"quantize_rows takes contiguous f32 or bf16 "
+                         f"tensors of one shape and dtype; got "
+                         f"{[(t.dtype, tuple(t.shape)) for t in xs]}, "
+                         f"contiguous={[t.is_contiguous() for t in xs]}")
     if block_size is None:
-        if x.ndim != 2 or 0 in x.shape:
-            raise ValueError(f"expected x [rows, n]; got {tuple(x.shape)}")
-        rows, n = x.shape
-        q = torch.empty(rows, n, dtype=torch.int8, device=dev)
-        scale = torch.empty(rows, dtype=torch.float32, device=dev)
+        if x0.ndim != 2 or 0 in x0.shape:
+            raise ValueError(f"expected x [rows, n]; got {tuple(x0.shape)}")
+        rows, n = x0.shape
+        qshape, sshape = (rows, n), (rows,)
         args = (rows, n, 1, 1, 1, n, 1)
+        D, slab = n, n
     else:
-        if x.ndim != 5 or nb is None or nb < 1 or block_size < 1 \
-                or 0 in x.shape:
+        if x0.ndim != 5 or nb is None or nb < 1 or block_size < 1 \
+                or 0 in x0.shape:
             raise ValueError(f"expected x [R,B,T,KV,Dh] and nb >= 1; got "
-                             f"{tuple(x.shape)}, nb={nb}")
-        R, B, T, KV, Dh = x.shape
-        q = torch.empty(R, B, nb * block_size, KV, Dh, dtype=torch.int8,
-                        device=dev)
-        scale = torch.empty(R, B, nb, KV, dtype=torch.float32, device=dev)
-        args = (R * B, T * KV * Dh, nb, block_size, KV, Dh, T)
+                             f"{tuple(x0.shape)}, nb={nb}")
+        R, B, T, KV, D = x0.shape
+        qshape = (R, B, nb * block_size, KV, D)
+        sshape = (R, B, nb, KV)
+        args = (R * B, T * KV * D, nb, block_size, KV, D, T)
+        slab = max(T, nb * block_size) * KV * D
+    if D % ROW_MULTIPLE or slab >= 2 ** 31 \
+            or any(t.data_ptr() % 16 for t in xs):
+        raise ValueError(f"quantize_rows reads rows in 16-byte pieces of "
+                         f"{ROW_MULTIPLE} values: n or Dh ({D}) must be a "
+                         f"multiple of {ROW_MULTIPLE}, a [T, KV, Dh] slab "
+                         f"below 2^31 values, x 16-byte aligned")
+    n = len(xs)
+    q = torch.empty((n, *qshape) if pair else qshape, dtype=torch.int8,
+                    device=dev)
+    scale = torch.empty((n, *sshape) if pair else sshape,
+                        dtype=torch.float32, device=dev)
+    qs, ss = (q.unbind(0), scale.unbind(0)) if pair else ((q,), (scale,))
+    leaves = [(t.data_ptr(), qi.data_ptr(), si.data_ptr())
+              for t, qi, si in zip(xs, qs, ss)]
+    if n == 1:
+        leaves.append((None, None, None))
     with _build.on_device(dev):
-        code = _entry("quantize_rows", (_P, _P, _P, _L, _L) + (_I,) * 6
-                      + (_P,))(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                               *args, DTYPES[x.dtype],
-                               _build.stream_handle(dev))
+        code = _entry("quantize_rows", _QUANT_ARGS)(
+            *leaves[0], *leaves[1], n, *args, DTYPES[x0.dtype],
+            _build.stream_handle(dev))
     _build.check(SOURCE, code, "quantize_rows launch")
     launches_quant += 1
-    return q, scale
+    return tuple(zip(qs, ss)) if pair else (q, scale)
 
 
 def dequantize_rows(q, scale, block_table: Optional[torch.Tensor] = None,

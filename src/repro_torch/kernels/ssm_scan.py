@@ -2,13 +2,17 @@
 
 Replaces the TPU kernel ``repro/kernels/ssm_scan.py:32`` ``_ssm_kernel``
 (reached through ``ssm_chunk_scan:65``), the chunk body of
-``models/ssm.py::mamba``.  One CUDA thread per (batch row, inner channel)
-walks the time axis in order with its N states in registers; a block of
-128 channels stages the shared B_t / C_t in shared memory (see the
-source).  The [B,S,Di,N] gates are never built.  Like the Pallas kernel it
-returns y in f32 and the final state h, which the model's prefill keeps as
-the decode state; unlike it, it takes any S (the model still pads to a
-multiple of the chunk, as the reference does) and an optional start state.
+``models/ssm.py::mamba``.  N / 8 lanes of a warp share a (batch row,
+inner channel), 8 states each in registers, and walk the time axis in
+order; a block of 64 channels stages tiles of 32 steps of dt and x
+(16-byte ``cp.async``, double-buffered) and the shared B_t / C_t in
+shared memory and writes y through it (see the source).  The [B,S,Di,N]
+gates are never built.  Like the Pallas kernel it returns y in f32 and
+the final state h, which the model's prefill keeps as the decode state;
+unlike it, it takes any S (the model still pads to a multiple of the
+chunk, as the reference does) and an optional start state.  Rows of dt,
+x and y move in 16-byte pieces, so Di must be a multiple of
+``DI_MULTIPLE`` and the tensors 16-byte aligned.
 
 The plain version is ``kernels.ref.ref_ssm_scan``; ``kernels.ops``
 dispatches between the two by device.
@@ -24,6 +28,7 @@ from repro_torch.kernels import _build
 
 NAME = "ssm_scan"
 MAX_STATE = 64       # N: the states of a channel live in registers
+DI_MULTIPLE = 8      # channels of a 16-byte piece of bf16 x
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -44,7 +49,8 @@ def ssm_scan(dt: torch.Tensor, B_ssm: torch.Tensor, C_ssm: torch.Tensor,
     """dt [B,S,Di] f32 (softplus'd); B_ssm/C_ssm [B,S,N] and x [B,S,Di]
     of one dtype, f32 or bf16; A [Di,N] f32 (negative); ``h0`` [B,Di,N]
     f32 starts the state (default zero).  All contiguous, on one CUDA
-    device; 0 < N <= 64.  Returns (y [B,S,Di] f32, h [B,Di,N] f32)."""
+    device; 0 < N <= 64, Di a multiple of 8, dt and x 16-byte aligned.
+    Returns (y [B,S,Di] f32, h [B,Di,N] f32)."""
     global launches
     ts = (dt, B_ssm, C_ssm, x, A) + ((h0,) if h0 is not None else ())
     if not all(t.is_cuda for t in ts):
@@ -78,6 +84,10 @@ def ssm_scan(dt: torch.Tensor, B_ssm: torch.Tensor, C_ssm: torch.Tensor,
         raise ValueError("ssm_scan inputs must be on one device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("ssm_scan needs contiguous inputs")
+    if Di % DI_MULTIPLE or dt.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError(f"ssm_scan moves rows of dt, x and y in 16-byte "
+                         f"pieces: Di ({Di}) must be a multiple of "
+                         f"{DI_MULTIPLE} and dt, x 16-byte aligned")
     y = torch.empty_like(dt)
     h = dt.new_empty(Bt, Di, N)
     with torch.cuda.device(dt.device):

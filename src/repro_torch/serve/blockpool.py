@@ -376,15 +376,15 @@ def quantize_paged_part(part: list, block_size: int, nb: int) -> list:
     pool: per (bucket block column, kv head) max-abs over the [block_size,
     Dh] tile, scale = max / 127, payload ``clip(round(x / scale))`` (round
     half to even, as ``jnp.round``), through ``kernels.ops.quantize_kv_tiles``
-    (kernel #10 on the card).  Payload leaves come back with
-    ``nb * block_size`` entries (zero-padded when the capacity is not
-    block-aligned), scale leaves as [R, Bp, nb, KV]."""
+    (kernel #10 on the card, K and V in one launch).  Payload leaves come
+    back with ``nb * block_size`` entries (zero-padded when the capacity is
+    not block-aligned), scale leaves as [R, Bp, nb, KV]."""
     out = []
     for grp in part:
         per = {}
         for name, sub in grp.items():
-            qk, ks = ops.quantize_kv_tiles(sub["k"], block_size, nb)
-            qv, vs = ops.quantize_kv_tiles(sub["v"], block_size, nb)
+            (qk, ks), (qv, vs) = ops.quantize_kv_tiles(
+                (sub["k"], sub["v"]), block_size, nb)
             per[name] = {"k": qk, "v": qv, "k_scale": ks, "v_scale": vs,
                          "pos": sub["pos"]}
         out.append(per)

@@ -16,6 +16,7 @@ the loss within 1e-4 (the reference's); identical greedy streams.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.bridge import params_from_reference
 from repro_torch.configs import get_smoke_config as port_smoke
@@ -144,6 +145,92 @@ def test_scan_refuses_grads_and_cpu_tensors_in_the_kernel():
         ops.ssm_chunk_scan(ts[0].requires_grad_(), *ts[1:])
     with pytest.raises(ValueError, match="CUDA"):
         ssm_kernel.ssm_scan(*(t.detach() for t in ts))
+
+
+def _rehearse_ssm(dt, B_ssm, C_ssm, x, A, h0=None, tile=32, states=8):
+    """The Hopper kernel's arithmetic (``csrc/ssm_scan.cu``) in plain
+    torch on the CPU: N padded to NMAX (8, 16, 32 or 64) with A = B = C = 0;
+    S padded with zero steps to a multiple of the staging tile (the
+    kernel's zero-filled rows); a2 = A·log2 e in f32, a = 2^(dt·a2) (the
+    f32 argument, the power in f64 rounded once: a stand-in for
+    ex2.approx, within its 2 ulp; results below 2^-126 flushed to zero);
+    b = (dt·x)·B_t in f32; h = fma(a, h, b) and each lane's share of y an
+    FMA chain over its 8 states (both emulated in f64 and rounded once);
+    the lanes' shares summed by the reduce-scatter's tree, lanes k and
+    k + L/2 first.  Returns (y [B,S,Di], h [B,Di,N]) in f32."""
+    f32, f64 = torch.float32, torch.float64
+    Bt, S, Di = dt.shape
+    N = A.shape[-1]
+    nmax = next(m for m in (8, 16, 32, 64) if N <= m)
+    lanes = nmax // states
+    pad_n = (0, nmax - N)
+    Sp = -(-S // tile) * tile
+    pad_s = (0, 0, 0, Sp - S)
+    dt, x = (F.pad(t.to(f32), pad_s) for t in (dt, x))
+    Bs, Cs = (F.pad(F.pad(t.to(f32), pad_n), pad_s) for t in (B_ssm, C_ssm))
+    a2 = F.pad(A.to(f32), pad_n) * torch.tensor(1.4426950408889634, dtype=f32)
+    h = (torch.zeros(Bt, Di, nmax, dtype=f32) if h0 is None
+         else F.pad(h0.to(f32), pad_n))
+
+    def fma(a, b, c):
+        return (a.to(f64) * b.to(f64) + c.to(f64)).to(f32)
+
+    ys = []
+    for t in range(Sp):
+        d = dt[:, t, :, None]
+        a = torch.exp2((d * a2).to(f64)).to(f32)
+        a = torch.where(a < 2.0 ** -126, torch.zeros_like(a), a)
+        b = (dt[:, t] * x[:, t])[..., None] * Bs[:, t, None, :]
+        h = fma(a, h, b)
+        ch = Cs[:, t, None, :].expand_as(h)
+        part = []
+        for g in range(lanes):
+            acc = torch.zeros(Bt, Di, dtype=f32)
+            for p in range(g * states, (g + 1) * states):
+                acc = fma(ch[..., p], h[..., p], acc)
+            part.append(acc)
+        while len(part) > 1:
+            m = len(part) // 2
+            part = [part[k] + part[k + m] for k in range(m)]
+        ys.append(part[0])
+    return torch.stack(ys, dim=1)[:, :S], h[..., :N]
+
+
+# (B, S, Di, N, chunk, dblk): N 8, 16, 64 and 5 (padded within a lane),
+# S not a multiple of the kernel's 32-step tile
+REHEARSAL_SHAPES = [(1, 72, 64, 8, 24, 64), (2, 100, 128, 16, 50, 128),
+                    (1, 40, 32, 64, 40, 32), (1, 48, 16, 5, 48, 16)]
+
+
+@pytest.mark.parametrize("B,S,Di,N,chunk,dblk", REHEARSAL_SHAPES)
+def test_ssm_kernel_rehearsal_matches_pallas_and_plain(jref, B, S, Di, N,
+                                                       chunk, dblk):
+    """The kernel's arithmetic (``_rehearse_ssm``) against the reference's
+    Pallas ``_ssm_kernel`` (interpret mode) and the plain ``ref_ssm_scan``:
+    y and h within 5e-5; from a start state against the plain version;
+    and dt = 0 pad steps leave h exactly as the cut sequence has it."""
+    jnp = jref["jnp"]
+    ins = _scan_inputs(B, S, Di, N, seed=20 + N)
+    ts = [torch.from_numpy(a) for a in ins]
+    y, h = _rehearse_ssm(*ts)
+    wy, wh = jref["ops"].ssm_chunk_scan(*(jnp.asarray(a) for a in ins),
+                                        chunk=chunk, dblk=dblk)
+    _close(y, np.asarray(wy), SCAN_TOL, "y against Pallas")
+    _close(h, np.asarray(wh), SCAN_TOL, "h against Pallas")
+    py, ph = ref.ref_ssm_scan(*ts)
+    _close(y, py, SCAN_TOL, "y against plain")
+    _close(h, ph, SCAN_TOL, "h against plain")
+    h0 = torch.from_numpy(_rand((B, Di, N), 30 + N, 0.5))
+    y0, hh0 = _rehearse_ssm(*ts, h0=h0)
+    py0, ph0 = ref.ref_ssm_scan(*ts, h0)
+    _close(y0, py0, SCAN_TOL, "y from a state")
+    _close(hh0, ph0, SCAN_TOL, "h from a state")
+    cut = S - 7
+    padded = ts[0].clone()
+    padded[:, cut:] = 0.0
+    _, h_pad = _rehearse_ssm(padded, *ts[1:])
+    _, h_cut = _rehearse_ssm(*(t[:, :cut] for t in ts[:4]), ts[4])
+    assert torch.equal(h_pad, h_cut)
 
 
 # -- 2. the Mamba mixer and the MoE FFN against the reference ----------------

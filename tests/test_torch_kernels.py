@@ -1587,6 +1587,20 @@ def test_quant_kv_tiles_plain_equals_rows():
     assert not q[:, :, 20:].any()
 
 
+def test_quantize_kv_tiles_of_two_leaves_equals_two_calls():
+    """``ops.quantize_kv_tiles`` over K and V at once (the admission
+    splice's one call a layer) gives each leaf's one-leaf result exactly,
+    in f32 and bf16."""
+    k, v = (torch.from_numpy(_rand((2, 3, 20, 4, 8), s)) for s in (46, 47))
+    for dtype in (torch.float32, torch.bfloat16):
+        pair = ops.quantize_kv_tiles((k.to(dtype), v.to(dtype)), 8, 3)
+        assert isinstance(pair, tuple) and len(pair) == 2
+        for (q, s), leaf in zip(pair, (k, v)):
+            q1, s1 = ops.quantize_kv_tiles(leaf.to(dtype), 8, 3)
+            assert q.shape == (2, 3, 24, 4, 8) and s.shape == (2, 3, 3, 4)
+            assert torch.equal(q, q1) and torch.equal(s, s1)
+
+
 def test_dequantize_gather_of_two_leaves_equals_two_calls():
     """``ops.dequantize_gather`` over K and V at once (the int8 chunk
     append's one call a layer) gives each leaf's one-leaf gather exactly,
@@ -1732,6 +1746,8 @@ def test_quant_kernels_refuse_bad_inputs(cuda):
     x = torch.zeros(4, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         qt_kernel.quantize_rows(x)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qt_kernel.quantize_rows(torch.zeros(4, 12, device=cuda))
     q = torch.zeros(4, 16, device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError, match="int8 q"):
         qt_kernel.dequantize_rows(q.float(), torch.zeros(4, device=cuda))
@@ -1748,11 +1764,82 @@ def test_quant_kernels_refuse_bad_inputs(cuda):
             [torch.zeros(2, 1, 8, device=cuda)], idx, idx)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,nb", [(40, 3), (64, 4)])
+def test_quantize_tiles_kernel_takes_rows_of_4096(cuda, T, nb, dtype):
+    """gemma-2b's pool rows, bs 16 x Dh 256 = 4096 values (four warps a
+    row), with a ragged tail (T = 40 < 3 x 16) and an exact fit."""
+    x = torch.randn(1, 2, T, 2, 256, device=cuda).to(dtype)
+    q, s = qt_kernel.quantize_rows(x, block_size=16, nb=nb)
+    qw, sw = ref.ref_quantize_kv_tiles(x, 16, nb)
+    assert torch.equal(q, qw) and torch.equal(s, sw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,nb", [(100, 2), (128, 2)])
+def test_quantize_tiles_kernel_takes_rows_past_8192(cuda, T, nb, dtype):
+    """Rows of bs 64 x Dh 256 = 16384 values, past what eight warps hold
+    in registers (a block a row, read twice), ragged (T = 100 < 2 x 64)
+    and exact, K and V in one launch; and [3, 16392] matrix rows."""
+    k, v = (torch.randn(1, 2, T, 2, 256, device=cuda).to(dtype)
+            for _ in range(2))
+    for (q, s), leaf in zip(qt_kernel.quantize_rows((k, v), block_size=64,
+                                                     nb=nb), (k, v)):
+        qw, sw = ref.ref_quantize_kv_tiles(leaf, 64, nb)
+        assert torch.equal(q, qw) and torch.equal(s, sw)
+    x = torch.randn(3, 16392, device=cuda).to(dtype)
+    q, s = qt_kernel.quantize_rows(x)
+    qw, sw = ref.ref_quantize_rows(x)
+    assert torch.equal(q, qw) and torch.equal(s, sw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernel_keeps_a_subnormal_scale(cuda, dtype):
+    """A row whose max is subnormal: its scale max / 127 is kept (no
+    flush to zero), and the max quantizes to +-127."""
+    x = torch.zeros(4, 256, device=cuda)
+    x[0, 9], x[1, 100], x[2, 3] = 1e-39, -3e-39, 1e-40
+    x[3] = torch.linspace(-1, 1, 256, device=cuda)
+    x = x.to(dtype)
+    q, s = qt_kernel.quantize_rows(x)
+    qw, sw = ref.ref_quantize_rows(x)
+    assert torch.equal(q, qw) and torch.equal(s, sw)
+    assert (s[:3] > 0).all() and (s[:3] < torch.finfo(torch.float32).tiny
+                                  ).all()
+    assert q[0, 9] == 127 and q[1, 100] == -127 and q[2, 3] == 127
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_tiles_kernel_takes_k_and_v_in_one_launch(cuda, dtype):
+    """The splice's K and V in one launch: each leaf's (q, scale) equal
+    to its own call, as contiguous views of one buffer."""
+    k, v = (torch.randn(2, 3, 40, 4, 64, device=cuda).to(dtype)
+            for _ in range(2))
+    before = qt_kernel.launches_quant
+    pair = qt_kernel.quantize_rows((k, v), block_size=16, nb=3)
+    assert qt_kernel.launches_quant == before + 1
+    for (q, s), leaf in zip(pair, (k, v)):
+        q1, s1 = qt_kernel.quantize_rows(leaf, block_size=16, nb=3)
+        assert q.is_contiguous() and torch.equal(q, q1)
+        assert torch.equal(s, s1)
+    assert pair[1][0].data_ptr() == pair[0][0].data_ptr() + pair[0][0].nbytes
+    torch.cuda.synchronize()
+
+
 # -- the Mamba selective scan (#12) and jamba's FFN width ---------------------
 
-# the reference test's two shapes (tests/test_kernels.py:73-74) and
-# jamba-v0.1-52b's full width (Di 8192, N 16) over a ragged S
-SSM_SHAPES = [(2, 512, 256, 16), (1, 256, 512, 8), (1, 300, 8192, 16)]
+# the reference test's two shapes (tests/test_kernels.py:73-74),
+# jamba-v0.1-52b's full width (Di 8192, N 16) over a ragged S, and Di not a
+# multiple of the kernel's 64-channel block at N 64 (eight lanes a channel)
+SSM_SHAPES = [(2, 512, 256, 16), (1, 256, 512, 8), (1, 300, 8192, 16),
+              (2, 77, 200, 64)]
 SSM_TOL = 5e-5
 
 
@@ -1817,6 +1904,22 @@ def test_ssm_kernel_continues_from_a_state_and_pads(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Di,N", [(4, 256, 1024, 16), (2, 77, 200, 64),
+                                      (1, 50, 64, 5)])
+def test_ssm_kernel_launches_are_bit_identical(cuda, B, S, Di, N):
+    """No atomics, one fixed order of y's sums: two launches on the same
+    inputs (with a start state) agree bit for bit."""
+    dt, Bs, Cs, x, A = (torch.from_numpy(a).to(cuda)
+                        for a in _ssm_inputs(B, S, Di, N, seed=70))
+    h0 = torch.from_numpy(_rand((B, Di, N), 71)).to(cuda)
+    Bs, Cs, x = (t.to(torch.bfloat16) for t in (Bs, Cs, x))
+    y1, h1 = ssm_kernel.ssm_scan(dt, Bs, Cs, x, A, h0=h0)
+    y2, h2 = ssm_kernel.ssm_scan(dt, Bs, Cs, x, A, h0=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
 def test_ssm_kernel_refuses_bad_inputs(cuda):
     dt, Bs, Cs, x, A = (torch.from_numpy(a).to(cuda)
                         for a in _ssm_inputs(1, 8, 16, 4))
@@ -1828,6 +1931,9 @@ def test_ssm_kernel_refuses_bad_inputs(cuda):
         ssm_kernel.ssm_scan(dt, *(torch.zeros(1, 8, 80, device=cuda)
                                   for _ in range(2)), x,
                             torch.zeros(16, 80, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ssm_kernel.ssm_scan(*(torch.from_numpy(a).to(cuda)
+                              for a in _ssm_inputs(1, 8, 20, 4)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.ssm_chunk_scan(dt.requires_grad_(), Bs, Cs, x, A)
 
