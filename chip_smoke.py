@@ -40,7 +40,13 @@ Phases, in order, each printing one line:
            enqueue (``Timer``); #11 as the int8 chunk append calls it and
            #10 as the admission splice calls it, K and V in one launch;
            a scan_quant line has #12's, #10's and the pool write's times
-           beside their bounds and #12's SFU floor;
+           beside their bounds and #12's SFU floor; #4 and #5 also at
+           gemma-2b's train shape (q/dO [8,8,512,256], k/v [8,1,512,256],
+           causal; f32 and bf16, the SIMT kernels' 32-row tiles) beside
+           SDPA's backward, and #3, #8 and #9 at granite-20b's decode shape
+           (48 q heads on one kv head of 128: six head groups of 8; pools
+           [2050,16,1,128]; bf16 and int8), a wide_groups line with their
+           times, bounds (K/V bytes once) and library times;
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -68,6 +74,20 @@ Phases, in order, each printing one line:
            zeroed just before the warm run, and fails unless ssm_scan
            launched 7 times per prefill call and flash_attention,
            fused_ffn and decode_attention launched;
+  dense    the dense family, qwen3-4b, gemma-2b and granite-20b: (a) each
+           at full width cut to 2 layers, weights drawn on the card, in
+           f32: prefill logits of 2 prompts x 600 tokens and four decode
+           ticks over dense, paged and int8-paged KV, and one train step
+           at batch 2 x 256 (loss, grads), the kernels on the card against
+           the plain path on the CPU; (b) each served in bf16,
+           Runtime.create(cfg, capacity=2048, param_dtype=bf16)
+           .engine(num_slots=16), the serve phase's 32 requests over dense
+           KV and the int8 paged pool, cold then warm, gemma-2b also
+           once through the chunked-prefill scheduler: qwen3-4b and gemma-2b at
+           full depth, granite-20b at 8 of its 52 layers; (c) gemma-2b's
+           bf16 training, 2 layers at batch 8 x 512, 20 steps, the loss
+           falling; fails unless #4 / #5 ran at head dim 256, #3 / #8 / #9
+           at G 48, and #2 in qwen3-4b's runs only;
   paged    the same 32 requests, those of 16-23 that are 256 tokens long
            opening with prompt 0's first 256 tokens, served dense,
            kv_layout="paged" and paged with kv_dtype="int8"
@@ -135,7 +155,7 @@ import time
 from pathlib import Path
 
 PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "jamba",
-          "train", "train_profile", "xlstm_profile", "sched_profile",
+          "dense", "train", "train_profile", "xlstm_profile", "sched_profile",
           "jamba_profile")                      # the build always runs
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor-core FLOP/s
@@ -509,13 +529,16 @@ def kernels_phase(torch, timer) -> dict:
                             jamba_width=jamba)
 
     # flash-decode: 16 slots against a 2048-entry cache, part empty, at
-    # exanode-100m's 12 / 4 heads of 64 and jamba-v0.1-52b's 32 / 8 of 128
+    # exanode-100m's 12 / 4 heads of 64, jamba-v0.1-52b's 32 / 8 of 128
+    # and granite-20b's 48 / 1 of 128 (six head groups of 8)
     decode = {}
-    for arch, (KV, G, D) in (("exanode", (4, 3, 64)), ("jamba", (8, 4, 128))):
+    for arch, (KV, G, D) in (("exanode", (4, 3, 64)), ("jamba", (8, 4, 128)),
+                             ("granite", (1, 48, 128))):
         decode[arch] = decode_case(torch, timer, gen, B=16, T=2048, KV=KV,
                                    G=G, D=D)
     out["decode_attention"] = dict(decode["exanode"],
-                                   jamba_width=decode["jamba"])
+                                   jamba_width=decode["jamba"],
+                                   granite_width=decode["granite"])
     out.update(paged_kernels(torch, timer))
     out.update(backward_kernels(torch, timer))
     out.update(mlstm_kernel(torch, timer))
@@ -620,14 +643,16 @@ def decode_case(torch, timer, gen, B: int, T: int, KV: int, G: int,
             f"part-empty cache, {H} / {KV} heads of {D}")
     q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
     # the function reads only the valid K/V rows (every valid entry is at
-    # or before its slot's pos): count those, not the whole cache
+    # or before its slot's pos): count those, not the whole cache, and
+    # once, however many head groups read them
     valid = int(lens.sum())
     b_ms, b_by = bound(nbytes(q, kv_pos, pos, q)
                        + 2 * valid * KV * D * k.element_size(),
                        4 * H * D * valid, "bfloat16")
     mask = ((kv_pos >= 0) & (kv_pos <= pos[:, None]))[:, None, None, :]
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    splits, split_len = da.plan_splits(B * KV, T,
+    groups = da.head_groups(G)
+    splits, split_len = da.plan_splits(B * KV * groups, T,
                                        da.tile_entries(D, k.element_size()))
 
     def kern():
@@ -639,7 +664,7 @@ def decode_case(torch, timer, gen, B: int, T: int, KV: int, G: int,
     return dict(
         shape=f"q [{B},{H},{D}] k/v [{B},{T},{KV},{D}] bf16, "
               f"{valid} of {B * T} entries valid; {splits} splits of "
-              f"{split_len}",
+              f"{split_len}, {groups} head group{'s' if groups > 1 else ''}",
         splits=splits, split_len=split_len,
         max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
         ms=timer.ms(kern), device_ms=timer.device_ms(kern),
@@ -1071,10 +1096,11 @@ def paged_case(torch, KV: int, G: int, D: int, seed: int, B: int = 16,
 def paged_kernels(torch, timer) -> dict:
     """The paged decode kernels against their plain versions (f32 and bf16
     pools, int8 pools with f32 and bf16 q; head dim 64 at exanode-100m's
-    12 / 4 heads, 128 at llama3.2-3b's 24 / 8 and, for int8, 256 at
-    gemma-2b's 8 / 1, which the int8 kernel's first version refused) and
-    their times at the serve shapes in the serving dtype (bf16; int8
-    pools with bf16 q).  Both run the split kernel: each names its plan."""
+    12 / 4 heads, 128 at llama3.2-3b's 24 / 8 and granite-20b's 48 / 1
+    (six head groups of 8) and, for int8, 256 at gemma-2b's 8 / 1, which
+    the int8 kernel's first version refused) and their times at the serve
+    shapes and granite-20b's in the serving dtype (bf16; int8 pools with
+    bf16 q).  Both run the split kernel: each names its plan."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
@@ -1096,13 +1122,15 @@ def paged_kernels(torch, timer) -> dict:
     c = paged_case(torch, KV=4, G=3, D=64, seed=3)
     wide = paged_case(torch, KV=8, G=3, D=128, seed=4)
     gemma = paged_case(torch, KV=1, G=8, D=256, seed=5)
+    granite = paged_case(torch, KV=1, G=48, D=128, seed=6)
     out = {}
     for name, (kern, plain, args) in kernels.items():
         quant = name == pa.NAME_Q8
         errs = {}
         for case, what, suffix in (
                 (c, "serve shapes", ""), (wide, "D=128, 24/8 heads", "_d128"),
-                (gemma, "D=256, 8/1 heads", "_d256")):
+                (gemma, "D=256, 8/1 heads", "_d256"),
+                (granite, "D=128, 48/1 heads", "_g48")):
             if case is gemma and not quant:
                 continue
             for dt in (torch.float32, bf16):
@@ -1112,55 +1140,67 @@ def paged_kernels(torch, timer) -> dict:
                     "_bf16" if suffix else "")
                 errs[f"max_abs_err{tag}{suffix}"] = check(
                     name, kern(*a), plain(*a), dname, what)
-        a = args(c, bf16)
-        B, H, KV, D, bs, M = (c[k] for k in ("B", "H", "KV", "D", "bs", "M"))
-        pool_el = 1 if quant else 2
-        # each distinct block that valid entries reach, read once (the
-        # shared block once): K and V rows, its positions and, for int8,
-        # its two scale rows; plus q, out, the table and pos
-        nb = (c["blocks"] * (2 * bs * KV * D * pool_el + 4 * bs
-                             + (8 * KV if quant else 0))
-              + 2 * nbytes(a[0]) + nbytes(c["table"], c["pos"]))
-        b_ms, b_by = bound(nb, 4 * H * D * c["valid"], "bfloat16")
-        tbl = c["table"].long()
-        kv_pos = c["pos_pool"][tbl].reshape(B, M * bs)
-        mask = ((kv_pos >= 0) & (kv_pos <= c["pos"][:, None]))[:, None, None]
 
-        def gathered(pool, scale):
-            x = pool[tbl]
-            if scale is not None:
-                x = (x.float() * scale[tbl][:, :, None, :, None]).to(bf16)
-            return x.reshape(B, M * bs, KV, D).transpose(1, 2)
+        def timed(c, kern=kern, plain=plain, args=args, quant=quant):
+            """The kernel at case ``c`` in bf16 on the three timers,
+            beside its plain version, its bound and the library's gather +
+            SDPA."""
+            a = args(c, bf16)
+            B, H, KV, D, bs, M = (c[k] for k in ("B", "H", "KV", "D", "bs",
+                                                 "M"))
+            pool_el = 1 if quant else 2
+            # each distinct block that valid entries reach, read once (the
+            # shared block once, and once however many head groups read
+            # it): K and V rows, its positions and, for int8, its two
+            # scale rows; plus q, out, the table and pos
+            nb = (c["blocks"] * (2 * bs * KV * D * pool_el + 4 * bs
+                                 + (8 * KV if quant else 0))
+                  + 2 * nbytes(a[0]) + nbytes(c["table"], c["pos"]))
+            b_ms, b_by = bound(nb, 4 * H * D * c["valid"], "bfloat16")
+            tbl = c["table"].long()
+            kv_pos = c["pos_pool"][tbl].reshape(B, M * bs)
+            mask = ((kv_pos >= 0)
+                    & (kv_pos <= c["pos"][:, None]))[:, None, None]
 
-        def library(a=a, quant=quant):
-            k = gathered(a[1], a[3] if quant else None)
-            v = gathered(a[2], a[4] if quant else None)
-            return F.scaled_dot_product_attention(
-                a[0][:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+            def gathered(pool, scale):
+                x = pool[tbl]
+                if scale is not None:
+                    x = (x.float() * scale[tbl][:, :, None, :, None]).to(bf16)
+                return x.reshape(B, M * bs, KV, D).transpose(1, 2)
 
-        splits, split_len = da.plan_splits(B * KV, M * bs,
-                                           da.tile_entries(D, 2), bs)
-        plan = f"{splits} splits of {split_len // bs} columns"
+            def library():
+                k = gathered(a[1], a[3] if quant else None)
+                v = gathered(a[2], a[4] if quant else None)
+                return F.scaled_dot_product_attention(
+                    a[0][:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
-        def run(kern=kern, a=a):
-            return kern(*a)
-        out[name] = dict(
-            shape=f"q [{B},{H},{D}] {'int8' if quant else 'bf16'} pools "
-                  f"[{c['N']},{bs},{KV},{D}], table [{B},{M}], "
-                  f"{c['valid']} valid entries in {c['blocks']} blocks, "
-                  f"bf16 q; {plan}",
-            splits=splits, split_len=split_len, **errs,
-            ms=timer.ms(run), device_ms=timer.device_ms(run),
-            host_us=timer.host_us(run),
-            plain_ms=timer.ms(lambda: plain(*a)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=timer.ms(library),
-            library_device_ms=timer.device_ms(library),
-            library_host_us=timer.host_us(library),
-            library=("two calls: the pools' block_table gather"
-                     + (" with dequantization" if quant else "")
-                     + " + torch.nn.functional.scaled_dot_product_attention"
-                       " with the positional mask"))
+            groups = da.head_groups(H // KV)
+            splits, split_len = da.plan_splits(B * KV * groups, M * bs,
+                                               da.tile_entries(D, 2), bs)
+            plan = (f"{splits} splits of {split_len // bs} columns, "
+                    f"{groups} head group{'s' if groups > 1 else ''}")
+
+            def run():
+                return kern(*a)
+            return dict(
+                shape=f"q [{B},{H},{D}] {'int8' if quant else 'bf16'} pools "
+                      f"[{c['N']},{bs},{KV},{D}], table [{B},{M}], "
+                      f"{c['valid']} valid entries in {c['blocks']} blocks, "
+                      f"bf16 q; {plan}",
+                splits=splits, split_len=split_len,
+                ms=timer.ms(run), device_ms=timer.device_ms(run),
+                host_us=timer.host_us(run),
+                plain_ms=timer.ms(lambda: plain(*a)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=timer.ms(library),
+                library_device_ms=timer.device_ms(library),
+                library_host_us=timer.host_us(library),
+                library=("two calls: the pools' block_table gather"
+                         + (" with dequantization" if quant else "")
+                         + " + torch.nn.functional."
+                           "scaled_dot_product_attention with the "
+                           "positional mask"))
+        out[name] = dict(timed(c), **errs, granite_width=timed(granite))
     return out
 
 
@@ -1232,6 +1272,12 @@ def backward_kernels(torch, timer) -> dict:
                              "24/8 heads of dim 128")
     errs["bf16_d128"] = attn_errs(*(t.to(bf16) for t in wide), "bfloat16",
                                   "24/8 heads of dim 128")
+    # gemma-2b's 8 / 1 heads of 256 at its train shape, batch 8 x 512:
+    # the SIMT kernels' 32-row tiles, in f32 and bf16
+    gemma = attn(8, 512, 8, 1, 256)
+    errs["d256"] = attn_errs(*gemma, "float32", "8/1 heads of dim 256")
+    errs["bf16_d256"] = attn_errs(*(t.to(bf16) for t in gemma), "bfloat16",
+                                  "8/1 heads of dim 256")
     common = dict(plain="ref_attention_bwd (dq, dk, dv in one call)",
                   library="backward of torch.nn.functional."
                           "scaled_dot_product_attention with enable_gqa "
@@ -1287,9 +1333,11 @@ def backward_kernels(torch, timer) -> dict:
 
     out = attn_times(*(t.to(bf16) for t in base))
     d128 = attn_times(*(t.to(bf16) for t in wide))
-    del wide
+    d256 = attn_times(*(t.to(bf16) for t in gemma))
+    del wide, gemma
     for i, name in enumerate((fa.NAME_BWD_DQ, fa.NAME_BWD_DKV)):
-        out[name].update(grad_errs(errs, i), d128=d128[name])
+        out[name].update(grad_errs(errs, i), d128=d128[name],
+                         d256=d256[name])
 
     N, D, Fd = 4096, 768, 2048
 
@@ -1417,10 +1465,11 @@ def backward_kernels(torch, timer) -> dict:
 
 
 def flash_bwd_line(entries: dict, gpu: str) -> str:
-    """#4 and #5 at both head dims: device and host time of each kernel,
-    the pair as the train path launches it, and SDPA's backward."""
+    """#4 and #5 at each head dim (64, 128 and gemma-2b's 256): device and
+    host time of each kernel, the pair as the train path launches it, and
+    SDPA's backward."""
     parts = []
-    for key in (None, "d128"):
+    for key in (None, "d128", "d256"):
         dq, dkv = (entries[n] if key is None else entries[n][key]
                    for n in ("flash_attention_bwd_dq",
                              "flash_attention_bwd_dkv"))
@@ -1436,6 +1485,26 @@ def flash_bwd_line(entries: dict, gpu: str) -> str:
             f"{dq['library_host_us']:.1f} us; plain {dq['plain_ms']:.3f} "
             f"ms; bounds {dq['bound_ms']:.5f} / {dkv['bound_ms']:.5f}")
     return "flash_bwd: " + " | ".join(parts) + f" [{gpu}]"
+
+
+def wide_groups_line(entries: dict, gpu: str) -> str:
+    """#3, #8 and #9 at granite-20b's decode shape (48 q heads on one kv
+    head: six head groups of 8): each kernel's times on the three timers,
+    its error against the plain version, its bound (K/V bytes counted
+    once) and the library's."""
+    parts = []
+    for n in ("decode_attention", "paged_decode_attention",
+              "paged_decode_attention_q8"):
+        e = entries[n]["granite_width"]
+        err = (e["max_abs_err"] if n == "decode_attention"
+               else entries[n]["max_abs_err_bf16_g48"])
+        parts.append(
+            f"{n} {e['shape']}: {e['ms']:.4f} ms, device "
+            f"{e['device_ms']:.4f}, host {e['host_us']:.1f} us; bound "
+            f"{e['bound_ms']:.5f} {e['bound_by']}; plain {e['plain_ms']:.3f}"
+            f"; library {e['library_ms']:.4f}, device "
+            f"{e['library_device_ms']:.4f}; bf16 err {err:.3g}")
+    return "wide_groups: " + " | ".join(parts) + f" [{gpu}]"
 
 
 def scan_quant_line(torch, entries: dict, gpu: str) -> str:
@@ -1893,7 +1962,7 @@ def paged_model_errs(torch, sides: dict, toks, kv_dtype: str) -> dict:
     M = rt.capacity // bs
     pool = bp.BlockPool(B * M + bp.NUM_RESERVED, bs, B, M,
                         max_entries=rt.capacity)
-    dst = torch.from_numpy(np.stack([pool.admit(b, toks[b], S // bs)
+    dst = torch.from_numpy(np.stack([pool.admit(b, toks[b], -(-S // bs))
                                      for b in range(B)]))
     caches, logits = {}, {}
     for dev, side in sides.items():
@@ -2235,6 +2304,256 @@ def jamba_phase(torch, gpu: str) -> tuple[str, dict]:
         raise AssertionError(line + "\njamba phase failed: "
                              + "; ".join(failed))
     return line, launches
+
+
+DENSE_ARCHS = ("qwen3-4b", "gemma-2b", "granite-20b")
+DENSE_CUT = 2            # layers of the f32 check against the CPU
+GRANITE_SERVE_LAYERS = 8   # of 52: 4.8 B params, 9.7 GB in bf16
+DENSE_TRAIN_STEPS, DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ = 20, 8, 512
+# what each dense config's runs must launch: #2 only where the FFN is
+# SwiGLU (qwen3-4b; GeGLU stays plain, as in the reference), the flash
+# backward at gemma-2b's head dim 256, the decode kernels at granite-20b's
+# 48 q heads a kv head
+DENSE_SERVE_KERNELS = {
+    "dense": ("flash_attention", "decode_attention"),
+    "int8": ("flash_attention", "paged_decode_attention_q8",
+             "quantize_int8", "quantized_block_write"),
+    "sched": ("decode_attention",)}
+
+
+def dense_config(arch: str, **kw):
+    """The registered config at full width; granite-20b cut to
+    GRANITE_SERVE_LAYERS layers (its 52 do not fit one card's draw)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.granite_20b import cut
+    cfg = cut(GRANITE_SERVE_LAYERS) if arch == "granite-20b" else \
+        get_config(arch)
+    return cfg.scaled(**kw) if kw else cfg
+
+
+def dense_f32_check(torch, arch: str) -> tuple[dict, dict]:
+    """(a) of the dense phase for one config: a DENSE_CUT-layer cut at
+    full width in f32, weights drawn on the card and copied to the CPU;
+    prefill logits of two XLSTM_PROMPT-token prompts at every position,
+    four decode ticks over the dense cache, then over f32 and int8 paged
+    pools (``paged_model_errs``), and one train step at batch 2 x 256
+    (loss, every grad leaf), the card's kernels against the plain path on
+    the CPU.  Returns the figures and the launch counts of the card's
+    side, zeroed just before."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import LayerGroup, tree_leaves, tree_map
+    from repro_torch.runtime import Runtime
+    from repro_torch.train.steps import value_and_grad
+    cfg = dense_config(arch, num_layers=DENSE_CUT,
+                       groups=(LayerGroup(("attn",), DENSE_CUT),),
+                       dtype=torch.float32)
+    gpu_params = card_params(torch, cfg, torch.float32)
+    sides = {dev: Runtime.create(cfg, capacity=640, device=dev, params=p)
+             for dev, p in (("cuda", gpu_params),
+                            ("cpu", tree_map(lambda t: t.cpu(),
+                                             gpu_params)))}
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size,
+                                              (2, XLSTM_PROMPT),
+                                              dtype=np.int32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = {}, {}
+    for dev, rt in sides.items():
+        logits[dev], caches[dev] = rt.prefill(torch.from_numpy(toks).to(dev))
+    errs = [float((logits["cuda"].cpu() - logits["cpu"]).abs().max())]
+    nxt = logits["cpu"][:, -1].argmax(-1).to(torch.int32)[:, None]
+    pos = torch.full((2,), XLSTM_PROMPT, dtype=torch.int32)
+    for _ in range(4):
+        for dev, rt in sides.items():
+            logits[dev] = rt.decode_step(nxt.to(dev), caches[dev],
+                                         pos.to(dev))
+        errs.append(float((logits["cuda"].cpu() - logits["cpu"]).abs()
+                          .max()))
+        nxt = logits["cpu"][:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = pos + 1
+    del logits, caches
+    toks[1, :32] = toks[0, :32]                  # two shared pool blocks
+    paged = {kv: paged_model_errs(torch, sides, toks, kv)
+             for kv in ("f32", "int8")}
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, 256, 2), 0)
+    res = {dev: value_and_grad(rt.params, to_device(batch, dev), cfg)
+           for dev, rt in sides.items()}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    loss_err = abs(float(res["cuda"][0]) - float(res["cpu"][0]))
+    grad_err = grad_rel = 0.0
+    bad = []
+    for g, w in zip(tree_leaves(res["cuda"][2]), tree_leaves(res["cpu"][2])):
+        diff = (g.cpu() - w).abs()
+        grad_err = max(grad_err, float(diff.max()))
+        grad_rel = max(grad_rel, rel_err(g.cpu(), w))
+        if not bool((diff <= TRAIN_GRAD_TOL * (1 + w.abs())).all()):
+            bad.append(f"grad leaf {tuple(w.shape)} max abs err "
+                       f"{float(diff.max()):.3g}")
+    if not loss_err <= TRAIN_LOSS_TOL * (1 + abs(float(res["cpu"][0]))):
+        bad.append(f"loss differs by {loss_err:.3g}")
+    for what, es in (("dense", errs), ("paged f32", paged["f32"]["errs"]),
+                     ("paged int8", paged["int8"]["errs"])):
+        if not max(es) <= MODEL_LOGITS_TOL:
+            bad.append(f"{what} logits max abs err "
+                       f"{[float(f'{e:.3g}') for e in es]} over "
+                       f"{MODEL_LOGITS_TOL}")
+    figs = dict(params=sides["cpu"].num_params, errs=errs, paged=paged,
+                loss_err=loss_err, grad_err=grad_err, grad_rel=grad_rel,
+                seconds=time.perf_counter() - t0, failed=bad)
+    del sides, res, gpu_params
+    torch.cuda.empty_cache()
+    return figs, launches
+
+
+def dense_phase(torch, gpu: str) -> tuple[str, dict]:
+    """The dense family (qwen3-4b, gemma-2b, granite-20b).  (a) each at
+    full width, DENSE_CUT layers, in f32 against the CPU
+    (``dense_f32_check``: prefill and decode logits over dense, paged and
+    int8 KV within MODEL_LOGITS_TOL, a train step's loss within
+    TRAIN_LOSS_TOL and grads within TRAIN_GRAD_TOL).  (b) each served in
+    bf16 with weights drawn on the card, qwen3-4b and gemma-2b at full
+    depth, granite-20b at GRANITE_SERVE_LAYERS of 52 layers:
+    ``Runtime.create(cfg, capacity=2048, param_dtype=bf16)`` serves the
+    serve phase's 32 requests on 16 slots, dense KV and the int8 paged
+    pool (block size 16), each cold and then warm, every launch counter
+    zeroed just before each run; gemma-2b also once through the
+    chunked-prefill scheduler, after those.  (c) gemma-2b's bf16 training at DENSE_CUT layers and
+    batch 8 x 512 for 20 steps, the loss falling by more than
+    TRAIN_LOSS_DROP.  Fails unless #4 / #5 launched in gemma-2b's (a) and
+    (c) (head dim 256), #3, #8 and #9 in granite-20b's runs (G 48), #2 in
+    qwen3-4b's and in no GeGLU config's."""
+    import numpy as np
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.common import LayerGroup, tree_leaves
+    from repro_torch.runtime import Runtime
+    parts, failed, total = [], [], {}
+
+    def add(counts):
+        for n, x in counts.items():
+            total[n] = total.get(n, 0) + x
+
+    for arch in DENSE_ARCHS:
+        figs, launches = dense_f32_check(torch, arch)
+        add(launches)
+        failed += [f"{arch} f32: {b}" for b in figs["failed"]]
+        need = ["flash_attention", "decode_attention",
+                "paged_decode_attention", "paged_decode_attention_q8",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
+        if arch == "qwen3-4b":
+            need += ["fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw"]
+        elif launches["fused_ffn"]:
+            failed.append(f"{arch} f32: fused_ffn launched for GeGLU")
+        missing = [n for n in need if not launches[n]]
+        if missing:
+            failed.append(f"{arch} f32: never launched {missing}")
+        fmt = lambda es: [float(f"{e:.3g}") for e in es]    # noqa: E731
+        parts.append(
+            f"{arch} f32 {DENSE_CUT}-layer cut ({figs['params']:,} params), "
+            f"2 prompts x {XLSTM_PROMPT}: logits err prefill "
+            f"{figs['errs'][0]:.3g}, dense ticks {fmt(figs['errs'][1:])}, "
+            f"paged f32 {fmt(figs['paged']['f32']['errs'])}, int8 "
+            f"{fmt(figs['paged']['int8']['errs'])}; train step 2 x 256 loss "
+            f"err {figs['loss_err']:.3g}, max abs grad err "
+            f"{figs['grad_err']:.3g}, largest leaf ||err|| / ||grad|| "
+            f"{figs['grad_rel']:.3g} ({figs['seconds']:.1f} s); launches "
+            f"{ {n: x for n, x in launches.items() if x} }")
+
+    for arch in DENSE_ARCHS:
+        cfg = dense_config(arch)
+        t0 = time.perf_counter()
+        params = card_params(torch, cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = serve_prompts(cfg.vocab_size)
+        new = 64
+        ways = {"dense": ({}, {}), "int8": (
+            dict(kv_layout="paged", kv_dtype="int8"), dict(block_size=16))}
+        if arch == "gemma-2b":
+            ways["sched"] = (dict(scheduler=True), {})
+        G = cfg.num_heads // cfg.num_kv_heads
+        lines = []
+        torch.cuda.reset_peak_memory_stats()
+        for way, (kv, engine_kw) in ways.items():
+            rt = Runtime.create(cfg, capacity=2048,
+                                param_dtype=torch.bfloat16, params=params,
+                                **kv)
+            # the scheduler run comes after the two monolithic layouts'
+            # cold and warm runs, which warmed the model: one run (~45 s
+            # on the H100), not two
+            cold = (None if way == "sched"
+                    else serve_run(torch, rt, prompts, new, **engine_kw))
+            warm = serve_run(torch, rt, prompts, new, **engine_kw)
+            launches = warm["launches"]
+            add(launches)
+            need = list(DENSE_SERVE_KERNELS[way])
+            if arch == "qwen3-4b":
+                need.append("fused_ffn")
+            elif launches["fused_ffn"]:
+                failed.append(f"{arch} {way}: fused_ffn launched for GeGLU")
+            missing = [n for n in need if not launches[n]]
+            if missing:
+                failed.append(f"{arch} {way}: never launched {missing}")
+            if way == "sched" and warm["eng"].stats.prefill_calls:
+                failed.append(f"{arch} sched: monolithic prefills ran")
+            lines.append(
+                f"{way}: " + (f"cold wall {cold['wall']:.3f} s prefill "
+                              f"{cold['prefill']:.3f} s; warm " if cold
+                              else "one run after the monolithic ones: ")
+                + f"{run_figures(warm)}; launches "
+                  f"{ {n: x for n, x in launches.items() if x} }")
+            del rt, cold, warm
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        del params
+        torch.cuda.empty_cache()
+        parts.append(
+            f"{arch} bf16 serve, {cfg.num_layers} layers ({n_params:,} "
+            f"params, drawn on the card in {init_s:.3f} s), capacity=2048 "
+            f"slots=16, {len(prompts)} requests x {new} new tokens, G {G} "
+            f"({da.head_groups(G)} head groups), head dim {cfg.head_dim}: "
+            + "; ".join(lines) + f"; peak memory {peak / 2**30:.2f} GiB")
+
+    cfg = dense_config("gemma-2b", num_layers=DENSE_CUT,
+                       groups=(LayerGroup(("attn",), DENSE_CUT),))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    _, hist = train_loop(cfg, steps=DENSE_TRAIN_STEPS,
+                         global_batch=DENSE_TRAIN_BATCH,
+                         seq_len=DENSE_TRAIN_SEQ, log_every=DENSE_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    add(launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    p50 = float(np.median([h["seconds"] for h in hist]))
+    drop = float(np.mean(losses[:5]) - np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not drop > TRAIN_LOSS_DROP:
+        failed.append(f"gemma-2b train: loss fell by {drop:.4f}, not more "
+                      f"than {TRAIN_LOSS_DROP}")
+    missing = [n for n in ("flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv") if not launches[n]]
+    if missing or launches["fused_ffn"]:
+        failed.append(f"gemma-2b train: launches {launches}")
+    B, S = DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ
+    parts.append(
+        f"gemma-2b bf16 train, {DENSE_CUT} layers at full width, f32 params, "
+        f"global batch {B} x {S}, {DENSE_TRAIN_STEPS} cosine steps: losses "
+        f"{[round(x, 4) for x in losses]}; first-5 minus last-5 mean "
+        f"{drop:.4f} (gate {TRAIN_LOSS_DROP}); step p50 {p50 * 1e3:.1f} ms, "
+        f"{B * S / p50:.0f} tokens/s; peak memory {peak / 2**30:.3f} GiB; "
+        f"launches { {n: x for n, x in launches.items() if x} }")
+    line = "dense: " + " | ".join(parts) + f" [{gpu}]"
+    if failed:
+        raise AssertionError(line + "\ndense phase failed: "
+                             + "; ".join(failed))
+    return line, total
 
 
 def match_share(a: dict, b: dict) -> float:
@@ -2712,6 +3031,7 @@ def main() -> int:
             f"{entries['decode_attention']['jamba_width']['bound_ms']:.4f})"
             + f"; tolerances {TOL} [{gpu}]", flush=True)
         print(flash_bwd_line(entries, gpu), flush=True)
+        print(wide_groups_line(entries, gpu), flush=True)
         print(scan_quant_line(torch, entries, gpu), flush=True)
         print(split_sweep(torch, gpu, args.iters), flush=True)
     if "model" in phases:
@@ -2722,7 +3042,7 @@ def main() -> int:
                       ("paged", functools.partial(paged_phase, mono=mono)),
                       ("sched", functools.partial(sched_phase, mono=mono)),
                       ("xlstm", xlstm_phase), ("jamba", jamba_phase),
-                      ("train", train_phase)):
+                      ("dense", dense_phase), ("train", train_phase)):
         if path in phases:
             line, by_path[path] = run(torch, gpu)
             print(line, flush=True)

@@ -14,6 +14,9 @@ ARCHS = {
     "llama3.2-3b": "llama3_2_3b",
     "xlstm-125m": "xlstm_125m",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "qwen3-4b": "qwen3_4b",
+    "gemma-2b": "gemma_2b",
+    "granite-20b": "granite_20b",
 }
 
 

@@ -63,9 +63,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B,H,D]; k/v [B,T,KV,D]; kv_pos [B,T] int32 (-1 = empty); pos [B] int32;
-// out [B,H,D]; part f32 scratch [B*KV*splits*G*(D+2)]; arrived int32
-// [B*KV], zero (left zero); all contiguous.  H/KV <= 8, D in {16, 32, 64,
-// 128, 256}; splits * split_len >= T with split_len <= 8192 and splits <=
+// out [B,H,D]; part f32 scratch [B*H*splits*(D+2)]; arrived int32
+// [B*KV*head_groups(H/KV)], zero (left zero); all contiguous.  Any G =
+// H/KV (run in groups of at most 8 q heads), D in {16, 32, 64, 128, 256}; splits * split_len >= T with split_len <= 8192 and splits <=
 // 128.  One launch on `stream`.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* kv_pos,

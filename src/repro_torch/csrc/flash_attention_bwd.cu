@@ -52,34 +52,47 @@
 //   (dK and dV take 128 registers a thread).  The numerics are the
 //   standard Hopper backward's: P and dS rounded to bf16 for their
 //   products, dQ and dK scaled in f32 at the end.
-// * f32 (the parity checks) and bf16 at head dims 16 and 32 run the
+// * f32 (the parity checks) and bf16 at head dims 16, 32 and 256 run the
 //   first SIMT version: the same walks on the CUDA cores, f32 tiles in
-//   padded shared memory, one block per (batch, q head, 64-row q tile) or
-//   (batch, kv head, 64-key tile) of 256 threads.
+//   padded shared memory, one block per (batch, q head, q tile) or
+//   (batch, kv head, key tile) of 256 threads.  A tile is 64 rows / keys,
+//   and 32 at head dim 256 (gemma-2b): there four f32 [64][257] tiles
+//   would need 263 KB of shared memory, past the 227 KB a block may use;
+//   at 32 they take 132 KB (dq) and 140 KB (dkv, with P, dS and the row
+//   statistics), and dK / dV are 32 f32 registers a thread each.  One
+//   block an SM at D 256.  What bounds it there is the CUDA cores' f32
+//   rate (67 TFLOP/s against the tensor cores' 989 in bf16): a
+//   tensor-core D 256 backward, two consumer warpgroups splitting D, is
+//   later work.
 
 #include "common.cuh"
 #include "flash_tc.cuh"
 
 namespace {
 
-constexpr int kB = 64;         // q rows / keys per tile
 constexpr int kThreads = 256;  // 16 x 16 threads
+
+// q rows / keys a tile: 64, and 32 at head dim 256, where four f32
+// [64][257] tiles would take 263 KB of shared memory, past the 227 KB a
+// block may use (at 32 they take 132-140 KB).
+template <int D>
+constexpr int kSimtTile = D > 128 ? 32 : 64;
 
 // Six tensors' (batch, head, row) strides in elements, passed by value.
 struct Strides {
   int64_t v[18];
 };
 
-template <int D>
+template <int BT, int D>
 constexpr size_t dq_smem_floats() {
-  // Q, dO, K, V [64][D+1], dS [64][65]
-  return 4 * kB * (D + 1) + kB * (kB + 1);
+  // Q, dO, K, V [BT][D+1], dS [BT][BT+1]
+  return 4 * BT * (D + 1) + BT * (BT + 1);
 }
 
-template <int D>
+template <int BT, int D>
 constexpr size_t dkv_smem_floats() {
-  // K, V, Q, dO [64][D+1], P and dS [64 keys][65 q], lse and delta [64]
-  return 4 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB;
+  // K, V, Q, dO [BT][D+1], P and dS [BT keys][BT+1 q], lse and delta [BT]
+  return 4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT;
 }
 
 __device__ __forceinline__ bool attended(int qp, int kp, int S, int Tk,
@@ -89,12 +102,12 @@ __device__ __forceinline__ bool attended(int qp, int kp, int S, int Tk,
   return kp <= qp && (window <= 0 || kp > qp - window);
 }
 
-// Loads a [64][D] tile of rows r0.. from base (row stride rs) into smem
+// Loads a [BT][D] tile of rows r0.. from base (row stride rs) into smem
 // (row stride D+1) as f32, times mul; rows at or past n are zero.
-template <typename T, int D>
+template <typename T, int BT, int D>
 __device__ __forceinline__ void stage(float* dst, const T* base, int64_t rs,
                                       int r0, int n, float mul) {
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
+  for (int i = threadIdx.x; i < BT * D; i += kThreads) {
     const int r = i / D, d = i % D;
     float x = 0.f;
     if (r0 + r < n) x = to_f32(base[(int64_t)(r0 + r) * rs + d]) * mul;
@@ -102,6 +115,8 @@ __device__ __forceinline__ void stage(float* dst, const T* base, int64_t rs,
   }
 }
 
+// Thread (ty, tx) of the 16 x 16 owns rows ty*R .. ty*R+R-1 of a tile and
+// columns tx + 16j (R = BT / 16 of each).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -110,21 +125,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ delta, T* __restrict__ dq, int H,
                     int group, int S, int Tk, const Strides sv,
                     int causal, int window, float scale) {
+  constexpr int BT = kSimtTile<D>;
+  constexpr int R = BT / 16;
   constexpr int DP = D + 1;
-  constexpr int PS = kB + 1;
+  constexpr int PS = BT + 1;
   constexpr int DC = D / 16;
   const int64_t* st = sv.v;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + kB * DP;
-  float* Ks = dOs + kB * DP;
-  float* Vs = Ks + kB * DP;
-  float* dSs = Vs + kB * DP;
+  float* dOs = Qs + BT * DP;
+  float* Ks = dOs + BT * DP;
+  float* Vs = Ks + BT * DP;
+  float* dSs = Vs + BT * DP;
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kB;
+  const int q0 = blockIdx.x * BT;
   const int hk = h / group;
   // strides (elements): q, k, v, o, dO, dQ, each (b, h, row)
   const T* qb = q + b * st[0] + h * st[1];
@@ -133,17 +150,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* ob = o + b * st[9] + h * st[10];
   const T* db = dout + b * st[12] + h * st[13];
 
-  stage<T, D>(Qs, qb, st[2], q0, S, scale);
-  stage<T, D>(dOs, db, st[14], q0, S, 1.f);
-  stage<T, D>(Ks, ob, st[11], q0, S, 1.f);  // O, for delta only
+  stage<T, BT, D>(Qs, qb, st[2], q0, S, scale);
+  stage<T, BT, D>(dOs, db, st[14], q0, S, 1.f);
+  stage<T, BT, D>(Ks, ob, st[11], q0, S, 1.f);  // O, for delta only
   __syncthreads();
 
-  // delta = rowsum(dO ⊙ O) for this thread's 4 rows (16 lanes per row)
+  // delta = rowsum(dO ⊙ O) for this thread's R rows (16 lanes per row)
   const int64_t row_base = ((int64_t)b * H + h) * S;
-  float lse_r[4], delta_r[4];
+  float lse_r[R], delta_r[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int r = ty * R + i;
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
@@ -157,74 +174,74 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (in && tx == 0) delta[row_base + q0 + r] = acc;
   }
 
-  float acc[4][DC];
+  float acc[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
 
-  const int n_tiles = (Tk + kB - 1) / kB;
+  const int n_tiles = (Tk + BT - 1) / BT;
   int t_begin = 0, t_end = n_tiles;
   if (causal) {
-    const int last_q = min(q0 + kB - 1, S - 1);
-    t_end = min(n_tiles, last_q / kB + 1);
-    if (window > 0) t_begin = max(0, q0 - window + 1) / kB;
+    const int last_q = min(q0 + BT - 1, S - 1);
+    t_end = min(n_tiles, last_q / BT + 1);
+    if (window > 0) t_begin = max(0, q0 - window + 1) / BT;
   }
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kB;
+    const int k0 = t * BT;
     __syncthreads();  // previous tile's K/V/dS (and O) fully consumed
-    stage<T, D>(Ks, kb, st[5], k0, Tk, 1.f);
-    stage<T, D>(Vs, vb, st[8], k0, Tk, 1.f);
+    stage<T, BT, D>(Ks, kb, st[5], k0, Tk, 1.f);
+    stage<T, BT, D>(Vs, vb, st[8], k0, Tk, 1.f);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
+      float qv[R], dov[R], kv[R], vv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * DP + d];
-        dov[i] = dOs[(ty * 4 + i) * DP + d];
+      for (int i = 0; i < R; ++i) {
+        qv[i] = Qs[(ty * R + i) * DP + d];
+        dov[i] = dOs[(ty * R + i) * DP + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         kv[j] = Ks[(tx + 16 * j) * DP + d];
         vv[j] = Vs[(tx + 16 * j) * DP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int qp = q0 + ty * R + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int kp = k0 + tx + 16 * j;
         const float p = attended(qp, kp, S, Tk, causal, window)
                             ? expf(s[i][j] - lse_r[i]) : 0.f;
-        dSs[(ty * 4 + i) * PS + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+        dSs[(ty * R + i) * PS + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
+    for (int c = 0; c < BT; ++c) {
       float kk[DC];
 #pragma unroll
       for (int j = 0; j < DC; ++j) kk[j] = Ks[c * DP + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = dSs[(ty * 4 + i) * PS + c];
+      for (int i = 0; i < R; ++i) {
+        const float ds = dSs[(ty * R + i) * PS + c];
 #pragma unroll
         for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(ds, kk[j], acc[i][j]);
       }
@@ -232,8 +249,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int r = q0 + ty * R + i;
     if (r >= S) continue;
     T* row = dq + b * st[15] + h * st[16] + (int64_t)r * st[17];
 #pragma unroll
@@ -250,43 +267,45 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, int H, int group, int S, int Tk,
                      const Strides sv, int causal, int window,
                      float scale) {
+  constexpr int BT = kSimtTile<D>;
+  constexpr int R = BT / 16;
   constexpr int DP = D + 1;
-  constexpr int PS = kB + 1;
+  constexpr int PS = BT + 1;
   constexpr int DC = D / 16;
   const int64_t* st = sv.v;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kB * DP;
-  float* Qs = Vs + kB * DP;
-  float* dOs = Qs + kB * DP;
-  float* Ps = dOs + kB * DP;   // [key][q]
-  float* dSs = Ps + kB * PS;   // [key][q]
-  float* lse_s = dSs + kB * PS;
-  float* delta_s = lse_s + kB;
+  float* Vs = Ks + BT * DP;
+  float* Qs = Vs + BT * DP;
+  float* dOs = Qs + BT * DP;
+  float* Ps = dOs + BT * DP;   // [key][q]
+  float* dSs = Ps + BT * PS;   // [key][q]
+  float* lse_s = dSs + BT * PS;
+  float* delta_s = lse_s + BT;
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int b = blockIdx.z, hk = blockIdx.y;
-  const int k0 = blockIdx.x * kB;
+  const int k0 = blockIdx.x * BT;
   // strides (elements): q, k, v, dO, dK, dV, each (b, h, row)
-  stage<T, D>(Ks, k + b * st[3] + hk * st[4], st[5], k0, Tk, 1.f);
-  stage<T, D>(Vs, v + b * st[6] + hk * st[7], st[8], k0, Tk, 1.f);
+  stage<T, BT, D>(Ks, k + b * st[3] + hk * st[4], st[5], k0, Tk, 1.f);
+  stage<T, BT, D>(Vs, v + b * st[6] + hk * st[7], st[8], k0, Tk, 1.f);
 
-  float dka[4][DC], dva[4][DC];
+  float dka[R][DC], dva[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) dka[i][j] = dva[i][j] = 0.f;
 
   // q tiles that can see a key of this tile: from the causal diagonal to
   // the window's last row (all of S without a causal mask).
-  const int n_qt = (S + kB - 1) / kB;
+  const int n_qt = (S + BT - 1) / BT;
   int i_begin = 0, i_end = n_qt;
   if (causal) {
-    i_begin = min(n_qt, k0 / kB);
+    i_begin = min(n_qt, k0 / BT);
     if (window > 0) {
-      const int last_k = min(k0 + kB - 1, Tk - 1);
-      i_end = min(n_qt, (last_k + window - 1) / kB + 1);
+      const int last_k = min(k0 + BT - 1, Tk - 1);
+      i_end = min(n_qt, (last_k + window - 1) / BT + 1);
     }
   }
 
@@ -296,60 +315,60 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* db = dout + b * st[9] + h * st[10];
     const int64_t row_base = ((int64_t)b * H + h) * S;
     for (int it = i_begin; it < i_end; ++it) {
-      const int q0 = it * kB;
+      const int q0 = it * BT;
       __syncthreads();  // previous tile's Q/dO/P/dS fully consumed
-      stage<T, D>(Qs, qb, st[2], q0, S, scale);
-      stage<T, D>(dOs, db, st[11], q0, S, 1.f);
-      if (tid < kB) {
+      stage<T, BT, D>(Qs, qb, st[2], q0, S, scale);
+      stage<T, BT, D>(dOs, db, st[11], q0, S, 1.f);
+      if (tid < BT) {
         const bool in = q0 + tid < S;
         lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
         delta_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
       }
       __syncthreads();
 
-      // s[i][j]: key ty*4+i against q row tx+16j
-      float s[4][4], dp[4][4];
+      // s[i][j]: key ty*R+i against q row tx+16j
+      float s[R][R], dp[R][R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], dov[4];
+        float kv[R], vv[R], qv[R], dov[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * DP + d];
-          vv[i] = Vs[(ty * 4 + i) * DP + d];
+        for (int i = 0; i < R; ++i) {
+          kv[i] = Ks[(ty * R + i) * DP + d];
+          vv[i] = Vs[(ty * R + i) * DP + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           qv[j] = Qs[(tx + 16 * j) * DP + d];
           dov[j] = dOs[(tx + 16 * j) * DP + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < R; ++j) {
             s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kp = k0 + ty * 4 + i;
+      for (int i = 0; i < R; ++i) {
+        const int kp = k0 + ty * R + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int qr = tx + 16 * j;
           const float p = attended(q0 + qr, kp, S, Tk, causal, window)
                               ? expf(s[i][j] - lse_s[qr]) : 0.f;
-          Ps[(ty * 4 + i) * PS + qr] = p;
-          dSs[(ty * 4 + i) * PS + qr] = p * (dp[i][j] - delta_s[qr]);
+          Ps[(ty * R + i) * PS + qr] = p;
+          dSs[(ty * R + i) * PS + qr] = p * (dp[i][j] - delta_s[qr]);
         }
       }
       __syncthreads();
 
 #pragma unroll 4
-      for (int c = 0; c < kB; ++c) {
+      for (int c = 0; c < BT; ++c) {
         float dov[DC], qv[DC];
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
@@ -357,9 +376,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           qv[j] = Qs[c * DP + tx + 16 * j];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = Ps[(ty * 4 + i) * PS + c];
-          const float ds = dSs[(ty * 4 + i) * PS + c];
+        for (int i = 0; i < R; ++i) {
+          const float p = Ps[(ty * R + i) * PS + c];
+          const float ds = dSs[(ty * R + i) * PS + c];
 #pragma unroll
           for (int j = 0; j < DC; ++j) {
             dva[i][j] = fmaf(p, dov[j], dva[i][j]);
@@ -371,8 +390,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int r = k0 + ty * R + i;
     if (r >= Tk) continue;
     T* krow = dk + b * st[12] + hk * st[13] + (int64_t)r * st[14];
     T* vrow = dv + b * st[15] + hk * st[16] + (int64_t)r * st[17];
@@ -390,14 +409,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       float* delta, void* dq, int B, int H, int Hkv, int S,
                       int Tk, const int64_t* st, int causal, int window,
                       cudaStream_t stream) {
+  constexpr int BT = kSimtTile<D>;
   auto kern = flash_bwd_dq_kernel<T, D>;
   Strides sv;
   for (int i = 0; i < 18; ++i) sv.v[i] = st[i];
-  const size_t smem = dq_smem_floats<D>() * sizeof(float);
+  const size_t smem = dq_smem_floats<BT, D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kB - 1) / kB, H, B);
+  dim3 grid((S + BT - 1) / BT, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
@@ -413,14 +433,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const float* delta, void* dk, void* dv, int B, int H,
                        int Hkv, int S, int Tk, const int64_t* st, int causal,
                        int window, cudaStream_t stream) {
+  constexpr int BT = kSimtTile<D>;
   auto kern = flash_bwd_dkv_kernel<T, D>;
   Strides sv;
   for (int i = 0; i < 18; ++i) sv.v[i] = st[i];
-  const size_t smem = dkv_smem_floats<D>() * sizeof(float);
+  const size_t smem = dkv_smem_floats<BT, D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tk + kB - 1) / kB, Hkv, B);
+  dim3 grid((Tk + BT - 1) / BT, Hkv, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -941,8 +962,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace bwd_tc
 
-// f32 at head dims 16-128; bf16 at 16 and 32 (at 64 and 128 it takes the
-// tensor-core entries below).
+// f32 at head dims 16-256; bf16 at 16, 32 and 256 (at 64 and 128 it
+// takes the tensor-core entries below).
 #define REPRO_DISPATCH_D(dtype_, D_, F32, BF16) \
   if (dtype_ == kF32) {                         \
     switch (D_) {                               \
@@ -950,11 +971,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       case 32: return F32(32);                  \
       case 64: return F32(64);                  \
       case 128: return F32(128);                \
+      case 256: return F32(256);                \
     }                                           \
   } else if (dtype_ == kBF16) {                 \
     switch (D_) {                               \
       case 16: return BF16(16);                 \
       case 32: return BF16(32);                 \
+      case 256: return BF16(256);               \
     }                                           \
   }                                             \
   return cudaErrorInvalidValue;

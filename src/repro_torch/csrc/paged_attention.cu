@@ -138,9 +138,9 @@ cudaError_t launch_q8(const void* q, const void* k_pool, const void* v_pool,
 
 // q [B,H,D]; k_pool/v_pool [N,bs,KV,D] in q's dtype; pos_pool [N,bs] int32
 // (-1 = empty); table [B,M] int32 of block ids in [0, N); pos [B] int32;
-// out [B,H,D]; part f32 scratch [B*KV*splits*G*(D+2)]; arrived int32
-// [B*KV], zero (left zero); all contiguous.  H/KV <= 8, D in {16, 32, 64,
-// 128, 256}; split_cols table columns a split, splits * split_cols >= M,
+// out [B,H,D]; part f32 scratch [B*H*splits*(D+2)]; arrived int32
+// [B*KV*head_groups(H/KV)], zero (left zero); all contiguous.  Any G =
+// H/KV (run in groups of at most 8 q heads), D in {16, 32, 64, 128, 256}; split_cols table columns a split, splits * split_cols >= M,
 // split_cols * bs <= 8192, splits <= 128.  One launch on `stream`.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,

@@ -11,16 +11,23 @@
 // balance: the work is bound by the bytes of the valid entries.  So the
 // design is about moving those bytes, and only those, at the card's rate:
 //
-// * The walk is split across blocks.  Grid (KV, splits, B): split s of
-//   (row b, kv head h) covers entries [s*split_len, (s+1)*split_len) of
-//   the walk (the wrapper picks splits so that about 512 blocks are in
-//   flight, ~4 on each of the 132 SMs; the kv heads of a run, which
-//   interleave in a dense cache, launch side by side).  Each split writes
-//   an f32 partial (m, l, acc[G][D]) to scratch and counts itself in on
-//   its (row, kv head)'s arrival counter; the last split to arrive reads
-//   the row's partials back from L2, rescales them by 2^(m_s - m) and
-//   divides by max(l, 1e-30), and resets the counter to 0 for the next
-//   launch (the wrapper keeps one zeroed counter buffer a stream).  One
+// * The walk is split across blocks.  Grid (KV * NG, splits, B): split s
+//   of (row b, head group x) covers entries [s*split_len, (s+1)*split_len)
+//   of the walk of kv head x / NG (the wrapper picks splits so that about
+//   512 blocks are in flight, ~4 on each of the 132 SMs; the kv heads of
+//   a run, which interleave in a dense cache, launch side by side).  A
+//   block computes at most kMaxGroup = 8 q heads: a kv head's G q heads
+//   run as NG = head_groups(G) groups of G / NG each (NG = 1 for G <= 8,
+//   so those launches are unchanged; granite-20b's G 48 is 6 groups of
+//   8).  Every group block walks its kv head's tiles as a G <= 8 block
+//   does, so a kv head's K/V are read once a group, the later reads
+//   mostly from L2 (one read for all groups is later work).  Each split
+//   writes an f32 partial (m, l, acc[G/NG][D]) to scratch and counts
+//   itself in on its (row, head group)'s arrival counter; the last split
+//   to arrive reads the group's partials back from L2, rescales them by
+//   2^(m_s - m) and divides by max(l, 1e-30), and resets the counter to 0
+//   for the next launch (the wrapper keeps one zeroed counter buffer a
+//   stream).  One
 //   launch, no spinning; a first version combined in a second launch,
 //   which added 6-7 us after the splits on the H100 (the launch, then two
 //   dependent trips to memory with the device otherwise idle).
@@ -43,7 +50,7 @@
 // * The math keeps up with the bytes.  bf16 q (every serving path) runs
 //   split_decode_mma_kernel: each warp takes 16 entries of a 64-entry tile
 //   and computes Sᵀ = K·Qᵀ and Oᵀ += Vᵀ·Pᵀ with mma.sync m16n8k16 (the
-//   G <= 8 q heads of the kv head are the n = 8 side; K and Vᵀ come from
+//   <= 8 q heads of the block's head group are the n = 8 side; K and Vᵀ come from
 //   a padded bf16 tile by ldmatrix, Pᵀ from Sᵀ's accumulators by
 //   movmatrix), so a lane holds two heads' scores and output columns and
 //   the online softmax needs three shuffles a head.  A first version did
@@ -87,9 +94,18 @@ constexpr int kSteps = 4;              // f32: row passes of a warp per tile
 constexpr int kMaxSplitLen = 8192;     // entries a split covers (bit mask)
 constexpr int kMaxTiles = kMaxSplitLen / 16;  // smallest tile: 16 entries
 constexpr int kMaxSplits = 128;        // partials the combine reads
-constexpr int kMaxGroup = 8;           // q heads per kv head
+constexpr int kMaxGroup = 8;           // q heads a block
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The groups a kv head's G q heads run in: the fewest of equal size, each
+// at most kMaxGroup (1 for G <= 8; 6 of 8 for G 48; G 9 takes 3 of 3).
+// kernels/decode_attention.py's head_groups mirrors it.
+inline int head_groups(int G) {
+  int n = (G + kMaxGroup - 1) / kMaxGroup;
+  while (G % n) ++n;
+  return n;
+}
 
 // Shared memory a split reuses once its walk is done: the warps' acc
 // [kWarps][kMaxGroup][D] f32 (write_partial), then the combine's scratch
@@ -417,7 +433,9 @@ __device__ __forceinline__ void write_empty(int G, int64_t slot,
 
 // Where a split's results go: its partial, the arrival counters
 // [B*KV] (zero between launches) and, from the last split of a (row, kv
-// head), the output [B,H,D].
+// head), the output [B,H,D].  Here and below KV counts head groups (the
+// grid's x), and G the q heads of a group: a kv head's NG groups are NG
+// consecutive "kv heads" of G / NG q heads each.
 template <typename T>
 struct Out {
   float* part_m;    // [B, KV, splits, G]
@@ -489,28 +507,28 @@ __device__ void finish(const Out<T>& o, int b, int h, int KV, int G, int D,
   if (threadIdx.x == 0) o.arrived[b * KV + h] = 0;  // ready for the next
 }
 
-// f32: one split of one (row, kv head) on the CUDA cores.  GP >= G q
+// f32: one split of one (row, head group) on the CUDA cores.  GP >= G q
 // heads in registers (the padding heads get q = 0 and are never written).
 // Cache: the type Storage of k / v (f32, or int8 with k_scale_at(t) and
-// v_scale_at(t), the addresses of entry t's f32 scales); prepare(b, h,
-// extra shared memory) with every thread, then length() (entries the walk
-// covers), row(t) (element offset of entry t's K/V row in k / v) and
-// position(t).
+// v_scale_at(t), the addresses of entry t's f32 scales); prepare(b, kv
+// head, extra shared memory) with every thread, then length() (entries
+// the walk covers), row(t) (element offset of entry t's K/V row in k / v)
+// and position(t).  Head group x of the grid reads kv head x / ng.
 template <class Cache, int D, int GP>
 __global__ void __launch_bounds__(kThreads)
 split_decode_kernel(Cache cache, const float* __restrict__ q,
                     const int* __restrict__ pos, Out<float> dst, int H,
-                    int window, int split_len, float scale) {
+                    int ng, int window, int split_len, float scale) {
   using S = typename Cache::Storage;
   using L = SimtLayout<D, S>;
   extern __shared__ __align__(16) unsigned char split_smem[];
   __shared__ SplitShared<GP> sh;
 
   const int h = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
-  const int KV = gridDim.x, G = H / KV;
+  const int KV = gridDim.x, G = H / KV;  // head groups; q heads a group
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int p = pos[b];
-  cache.prepare(b, h, split_smem + L::kBytes);
+  cache.prepare(b, h / ng, split_smem + L::kBytes);
   const int len = cache.length();
   const int t0 = s * split_len;
   const int n = min(split_len, len - t0);  // entries of this split
@@ -678,7 +696,7 @@ split_decode_kernel(Cache cache, const float* __restrict__ q,
   finish(dst, b, h, KV, G, D, gridDim.y, w_acc);
 }
 
-// bf16: one split of one (row, kv head) on the tensor cores.  Warp w
+// bf16: one split of one (row, head group) on the tensor cores.  Warp w
 // takes entries [16w, 16w + 16) of each 64-entry tile.  In mma.sync's
 // fragments (g8 = lane / 4, t4 = lane % 4) the lane holds the scores of
 // entries g8 and g8 + 8 for heads 2t4 and 2t4 + 1, and Oᵀ's dims 16i + g8
@@ -687,7 +705,8 @@ template <class Cache, int D>
 __global__ void __launch_bounds__(kThreads)
 split_decode_mma_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
                         const int* __restrict__ pos, Out<__nv_bfloat16> dst,
-                        int H, int window, int split_len, float scale) {
+                        int H, int ng, int window, int split_len,
+                        float scale) {
   using S = typename Cache::Storage;
   using L = MmaLayout<D, S>;
   using bf16 = __nv_bfloat16;
@@ -695,11 +714,11 @@ split_decode_mma_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
   __shared__ SplitShared<8> sh;
 
   const int h = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
-  const int KV = gridDim.x, G = H / KV;
+  const int KV = gridDim.x, G = H / KV;  // head groups; q heads a group
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
   const int p = pos[b];
-  cache.prepare(b, h, split_smem + L::kBytes);
+  cache.prepare(b, h / ng, split_smem + L::kBytes);
   const int len = cache.length();
   const int t0 = s * split_len;
   const int n = min(split_len, len - t0);
@@ -953,14 +972,14 @@ cudaError_t run(Kern kern, int ring_bytes, int (&allowed)[16],
   const int smem = ring_bytes + extra_smem;
   cudaError_t err = allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
-  const int G = H / KV;
-  const int64_t parts = (int64_t)B * KV * splits * G;
+  const int ng = head_groups(H / KV);
+  const int64_t parts = (int64_t)B * H * splits;  // B * KV * splits * G
   const Out<T> o{part, part + parts, part + 2 * parts, arrived, out};
   // scores in log2 units: the softmax runs on exp2
   const float scale = static_cast<float>(
       1.4426950408889634 / std::sqrt(static_cast<double>(D)));
-  kern<<<dim3(KV, splits, B), kThreads, smem, stream>>>(
-      cache, q, pos, o, H, window, split_len, scale);
+  kern<<<dim3(KV * ng, splits, B), kThreads, smem, stream>>>(
+      cache, q, pos, o, H, ng, window, split_len, scale);
   return cudaGetLastError();
 }
 
@@ -977,7 +996,7 @@ cudaError_t launch_d(const Cache& cache, const T* q, const int* pos,
                window, splits, split_len, extra_smem, stream);
   } else {
     using L = SimtLayout<D, S>;
-    const int G = H / KV;
+    const int G = H / KV / head_groups(H / KV);  // q heads a block
 #define REPRO_SPLIT_GP(GP)                                                 \
   {                                                                        \
     static int allowed[16] = {0};                                          \
@@ -995,17 +1014,18 @@ cudaError_t launch_d(const Cache& cache, const T* q, const int* pos,
 }
 
 // The decode over any cache policy: q [B,H,D]; out [B,H,D]; part the f32
-// scratch of 2*B*KV*splits*G + B*KV*splits*G*D floats; arrived B*KV int32
-// counters, zero, which the launch leaves zero; 1 <= splits <=
-// kMaxSplits, 1 <= split_len <= kMaxSplitLen, H/KV <= kMaxGroup, D in
-// {16, 32, 64, 128, 256}; T float (CUDA cores) or bf16 (tensor cores).
+// scratch of 2*B*H*splits + B*H*splits*D floats; arrived
+// B*KV*head_groups(H/KV) int32 counters, zero, which the launch leaves
+// zero; 1 <= splits <= kMaxSplits, 1 <= split_len <= kMaxSplitLen, any
+// G = H/KV, D in {16, 32, 64, 128, 256}; T float (CUDA cores) or bf16
+// (tensor cores).
 template <class Cache, typename T>
 cudaError_t launch(const Cache& cache, const void* q, const void* pos,
                    void* part, void* arrived, void* out, int B, int H, int KV,
                    int D,
                    int window, int splits, int split_len, int extra_smem,
                    cudaStream_t stream) {
-  if (KV <= 0 || H % KV || H / KV > kMaxGroup || splits < 1 ||
+  if (KV <= 0 || H % KV || splits < 1 ||
       splits > kMaxSplits || split_len < 1 || split_len > kMaxSplitLen)
     return cudaErrorInvalidValue;
   const T* qt = static_cast<const T*>(q);

@@ -8,11 +8,16 @@ split-KV flash-decode (``csrc/split_decode.cuh``): the [T] walk of each
 (row, kv head) is split across blocks (:func:`plan_splits`: runs of 256
 entries, shorter where that gives fewer than 512 blocks); each split
 copies only the tiles that hold a valid entry, in their storage dtype,
-through a 16-byte ``cp.async`` ring, and computes the G = H / KV q heads
-of its kv head (bf16 on the tensor cores, f32 on the CUDA cores) with an
-f32 online softmax; the last split of each (row, kv head) to finish
-combines the splits' f32 partials, which this wrapper allocates, counting
-arrivals in :func:`arrival_counters`.  The mask is the reference's:
+through a 16-byte ``cp.async`` ring, and computes up to ``GROUP_BLOCK`` =
+8 q heads of its kv head (bf16 on the tensor cores, f32 on the CUDA
+cores) with an f32 online softmax; the last split of each (row, head
+group) to finish combines the splits' f32 partials, which this wrapper
+allocates, counting arrivals in :func:`arrival_counters`.  A kv head's G
+= H / KV q heads run as :func:`head_groups` groups of equal size, each
+group's blocks walking the kv head's cache as a G <= 8 launch does
+(granite-20b's G 48: six groups of 8, so its single kv head's K/V are
+read six times, mostly from L2); any G is taken, and G <= 8 is one group,
+as before.  The mask is the reference's:
 ``kv_pos >= 0 and kv_pos <= pos`` (and ``kv_pos > pos - window`` with a
 window); a row with no valid entry averages V over all T entries, as the
 reference does.
@@ -31,7 +36,7 @@ from repro_torch.kernels import _build
 
 NAME = "decode_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
-MAX_GROUP = 8            # q heads per kv head (csrc split_decode kMaxGroup)
+GROUP_BLOCK = 8          # q heads a block (csrc split_decode kMaxGroup)
 TARGET_BLOCKS = 512      # split blocks to have in flight: ~4 on 132 SMs
 SPLIT_ENTRIES = 256      # entries a split walks where the walk is long
 MAX_SPLITS = 128         # csrc kMaxSplits
@@ -72,8 +77,20 @@ def stage_bytes(head_dim: int, itemsize: int,
         ring = 2 * (2 * tile * (head_dim * S + 16) + scales)
     else:
         ring = 3 * (2 * tile * head_dim * S + scales)
-    return max(ring, 4 * MAX_GROUP * head_dim * 4,
-               (2 * MAX_SPLITS * MAX_GROUP + 2 * MAX_GROUP) * 4)
+    return max(ring, 4 * GROUP_BLOCK * head_dim * 4,
+               (2 * MAX_SPLITS * GROUP_BLOCK + 2 * GROUP_BLOCK) * 4)
+
+
+@functools.cache
+def head_groups(group: int) -> int:
+    """The groups a kv head's ``group`` q heads run in (csrc
+    ``split_decode::head_groups``): the fewest of equal size, each at most
+    GROUP_BLOCK heads (1 up to G 8, 6 of 8 at granite-20b's G 48, 3 of 3
+    at G 9)."""
+    n = -(-group // GROUP_BLOCK)
+    while group % n:
+        n += 1
+    return n
 
 
 @functools.lru_cache(maxsize=1024)
@@ -108,7 +125,8 @@ def plan_splits(rows: int, length: int, tile: int,
 def scratch(B: int, KV: int, G: int, D: int, splits: int,
             device) -> torch.Tensor:
     """The splits' f32 partials: m and l [B, KV, splits, G], then acc
-    [B, KV, splits, G, D], in one buffer."""
+    [B, KV, splits, G, D], in one buffer (with G > 8 the kernel reads KV
+    as the head groups and G as a group's heads: the same product)."""
     return torch.empty(B * KV * splits * G * (D + 2), dtype=torch.float32,
                        device=device)
 
@@ -118,9 +136,9 @@ _arrived: dict = {}
 
 def arrival_counters(device, stream: int, rows: int) -> torch.Tensor:
     """The split kernels' arrival counters [>= rows] int32 for launches on
-    ``stream``: zero, and left zero by every launch (the last split of a
-    (row, kv head) resets its count), so one buffer a stream serves every
-    launch in that stream's order."""
+    ``stream``, one a (row, head group): zero, and left zero by every
+    launch (the last split of a (row, head group) resets its count), so
+    one buffer a stream serves every launch in that stream's order."""
     buf = _arrived.get((device, stream))
     if buf is None or buf.numel() < rows:
         buf = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
@@ -140,8 +158,7 @@ def _entry():
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_pos: torch.Tensor, pos: torch.Tensor, *,
                      window: int = 0) -> torch.Tensor:
-    """q [B,H,D]; k/v [B,T,KV,D] (KV divides H, H / KV <= 8, D in
-    HEAD_DIMS); kv_pos [B,T] int32 (-1 = empty); pos [B] int32; all
+    """q [B,H,D]; k/v [B,T,KV,D] (KV divides H, D in HEAD_DIMS); kv_pos [B,T] int32 (-1 = empty); pos [B] int32; all
     contiguous on one CUDA device, q/k/v all f32 or all bf16 -> [B,H,D] in
     q's dtype."""
     global launches
@@ -164,10 +181,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(pos.shape)} must be [B,T] / [B]")
     if kv_pos.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("kv_pos and pos must be int32")
-    if T == 0 or D not in HEAD_DIMS or H // KV > MAX_GROUP:
+    if T == 0 or D not in HEAD_DIMS:
         raise ValueError(f"unsupported decode shape T={T} D={D} "
-                         f"G={H // KV} (D in {HEAD_DIMS}, "
-                         f"G <= {MAX_GROUP})")
+                         f"(D in {HEAD_DIMS})")
     dtype = DTYPES.get(q.dtype)
     if dtype is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v must share one dtype of {list(DTYPES)}; "
@@ -181,13 +197,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention needs contiguous inputs")
     if window < 0:
         raise ValueError(f"negative window {window}")
-    splits, split_len = plan_splits(B * KV, T,
+    groups = KV * head_groups(H // KV)
+    splits, split_len = plan_splits(B * groups, T,
                                     tile_entries(D, q.element_size()))
     out = torch.empty_like(q)
     part = scratch(B, KV, H // KV, D, splits, dev)
     with _build.on_device(dev):
         stream = _build.stream_handle(dev)
-        arrived = arrival_counters(dev, stream, B * KV)
+        arrived = arrival_counters(dev, stream, B * groups)
         code = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         kv_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
                         part.data_ptr(), arrived.data_ptr(), B, H, KV, T, D,

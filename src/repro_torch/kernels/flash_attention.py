@@ -36,9 +36,12 @@ exp(s − lse)`` from the forward's lse, with p = 0 where the forward
 masked.  :func:`route_bwd` picks them as :func:`route` picks the forward:
 bf16 at head dims 64 and 128 on the tensor cores (TMA loads of
 q/k/v/dO, wgmma products, P and dS rounded to bf16 as register A; dO is
-copied when TMA cannot load it as it lies), f32 and bf16 at 16 and 32 on
-the SIMT kernels.  Head dim 256 has no backward (dK and dV alone would
-take 256 f32 registers a thread).
+copied when TMA cannot load it as it lies), f32 and bf16 at 16, 32 and
+256 on the SIMT kernels.  At head dim 256 (gemma-2b) the SIMT kernels
+take tiles of 32 q rows / keys instead of 64: four f32 [64][257] tiles
+would need 263 KB of shared memory, past the 227 KB a block may use, and
+at 32 rows they need 132-140 KB, with dK / dV 32 f32 registers a thread
+each.
 
 The plain versions are ``kernels.ref.ref_attention`` and
 ``ref_attention_bwd``; ``kernels.ops`` dispatches between them and the
@@ -59,7 +62,7 @@ NAME_BWD_DKV = "flash_attention_bwd_dkv"
 BWD_LIB = "flash_attention_bwd"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128)            # bf16 on the tensor cores
-BWD_HEAD_DIMS = (16, 32, 64, 128)   # the backward's (no 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)   # the backward's
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -184,9 +187,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def route_bwd(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernels for (dtype, head dim), as :func:`route` names
     the forward's: ``"tc"`` (bf16 at head dims 64 and 128, on the tensor
-    cores) or ``"simt"`` (f32; bf16 at head dims 16 and 32).  Head dim 256
-    has no backward (dK and dV alone would take 256 f32 registers a
-    thread): it raises."""
+    cores) or ``"simt"`` (f32; bf16 at head dims 16, 32 and 256).  A head
+    dim outside ``BWD_HEAD_DIMS`` raises."""
     if head_dim not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {head_dim} not in {BWD_HEAD_DIMS} "
                          f"(backward)")

@@ -14,7 +14,10 @@ Two entry points, each with its own launch counter:
   only the pool blocks that hold a valid entry, a kv head's rows at a
   time in 16-byte ``cp.async`` pieces through the table it holds in
   shared memory, and the last split of each (slot, kv head) to finish
-  combines the splits' f32 partials, which this wrapper allocates.
+  combines the splits' f32 partials, which this wrapper allocates.  A
+  kv head's q heads run in groups of at most 8
+  (:func:`decode_attention.head_groups`): G 48 is six groups, each
+  gathering the chain's blocks for its kv head.
 * :func:`paged_decode_attention_q8` replaces ``:92`` ``_paged_q8_kernel``
   (``paged_decode_attention_q8:157``): int8 pools with f32 per-(block,
   kv head) scales, through the same split kernel and planner.  The int8
@@ -113,12 +116,12 @@ def _launch(name: str, q, pools, scales, pos_pool, block_table, pos,
     itemsize = q.element_size()
     smem = (_da.stage_bytes(D, itemsize, pool_itemsize) + 4 * M
             + SPLIT_STATIC_SMEM)
-    if D not in _da.HEAD_DIMS or H // KV > _da.MAX_GROUP or smem > MAX_SMEM:
+    if D not in _da.HEAD_DIMS or smem > MAX_SMEM:
         raise ValueError(f"unsupported paged decode shape M={M} D={D} "
-                         f"G={H // KV} (D in {_da.HEAD_DIMS}, G <= "
-                         f"{_da.MAX_GROUP}, {smem} of {MAX_SMEM} bytes of "
-                         f"shared memory)")
-    splits, split_len = _da.plan_splits(B * KV, M * bs,
+                         f"(D in {_da.HEAD_DIMS}, {smem} of {MAX_SMEM} "
+                         f"bytes of shared memory)")
+    groups = KV * _da.head_groups(H // KV)
+    splits, split_len = _da.plan_splits(B * groups, M * bs,
                                         _da.tile_entries(D, itemsize), bs)
     out = torch.empty_like(q)
     dev = q.device
@@ -127,7 +130,7 @@ def _launch(name: str, q, pools, scales, pos_pool, block_table, pos,
                                    pos, out, part)]
     with _build.on_device(dev):
         stream = _build.stream_handle(dev)
-        arrived = _da.arrival_counters(dev, stream, B * KV)
+        arrived = _da.arrival_counters(dev, stream, B * groups)
         code = _entry(name, len(ptrs) + 1, 9)(
             *ptrs, arrived.data_ptr(), B, H, KV, D, bs, M, splits,
             split_len // bs, DTYPES[q.dtype], stream)
@@ -139,7 +142,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, pos_pool: torch.Tensor,
                            block_table: torch.Tensor,
                            pos: torch.Tensor) -> torch.Tensor:
-    """q [B,H,D] (H / KV <= 8, D in ``decode_attention.HEAD_DIMS``);
+    """q [B,H,D] (any G = H / KV, D in ``decode_attention.HEAD_DIMS``);
     k_pool/v_pool [N,bs,KV,D] in q's dtype (f32 or bf16); pos_pool [N,bs]
     int32 (-1 = empty); block_table [B,M] int32 of block ids in [0, N);
     pos [B] int32; all contiguous on one CUDA device -> [B,H,D] in q's
@@ -162,8 +165,8 @@ def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
                               pos: torch.Tensor) -> torch.Tensor:
     """As :func:`paged_decode_attention` over int8 pools [N,bs,KV,D] with
     f32 k_scale/v_scale [N,KV] (one scale per pool block and kv head); q
-    f32 or bf16 -> [B,H,D] in q's dtype.  The same limits: H / KV <= 8, D
-    in ``decode_attention.HEAD_DIMS``."""
+    f32 or bf16 -> [B,H,D] in q's dtype.  The same limits: any G, D in
+    ``decode_attention.HEAD_DIMS``, the table row within shared memory."""
     global launches_q8
     _check(q, k_pool, v_pool, pos_pool, block_table, pos, (k_scale, v_scale))
     N, _, KV = k_pool.shape[:3]

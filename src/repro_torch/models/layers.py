@@ -1,9 +1,10 @@
 """Primitive layers: RMSNorm, rotary embeddings, the embedding table's
-spec, lm_head and the cross-entropy losses (port of
-``repro.models.layers``)."""
+spec, lm_head, the cross-entropy losses and the gating activations (port
+of ``repro.models.layers``)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ModelConfig, PSpec
@@ -112,3 +113,16 @@ def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor,
             nll = nll + _chunk_nll(xc, table, lc, cfg)
     count = (labels >= 0).sum()
     return nll / count.clamp(min=1)
+
+
+def act_fn(name: str):
+    """The gating activation ``name``: ``silu``, ``gelu`` (the tanh
+    approximation, as the reference's ``jax.nn.gelu(x, approximate=True)``)
+    or ``relu``."""
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    raise ValueError(name)

@@ -38,8 +38,15 @@ def lm_specs(cfg: ModelConfig) -> dict:
 
 def _embed(params: dict, tokens: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
-    """tokens [B,S] -> rows of the embedding table in the working dtype."""
-    return params["embed"][tokens.long()].to(cfg.dtype)
+    """tokens [B,S] -> rows of the embedding table in the working dtype,
+    times sqrt(d_model) with ``cfg.scale_embeddings`` (gemma): the
+    multiplier is taken in f32 and cast to the working dtype first, as the
+    reference does (in bf16 sqrt(2048) = 45.2548... becomes 45.25)."""
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(float(cfg.d_model), dtype=torch.float32,
+                             device=x.device).sqrt().to(cfg.dtype)
+    return x
 
 
 def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:

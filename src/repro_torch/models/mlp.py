@@ -1,12 +1,13 @@
-"""Dense SwiGLU MLP through the fused FFN kernel (port of
-``repro.models.mlp``; GeGLU is not in this slice and is rejected by
-``models.registry.check_supported``)."""
+"""Dense gated MLP (port of ``repro.models.mlp``): SwiGLU through the
+fused FFN kernel; GeGLU (and any other gate) in plain PyTorch, as the
+reference keeps it on jnp (its fused kernel is SwiGLU-only)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, PSpec
+from repro_torch.models.layers import act_fn
 
 
 def mlp_specs(cfg: ModelConfig) -> dict:
@@ -19,11 +20,15 @@ def mlp_specs(cfg: ModelConfig) -> dict:
 
 
 def mlp(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
-    """x [B,S,D] -> [B,S,D]: ``(silu(x·Wg) ⊙ x·Wu)·Wd``, weights cast to
+    """x [B,S,D] -> [B,S,D]: ``(act(x·Wg) ⊙ x·Wu)·Wd``, weights cast to
     x's dtype as the reference does before each product (a no-op for the
-    serve engine's weights, which are cast once at build)."""
+    serve engine's weights, which are cast once at build).  ``silu`` runs
+    the fused SwiGLU kernel; another ``cfg.mlp_act`` (gemma-2b's and
+    granite-20b's GeGLU) runs the reference's three plain products, whose
+    gradient is autograd's, as the reference differentiates its jnp."""
     B, S, D = x.shape
-    y = ops.swiglu_ffn(x.reshape(B * S, D).contiguous(),
-                       params["wi_gate"].to(x.dtype),
-                       params["wi_up"].to(x.dtype), params["wo"].to(x.dtype))
+    wg, wu, wd = (params[k].to(x.dtype) for k in ("wi_gate", "wi_up", "wo"))
+    if cfg.mlp_act != "silu":
+        return (act_fn(cfg.mlp_act)(x @ wg) * (x @ wu)) @ wd
+    y = ops.swiglu_ffn(x.reshape(B * S, D).contiguous(), wg, wu, wd)
     return y.view(B, S, D)

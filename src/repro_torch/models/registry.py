@@ -2,9 +2,11 @@
 family's functional surface (port of the parts of
 ``repro.models.registry`` that the serving and training slices read).
 
-``check_supported`` is the slice's gate: a config that needs anything
-outside it raises ``NotImplementedError`` naming the ROADMAP item that
-will bring it.
+``check_supported`` is the slices' gate: the dense family (SwiGLU or
+GeGLU, with or without scaled embeddings: exanode-100m, llama3.2-3b,
+qwen3-4b, gemma-2b, granite-20b), xlstm-125m and jamba-v0.1-52b pass; a
+config that needs anything outside them raises ``NotImplementedError``
+naming the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -26,9 +28,13 @@ PORTED_KINDS = ("attn", "mlstm", "slstm") + MAMBA_KINDS
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the port: dense
-    decoder-only ``attn`` stacks with RoPE and SwiGLU, xLSTM stacks of
-    ``mlstm`` / ``slstm`` blocks (xlstm-125m), and hybrid stacks of
-    ``attn`` and Mamba blocks with dense or MoE FFNs (jamba)."""
+    decoder-only ``attn`` stacks with RoPE and a gated FFN (SwiGLU, or
+    GeGLU as gemma-2b and granite-20b have it), scaled embeddings or not,
+    xLSTM stacks of ``mlstm`` / ``slstm`` blocks (xlstm-125m), and hybrid
+    stacks of ``attn`` and Mamba blocks with dense or MoE FFNs (jamba).
+    Refused: sliding windows, both logit softcaps, encoder-decoders,
+    frontends, learned positions and block kinds outside
+    ``PORTED_KINDS``."""
     kinds = {k for g in cfg.groups for k in g.pattern}
     unsupported = {
         "sliding-window attention (ring-buffer KV)":
@@ -44,8 +50,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "encoder-decoder": cfg.encoder is not None,
         "frontend embeddings": bool(cfg.frontend),
         "learned positions": cfg.pos_emb != "rope" or not cfg.use_rope,
-        "scaled embeddings": cfg.scale_embeddings,
-        f"{cfg.mlp_act} gating (only SwiGLU)": cfg.mlp_act != "silu",
         f"block kinds {sorted(kinds - set(PORTED_KINDS))}": bool(
             kinds - set(PORTED_KINDS)),
     }

@@ -32,6 +32,8 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import decode_attention as decode_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models import registry
 from repro_torch.models.blocks import MAMBA_KINDS, STATE_LEAVES
 from repro_torch.models.common import ModelConfig, count_params, init_params
@@ -379,16 +381,21 @@ class Runtime:
                           (self.kv_layout, self.kv_dtype)]
             if self.scheduler and self.kv_dtype == "int8":
                 decode += " dequantize_int8"
+            ffn = " fused_ffn" if self.caps.supports_fused_ffn else ""
             lines.append(
-                f"  kernels   : flash_attention fused_ffn {decode} ({impl})")
+                f"  kernels   : flash_attention{ffn} {decode} ({impl})")
+        if "attn" in {k for g in self.cfg.groups for k in g.pattern}:
+            lines.append(f"  routes    : {self.routes()}")
         try:
             registry.check_trainable(self.cfg)
             lines.append(
                 f"  train     : seq_len={self.seq_len} "
                 f"ce_chunk={self.ce_chunk} remat={self.cfg.remat_policy} "
                 f"param_dtype={self.param_dtype} kernels: flash_attention + "
-                f"flash_attention_bwd_dq/_dkv, fused_ffn + "
-                f"fused_ffn_bwd_dx/_dw (torch.autograd.Function; {impl})")
+                f"flash_attention_bwd_dq/_dkv"
+                + (", fused_ffn + fused_ffn_bwd_dx/_dw"
+                   if self.caps.supports_fused_ffn else "")
+                + f" (torch.autograd.Function; {impl})")
         except NotImplementedError as e:
             lines.append(f"  train     : not ported: {e}")
         sched = ("scheduler[" + ", ".join(
@@ -401,6 +408,26 @@ class Runtime:
                      f"dtype={self.cfg.dtype} {sched} chunked_prefill_ok="
                      f"{self.caps.supports_chunked_prefill}")
         return "\n".join(lines)
+
+    def routes(self) -> str:
+        """Which kernel computes each attention-stack op in the working
+        dtype on the card: the FFN through #2 (SwiGLU) or in plain
+        PyTorch (GeGLU, as the reference keeps it on jnp), the flash
+        forward's and backward's routes (``"tc"``: tensor cores, or
+        ``"simt"``) at the config's head dim, and the q-head groups of
+        the split-KV decode (``decode_attention.head_groups``)."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        D, G = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+        ffn = ("fused_ffn (#2, SwiGLU)" if cfg.mlp_act == "silu" else
+               f"plain {cfg.mlp_act} gating (GeGLU: three torch.matmul, as "
+               f"the reference keeps it on jnp)")
+        bwd = (flash_kernel.route_bwd(dt, D)
+               if D in flash_kernel.BWD_HEAD_DIMS else "none")
+        groups = decode_kernel.head_groups(G)
+        return (f"ffn={ffn}; flash forward={flash_kernel.route(dt, D)} "
+                f"backward={bwd} ({str(dt).split('.')[1]}, head dim {D}); "
+                f"decode G={G} in {groups} head group"
+                f"{'s' if groups > 1 else ''} of {G // groups}")
 
     def __repr__(self) -> str:
         return f"Runtime({self.cfg.name!r}, device={self.device})"

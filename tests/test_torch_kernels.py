@@ -277,9 +277,52 @@ def test_split_decode_rehearsal_matches_reference_and_pallas(jref, plan,
            TOL["decode"][torch.float32], "idle row")
 
 
+@pytest.mark.parametrize("G,groups", [(1, 1), (3, 1), (8, 1), (9, 3),
+                                      (12, 2), (16, 2), (48, 6), (13, 13)])
+def test_head_groups_are_the_fewest_equal_groups_of_at_most_8(G, groups):
+    n = da_kernel.head_groups(G)
+    assert n == groups and G % n == 0 and G // n <= da_kernel.GROUP_BLOCK
+    assert all(G % m or G // m > da_kernel.GROUP_BLOCK for m in range(1, n))
+
+
+@pytest.mark.parametrize("G", [9, 16, 48])
+def test_split_decode_head_groups_rehearsal_matches_reference_and_pallas(
+        jref, G):
+    """The split kernels past 8 q heads a kv head: head group x of the
+    grid computes q heads [x * G / n, (x + 1) * G / n) against kv head
+    x / n (n = head_groups(G)), exactly as a launch with n times the kv
+    heads, each read by one group, would.  The split arithmetic over that
+    view (each group its own splits, counters and combine) gives the
+    reference's numbers on the edge rows, at the planner's split count for
+    the groups, against the plain version and the Pallas kernel in
+    interpret mode, which takes any G."""
+    jnp = jref["jnp"]
+    B, KV, T, D = 6, 1, 2048, 16
+    H = KV * G
+    q, k, v = (_rand((B, H, D), 70), _rand((B, T, KV, D), 71),
+               _rand((B, T, KV, D), 72))
+    kv_pos, pos = _edge_rows(T)
+    n = da_kernel.head_groups(G)
+    tile = da_kernel.tile_entries(D, 2)
+    splits, split_len = da_kernel.plan_splits(B * KV * n, T, tile)
+    tq, tk, tv, tkp, tp = (torch.from_numpy(a)
+                           for a in (q, k, v, kv_pos, pos))
+    got = _split_rehearsal(tq, tk.repeat_interleave(n, dim=2),
+                           tv.repeat_interleave(n, dim=2), tkp, tp,
+                           window=0, tile=tile, splits=splits,
+                           split_len=split_len)
+    want = ref.ref_decode_attention(tq, tk, tv, tkp, tp)
+    _close(got, want, TOL["decode"][torch.float32], "vs plain version")
+    pallas = jref["decode"].decode_attention(
+        *(jnp.asarray(a) for a in (q, k, v, kv_pos, pos)), bk=512,
+        interpret=True)
+    _close(got, pallas, TOL["decode"][torch.float32], "vs Pallas")
+
+
 @pytest.mark.parametrize("rows,length,tile,unit,want", [
     (16 * 4, 2048, 64, 1, (8, 256)),       # exanode-100m serve, bf16
     (16 * 8, 2048, 64, 1, (8, 256)),       # jamba-v0.1-52b, bf16 D 128
+    (16 * 6, 2048, 64, 1, (8, 256)),       # granite-20b's 6 head groups
     (16 * 8, 2048, 16, 1, (8, 256)),       # the same in f32
     (16 * 4, 128 * 16, 64, 16, (8, 256)),  # the paged pool, 128 columns
     (4, 2048, 64, 1, (32, 64)),            # one row: a tile a split
@@ -810,7 +853,7 @@ def test_ffn_dw_plan_tiles_fit_and_split_rows(N, D, F, splits):
 
 # every config the port registers with a SwiGLU FFN (xlstm-125m has none,
 # d_ff 0): the bf16 tensor-core FFN's widths
-SILU_ARCHS = ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b")
+SILU_ARCHS = ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b", "qwen3-4b")
 
 
 def test_silu_archs_are_every_registered_silu_config():
@@ -899,20 +942,25 @@ def test_flash_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, D):
 @pytest.mark.parametrize("D", fa_kernel.BWD_HEAD_DIMS)
 def test_flash_bwd_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, D):
     """The backward's route matches the forward's: bf16 at head dims 64
-    and 128 on the tensor cores, f32 and bf16 at 16 and 32 on the SIMT
-    kernels; head dim 256 has no backward."""
+    and 128 on the tensor cores, f32 and bf16 at 16, 32 and 256 (gemma-2b)
+    on the SIMT kernels; a head dim outside BWD_HEAD_DIMS has no
+    backward."""
     want = "tc" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
     assert fa_kernel.route_bwd(dtype, D) == want
-    assert 256 not in fa_kernel.BWD_HEAD_DIMS
-    with pytest.raises(ValueError, match="head dim 256"):
-        fa_kernel.route_bwd(dtype, 256)
+    assert fa_kernel.BWD_HEAD_DIMS == fa_kernel.HEAD_DIMS
+    assert fa_kernel.route_bwd(dtype, 256) == "simt"
+    for bad in (8, 96, 512):
+        with pytest.raises(ValueError, match=f"head dim {bad}"):
+            fa_kernel.route_bwd(dtype, bad)
 
 
 def test_flash_route_takes_tensor_cores_on_the_bf16_model_paths():
     """The configs whose attention runs on the card in bf16 (exanode-100m
-    serving and training, llama3.2-3b, jamba-v0.1-52b's attention layer)
-    have head dims the tensor-core forward takes."""
-    for arch in ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b"):
+    serving and training, llama3.2-3b, jamba-v0.1-52b's attention layer,
+    qwen3-4b and granite-20b at head dim 128) have head dims the
+    tensor-core forward and backward take."""
+    for arch in ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b",
+                 "qwen3-4b", "granite-20b"):
         assert fa_kernel.route(torch.bfloat16,
                                get_config(arch).head_dim) == "tc", arch
         assert fa_kernel.route_bwd(torch.bfloat16,
@@ -1131,21 +1179,119 @@ def test_paged_q8_split_kernel_matches_plain_on_long_chains(cuda, dtype, bs,
 
 @pytest.mark.cuda
 def test_paged_q8_kernel_takes_the_split_limits(cuda):
-    """#9 takes #8's limits: G <= 8 at any head dim of HEAD_DIMS (the
-    first version's G * D <= 1024 is gone); G > 8 is refused."""
+    """#9 takes #8's limits: any G (G 16 runs as two head groups of 8; the
+    first version's G * D <= 1024 and the later G <= 8 are gone) at any
+    head dim of HEAD_DIMS; another head dim is refused."""
     q, kp, vp, pos_pool, table, pos = (
         torch.from_numpy(a).to(cuda) for a in _paged_case(16, 1, 256, 32))
     kq, vq, ks, vs = _quantize_pools(kp, vp)
-    with pytest.raises(ValueError, match="G=16"):
-        pa_kernel.paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
-                                            table, pos)
-    q = q.reshape(q.shape[0], 2, 8, 256)[:, 0].contiguous()   # G * D 2048
     got = pa_kernel.paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
-                                              table, pos)
+                                              table, pos)      # G 16
     want = ref.ref_paged_decode_attention_q8(q, kq, vq, ks, vs, pos_pool,
                                              table, pos)
     torch.cuda.synchronize()
     _close(got.cpu(), want.cpu(), TOL["paged"][torch.float32])
+    with pytest.raises(ValueError, match="D=96"):
+        pa_kernel.paged_decode_attention_q8(
+            q[..., :96].contiguous(), kq[..., :96].contiguous(),
+            vq[..., :96].contiguous(), ks, vs, pos_pool, table, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(16, 1, 128), (48, 1, 128), (32, 2, 64),
+                                    (12, 1, 256)])
+def test_split_kernels_take_wide_groups(cuda, dtype, H, KV, D):
+    """#3, #8 and #9 past 8 q heads a kv head (granite-20b's 48 / 1 heads
+    of 128, G 16 and 12, two kv heads of 16 groups) against their plain
+    versions: the dense kernel on the edge rows at T = 2048, the paged
+    kernels on long chains over f32 / bf16 and int8 pools."""
+    T = 2048
+    kv_pos, pos = (torch.from_numpy(a).to(cuda) for a in _edge_rows(T))
+    B = pos.shape[0]
+    q = torch.from_numpy(_rand((B, H, D), 90)).to(cuda, dtype)
+    k = torch.from_numpy(_rand((B, T, KV, D), 91)).to(cuda, dtype)
+    v = torch.from_numpy(_rand((B, T, KV, D), 92)).to(cuda, dtype)
+    got = da_kernel.decode_attention(q, k, v, kv_pos, pos)
+    want = ref.ref_decode_attention(q, k, v, kv_pos, pos)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["decode"][dtype],
+           "dense")
+    pq, kp, vp, pos_pool, table, ppos = (
+        torch.from_numpy(a).to(cuda) for a in _paged_chains(KV=KV, D=D, H=H))
+    args = (pq.to(dtype), kp.to(dtype), vp.to(dtype), pos_pool, table, ppos)
+    got = pa_kernel.paged_decode_attention(*args)
+    want = ref.ref_paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["paged"][dtype],
+           "paged")
+    kq, vq, ks, vs = _quantize_pools(kp, vp)
+    args = (pq.to(dtype), kq, vq, ks, vs, pos_pool, table, ppos)
+    got = pa_kernel.paged_decode_attention_q8(*args)
+    want = ref.ref_paged_decode_attention_q8(*args)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), TOL["paged"][dtype],
+           "int8 paged")
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    counters = da_kernel.arrival_counters(q.device, stream, B * H)
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_groups_equal_their_groups_launched_alone(cuda, dtype,
+                                                       monkeypatch):
+    """A G 48 launch is six G <= 8 launches in one: at a fixed split plan
+    its output equals, bit for bit, that of six launches each taking 8 of
+    the q heads against the same cache (dense, paged and int8 pools), so a
+    head group runs exactly the code and roundings a G 8 launch runs."""
+    monkeypatch.setattr(da_kernel, "plan_splits",
+                        lambda *a, **k: (8, 256))
+    T, H, D = 2048, 48, 128
+    kv_pos, pos = (torch.from_numpy(a).to(cuda) for a in _edge_rows(T))
+    B = pos.shape[0]
+    q = torch.from_numpy(_rand((B, H, D), 93)).to(cuda, dtype)
+    k = torch.from_numpy(_rand((B, T, 1, D), 94)).to(cuda, dtype)
+    v = torch.from_numpy(_rand((B, T, 1, D), 95)).to(cuda, dtype)
+    pq, kp, vp, pos_pool, table, ppos = (
+        torch.from_numpy(a).to(cuda) for a in _paged_chains(KV=1, D=D, H=H))
+    pq, kp, vp = (t.to(dtype) for t in (pq, kp, vp))
+    kq, vq, ks, vs = _quantize_pools(kp.float(), vp.float())
+    cases = {
+        "dense": (lambda x: da_kernel.decode_attention(x, k, v, kv_pos, pos),
+                  q),
+        "paged": (lambda x: pa_kernel.paged_decode_attention(
+            x, kp, vp, pos_pool, table, ppos), pq),
+        "int8": (lambda x: pa_kernel.paged_decode_attention_q8(
+            x, kq, vq, ks, vs, pos_pool, table, ppos), pq)}
+    for name, (fn, x) in cases.items():
+        whole = fn(x)
+        parts = torch.cat([fn(x[:, g:g + 8].contiguous())
+                           for g in range(0, H, 8)], dim=1)
+        torch.cuda.synchronize()
+        assert torch.equal(whole, parts), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv", [(8, 1), (2, 1), (4, 2)])
+@pytest.mark.parametrize("S,T,causal,window", [
+    (512, 512, True, 0), (200, 200, True, 0), (256, 256, True, 100),
+    (130, 70, False, 0), (100, 150, True, 0)])
+def test_flash_bwd_kernels_match_plain_at_head_dim_256(cuda, dtype, H, Hkv,
+                                                       S, T, causal, window):
+    """#4 and #5 at head dim 256 (gemma-2b's 8 / 1 heads, the model's
+    strided views; 32-row tiles) against ``ref_attention_bwd``: causal,
+    ragged, windowed, non-causal and T != S."""
+    q, k, v, out, lse, do = _flash_bwd_case(cuda, dtype, 2, H, Hkv, S, T,
+                                            256, causal, window, seed=86)
+    assert fa_kernel.route_bwd(dtype, 256) == "simt"
+    got = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+    want = ref.ref_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    _check_flash_grads(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -1266,12 +1412,13 @@ def _bwd_kernel_names(fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_flash_bwd_route_launches_tc_kernels_for_bf16_at_64_and_128(
         cuda, dtype, D):
     """route_bwd sends bf16 at head dims 64 and 128 to the tensor-core
-    kernels and f32 (and bf16 at 32) to the SIMT ones: the kernels the
-    profiler sees launched are the route's, and their grads match."""
+    kernels and f32 (and bf16 at 32 and 256) to the SIMT ones: the
+    kernels the profiler sees launched are the route's, and their grads
+    match."""
     q, k, v, out, lse, do = _flash_bwd_case(cuda, dtype, 1, 4, 2, 128, 128,
                                             D, True, 0, seed=85)
     tc = fa_kernel.route_bwd(dtype, D) == "tc"

@@ -218,9 +218,12 @@ def test_runtime_without_cuda_raises(monkeypatch):
 
 def test_out_of_slice_requests_raise():
     cfg = port_smoke("exanode-100m")
-    for bad in (cfg.scaled(sliding_window=8), cfg.scaled(mlp_act="gelu"),
+    # GeGLU and scaled embeddings are ported (tests/test_torch_dense.py);
+    # a frontend and learned positions are not
+    for bad in (cfg.scaled(sliding_window=8),
+                cfg.scaled(frontend="vision_stub", frontend_len=4),
                 cfg.scaled(attn_logit_softcap=30.0),
-                cfg.scaled(scale_embeddings=True)):
+                cfg.scaled(pos_emb="learned", max_position_embeddings=64)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PortRuntime.create(bad, device="cpu")
     rt = PortRuntime.create("exanode-100m", smoke=True, device="cpu")
