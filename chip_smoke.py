@@ -117,7 +117,25 @@ Phases, in order, each printing one line:
            after: per-step losses, step time p50, tokens/s and peak device
            memory; fails unless the loss falls and every kernel of the
            train path (flash forward and backward, fused SwiGLU forward
-           and backward) launched.
+           and backward) launched;
+  ft       fault tolerance on one card, exanode-100m at full width on the
+           serve cell: in f32 over dense, paged and int8 pools a clean
+           run and one with scrub_every=1, health_every=4 and FT_PLAN (a
+           retried transient fault, a retry exhaustion that evacuates in
+           place, a KV and a params bit flip, each detected by the next
+           scrub and its streams replayed), the streams equal but for
+           printed divergences that are near-ties (top-2 margin <= 2e-3
+           on the port's own path) or the greedy token of the request's
+           replay path (``near_ties``); the plan in bf16 on the int8
+           pool beside a clean and a scrubbed run (share of equal
+           streams, ITL p50 with and without the scrub); an engine
+           snapshot after 40 ticks through a file into a fresh engine;
+           python -m repro_torch.launch.train, 4 bf16
+           steps saving every 2, restarted twice from its checkpoints with
+           equal losses; the time of one scrub of the full int8 pool, a
+           params fingerprint (exanode-100m, gemma-2b) and a health check;
+           fails if a run without a fault plan evacuated (so does every
+           serve run) or a kernel of the path never launched.
 
   train_profile  torch.profiler over three more bf16 train steps: device
            time per step by kernel group and the device's idle share.
@@ -148,6 +166,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import io
 import json
 import subprocess
 import sys
@@ -155,8 +174,8 @@ import time
 from pathlib import Path
 
 PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "jamba",
-          "dense", "train", "train_profile", "xlstm_profile", "sched_profile",
-          "jamba_profile")                      # the build always runs
+          "dense", "train", "ft", "train_profile", "xlstm_profile",
+          "sched_profile", "jamba_profile")                      # the build always runs
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor-core FLOP/s
 # and f32 FLOP/s outside the tensor cores (f32 work in f32: TF32 would
@@ -2016,7 +2035,8 @@ def serve_run(torch, rt, prompts: list, new: int, **engine_kw) -> dict:
     """Serve ``prompts`` with ``new`` tokens each on a fresh
     ``rt.engine(num_slots=16, **engine_kw)``, every launch counter zeroed
     just before and read just after; raises unless every request finished
-    with ``new`` tokens."""
+    with ``new`` tokens, and if a run without a fault plan (``injector``)
+    evacuated."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import Request
     eng = rt.engine(num_slots=16, **engine_kw)
@@ -2044,6 +2064,9 @@ def serve_run(torch, rt, prompts: list, new: int, **engine_kw) -> dict:
         counts = sorted(len(r.generated) for r in eng.finished)
         raise AssertionError(f"serve: {stats.summary}; token counts "
                              f"{counts}")
+    if stats.evacuations and engine_kw.get("injector") is None:
+        raise AssertionError(f"serve: a run without a fault plan evacuated "
+                             f"({stats.summary}; {eng.ft_events})")
     return dict(eng=eng, wall=wall, prefill=prefill_s[0], launches=launches,
                 streams={r.rid: r.generated for r in eng.finished})
 
@@ -2055,7 +2078,7 @@ def run_figures(run: dict) -> str:
             f"{stats.tokens_out / (wall - prefill_s):.1f} tok/s; TTFT p50 "
             f"{lat['ttft_p50'] * 1e3:.1f} ms p95 {lat['ttft_p95'] * 1e3:.1f}"
             f" ms; ITL p50 {lat['itl_p50'] * 1e3:.2f} ms p95 "
-            f"{lat['itl_p95'] * 1e3:.2f} ms")
+            f"{lat['itl_p95'] * 1e3:.2f} ms; evacuations {stats.evacuations}")
 
 
 def serve_prompts(vocab: int) -> list:
@@ -2960,6 +2983,416 @@ def int8_cpu_phase(torch, gpu: str, n_req: int = 8) -> str:
             f"(walls {', '.join(f'{d} {k} {w:.1f} s' for (d, k), w in walls.items())}) [{gpu}]")
 
 
+FT_SLOTS, FT_CAPACITY, FT_NEW = 16, 2048, 64
+# the ft phase's fault plan (ft/inject.py grammar): a transient dispatch
+# fault one retry absorbs, a retry exhaustion (3 fires > tick_retries=2)
+# that evacuates in place, one KV bit flip and one params bit flip
+FT_PLAN = ("tick=3,kind=raise;tick=9,kind=raise,times=3;"
+           "tick=20,kind=corrupt,target=kv,seed=5;"
+           "tick=30,kind=corrupt,target=params,seed=9")
+FT_FLIP_MARGIN = 2e-3       # tests/test_torch_dense.py: a near-tie
+FT_LAYOUTS = {"dense": {}, "paged": dict(kv_layout="paged"),
+              "int8": dict(kv_layout="paged", kv_dtype="int8")}
+# the launcher's first run and restarts: 4 bf16 steps saving every 2
+FT_TRAIN_ARGS = ["--arch", "exanode-100m", "--steps", "4", "--batch", "8",
+                 "--seq", "512", "--bf16-params", "--save-every", "2",
+                 "--log-every", "1"]
+FT_TRAIN_KW = dict(cfg="exanode-100m", steps=4, global_batch=8, seq_len=512,
+                   save_every=2, log_every=1)
+FT_KERNELS = ("flash_attention", "fused_ffn", "decode_attention",
+              "paged_decode_attention", "paged_decode_attention_q8",
+              "quantize_int8", "quantized_block_write") + TRAIN_KERNELS[2:]
+
+
+def own_margin(torch, rt, prompt, stream: list, j: int, bs: int = 16):
+    """(top-2 logit margin, top token) where ``stream[j]`` was sampled, on
+    the port's own path for the request alone (its model's forward over
+    the dense layout; prefill, splice and decode steps over ``rt``'s
+    pool)."""
+    import numpy as np
+    from repro_torch.models import registry
+    from repro_torch.serve import blockpool as pbp
+    from repro_torch.serve.engine import serving_params
+    cfg, dev = rt.cfg, rt.device
+    params = serving_params(rt.params, cfg.dtype)
+    with torch.no_grad():
+        if rt.kv_layout == "dense":
+            ctx = np.concatenate([prompt, np.asarray(stream[:j], np.int32)])
+            logits = registry.model_forward(
+                params, torch.from_numpy(ctx)[None].to(dev), cfg)
+        else:
+            M = -(-rt.capacity // bs)
+            pool = pbp.BlockPool(M + 2, bs, 1, M, max_entries=rt.capacity)
+            dst = pool.admit(0, prompt, -(-len(prompt) // bs))[None]
+            logits, part = registry.model_prefill(
+                params, torch.from_numpy(prompt)[None].to(dev), cfg,
+                rt.capacity, last_only=True)
+            caches = pbp.paged_splice(
+                pbp.init_paged_cache(cfg, pool.num_blocks, bs, rt.kv_dtype,
+                                     device=dev),
+                part, torch.from_numpy(dst).to(dev))
+            for t in range(j):
+                bid = pool.write_plan(0, True)[0]
+                logits = registry.model_paged_decode_step(
+                    params, torch.tensor([[stream[t]]], dtype=torch.int32,
+                                         device=dev), caches, cfg,
+                    pos=torch.tensor([len(prompt) + t], dtype=torch.int32,
+                                     device=dev),
+                    block_table=torch.from_numpy(pool.table.copy()).to(dev),
+                    write_bids=torch.tensor([bid], dtype=torch.int32,
+                                            device=dev))
+    top = torch.topk(logits[0, -1, :cfg.vocab_size].float(), 2)
+    return (float(top.values[0] - top.values[1]), int(top.indices[0]))
+
+
+@contextlib.contextmanager
+def recorded_folds():
+    """Record every replay's fold point, rid -> [len of the prefix folded
+    into the prompt], while the engine folds (evacuation, corruption
+    rollback, snapshot)."""
+    from repro_torch.serve import engine as serve_engine
+    fold, folds = serve_engine._fold_replay_prefix, {}
+
+    def record(req):
+        fold(req)
+        folds.setdefault(req.rid, []).append(req.folded)
+    serve_engine._fold_replay_prefix = record
+    try:
+        yield folds
+    finally:
+        serve_engine._fold_replay_prefix = fold
+
+
+def near_ties(torch, rt, prompts, want: dict, got: dict, what: str,
+              folds: dict) -> list:
+    """Every stream of ``got`` equal to ``want``'s, or diverging first at a
+    token j where either the clean path (the request alone: prompt, then
+    decode) has a top-2 margin <= FT_FLIP_MARGIN, or the request was
+    replayed before j and ``got[j]`` is the greedy token of its replay
+    path (prompt and the prefix up to its last fold point f <= j
+    prefilled, then decode).  The second covers a replay's requantization
+    of the int8 pool, whose blocks an uninterrupted run fills one decode
+    write at a time.  Returns each divergence with both paths' margins;
+    raises on any other."""
+    import numpy as np
+    ties = []
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            continue
+        j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        m, _ = own_margin(torch, rt, prompts[rid], g, j)
+        f = max((x for x in folds.get(rid, []) if x <= j), default=0)
+        rm = rtop = None
+        if f:
+            rm, rtop = own_margin(
+                torch, rt, np.concatenate([prompts[rid],
+                                           np.asarray(g[:f], np.int32)]),
+                g[f:], j - f)
+        tie = dict(rid=rid, token=j, got=g[j], clean=w[j],
+                   margin=round(m, 6), replayed_from=f,
+                   replay_margin=None if rm is None else round(rm, 6),
+                   replay_top=rtop)
+        if not (m <= FT_FLIP_MARGIN or rtop == g[j]):
+            raise AssertionError(
+                f"ft {what}: rid {rid} diverges at token {j} (got "
+                f"{g[j:j + 4]}, clean {w[j:j + 4]}): clean-path margin "
+                f"{m:.4g} over {FT_FLIP_MARGIN} and not its replay path's "
+                f"token ({tie})")
+        ties.append(tie)
+    return ties
+
+
+def check_ft_events(eng, what: str) -> dict:
+    """The plan's faults all fired and were handled: the transient raise
+    retried without an evacuation, the exhausted retries evacuated in
+    place, each flip detected by the next scrub (latency <= 1 tick).
+    Returns the evacuation latencies and detections."""
+    from repro_torch.ft.inject import FaultInjector
+    plan = FaultInjector.parse(FT_PLAN)
+    ev = eng.ft_events
+    if not all(f.fired for f in eng.injector.faults):
+        raise AssertionError(f"ft {what}: a fault never fired: "
+                             f"{eng.injector!r}")
+    retries = [e for e in ev if e["event"] == "tick_retry"]
+    evacs = [e for e in ev if e["event"] == "evacuate"]
+    first = plan.faults[0].tick
+    if not (any(e["tick"] == first for e in retries)
+            and not any(e["tick"] == first for e in evacs)):
+        raise AssertionError(f"ft {what}: the transient fault at tick "
+                             f"{first} was not absorbed by a retry: {ev}")
+    if len(evacs) != 1 or evacs[0]["tick"] != plan.faults[1].tick:
+        raise AssertionError(f"ft {what}: expected one evacuation at tick "
+                             f"{plan.faults[1].tick}: {evacs}")
+    detected = {}
+    for inj in (e for e in ev if e["event"] == "corrupt_inject"):
+        hit = [e for e in ev if e["event"] == "corruption"
+               and e["target"] == inj["target"] and e["tick"] >= inj["tick"]]
+        if not hit or hit[0]["detect_latency_ticks"] > 1:
+            raise AssertionError(f"ft {what}: the {inj['target']} flip at "
+                                 f"tick {inj['tick']} was not detected "
+                                 f"within one scrub: {ev}")
+        detected[inj["target"]] = dict(
+            tick=inj["tick"], detect_ticks=hit[0]["detect_latency_ticks"],
+            streams=hit[0].get("streams"), regions=hit[0].get("regions"))
+    if set(detected) != {"kv", "params"}:
+        raise AssertionError(f"ft {what}: flips injected {sorted(detected)}"
+                             f", expected kv and params")
+    return dict(evac_s=[e["latency_s"] for e in evacs], detected=detected)
+
+
+def straggler_peak(eng) -> str:
+    """The largest tick ratio the straggler saw and its longest run of
+    ticks over the warn ratio (a clean run must stay below the ladder)."""
+    run = best = 0
+    for r in eng.straggler.history:
+        run = run + 1 if r.ratio >= eng.straggler.warn_ratio else 0
+        best = max(best, run)
+    peak = max((r.ratio for r in eng.straggler.history), default=0.0)
+    return f"straggler peak {peak:.2f}x, {best} over {eng.straggler.warn_ratio}x"
+
+
+def timed_ms(torch, fn, n: int = 5) -> float:
+    """Median wall of ``fn`` (synchronized), ms, after one warm call."""
+    import statistics
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def ft_train(torch, gpu: str) -> tuple[str, dict]:
+    """python -m repro_torch.launch.train: 4 bf16 steps saving every 2,
+    then two restarts through the launcher's loop with the launch counters
+    zeroed: from the step-2 checkpoint (the state after step 2; steps
+    count from 0 and save where step % 2 == 0, as the reference's loop
+    does) and from the step-0 one.  Each resumed step's loss must equal
+    the first run's to the 9 digits the launcher prints."""
+    import os
+    import re
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    root = Path(__file__).resolve().parent
+    ckpt = root / "build" / "ft_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = FT_TRAIN_ARGS + ["--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
+                       + args, cwd=root, capture_output=True, text=True,
+                       timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(root / "src")})
+    first_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"ft train: the launcher failed:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    first = {int(m.group(1)): m.group(2) for m in re.finditer(
+        r"step\s+(\d+) loss=(\S+)", r.stdout)}
+    saved = sorted(p.name for p in ckpt.iterdir())
+    if saved != [f"step_{s:09d}" for s in (0, 2, 3)] or len(first) != 4:
+        raise AssertionError(f"ft train: checkpoints {saved}, losses "
+                             f"{first}:\n{r.stdout[-2000:]}")
+    counts, resumed = {}, {}
+    for drop in ((3,), (2, 3)):         # each restart saves step 3 again
+        for s in drop:
+            shutil.rmtree(ckpt / f"step_{s:09d}")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, hist = train_loop(param_dtype=torch.bfloat16,
+                                 ckpt_dir=str(ckpt), **FT_TRAIN_KW)
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        got = {h["step"]: f"{h['loss']:.9g}" for h in hist}
+        resumed[min(got)] = got
+        bad = {s: (l, first[s]) for s, l in got.items() if l != first[s]}
+        if bad or not got:
+            raise AssertionError(f"ft train: restarted losses differ from "
+                                 f"the first run's: {bad} ({got})")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    line = (f"first run {first} in {first_s:.1f} s (process included); "
+            f"restart from the step-2 checkpoint {resumed[3]}, from the "
+            f"step-0 one {resumed[1]}: equal")
+    return line, counts
+
+
+def ft_phase(torch, gpu: str) -> tuple[str, dict]:
+    """Fault tolerance on one card, exanode-100m at full width on the
+    serve cell (capacity 2048, 16 slots, the serve phase's 32 prompts,
+    64 new tokens):
+
+    1. in f32 over the dense, paged and int8 pools, a clean run and one
+       with scrub_every=1, health_every=4 and ``FT_PLAN``: every fault
+       handled (``check_ft_events``) and every stream the clean run's, or
+       diverging only as ``near_ties`` allows, printed;
+    2. the plan in bf16 on the int8 pool beside a clean run and a
+       scrub_every=1 run without faults: the share of streams equal to
+       the clean run's, ITL p50 with and without the scrub;
+    3. snapshot() after 40 ticks of an f32 dense run, saved, loaded into a
+       fresh engine and run to completion: the uninterrupted run's
+       streams (divergences as ``near_ties`` allows, printed);
+    4. ``ft_train``;
+    5. the time of one scrub of the full bf16 int8 pool (every block
+       full), of a params fingerprint of exanode-100m and of gemma-2b (bf16,
+       drawn on the card), and of one health check.
+
+    No run without a fault plan may evacuate (``serve_run``).  Every
+    engine run and the
+    train restarts zero the launch counters just before and add
+    them up just after; the phase fails unless ``FT_KERNELS`` all
+    launched."""
+    import shutil
+    import numpy as np
+    from repro_torch.checkpoint.manager import EngineSnapshot
+    from repro_torch.configs import get_config
+    from repro_torch.ft import health, integrity
+    from repro_torch.ft.inject import FaultInjector
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.registry import model_specs
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve.engine import Request, serving_params
+
+    counts: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def run(rt, plan=None, **kw):
+        if plan is not None:
+            kw.update(scrub_every=1, health_every=4,
+                      injector=FaultInjector.parse(plan))
+        if rt.kv_layout == "paged":
+            kw.setdefault("block_size", 16)
+        res = serve_run(torch, rt, prompts, FT_NEW, **kw)
+        add(res["launches"])
+        return res
+
+    t_phase = time.perf_counter()
+    f32 = get_config("exanode-100m").scaled(dtype=torch.float32)
+    base = Runtime.create(f32, capacity=FT_CAPACITY)
+    prompts = serve_prompts(base.cfg.vocab_size)
+    parts, evac_s = [], []
+    clean_f32 = {}
+    for way, kv in FT_LAYOUTS.items():
+        rt = Runtime.create(f32, capacity=FT_CAPACITY, params=base.params,
+                            **kv)
+        clean = clean_f32[way] = run(rt)
+        with recorded_folds() as folds:
+            faulted = run(rt, FT_PLAN)
+        info = check_ft_events(faulted["eng"], f"f32 {way}")
+        evac_s += info["evac_s"]
+        ties = near_ties(torch, rt, prompts, clean["streams"],
+                         faulted["streams"], f"f32 {way}", folds)
+        parts.append(
+            f"f32 {way}: clean ITL p50 "
+            f"{clean['eng'].latency_summary()['itl_p50'] * 1e3:.2f} ms "
+            f"({straggler_peak(clean['eng'])}); faulted "
+            f"{faulted['eng'].stats.summary}, detections "
+            f"{info['detected']}, streams equal but {ties}")
+
+    bf = Runtime.create("exanode-100m", capacity=FT_CAPACITY,
+                        **FT_LAYOUTS["int8"])
+    run(bf)                                        # cold: warm-up
+    clean, scrubbed = run(bf), run(bf, scrub_every=1)
+    faulted = run(bf, FT_PLAN)
+    info = check_ft_events(faulted["eng"], "bf16 int8")
+    evac_s += info["evac_s"]
+    share = sum(faulted["streams"][r] == clean["streams"][r]
+                for r in clean["streams"]) / len(clean["streams"])
+    itl = {n: r["eng"].latency_summary()["itl_p50"] * 1e3
+           for n, r in (("clean", clean), ("scrub_every=1", scrubbed),
+                        ("faulted", faulted))}
+    parts.append(f"bf16 int8: ITL p50 {itl} ms; scrubbed run "
+                 f"{scrubbed['eng'].stats.summary} "
+                 f"({straggler_peak(scrubbed['eng'])}); faulted "
+                 f"{faulted['eng'].stats.summary}, detections "
+                 f"{info['detected']}; streams equal to the clean run's "
+                 f"{share:.4f}")
+
+    # warm restart: a snapshot after 40 ticks, through a file
+    rt = Runtime.create(f32, capacity=FT_CAPACITY, params=base.params)
+    snap_dir = Path(__file__).resolve().parent / "build" / "ft_snapshot"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    first = rt.engine(num_slots=FT_SLOTS)
+    for i, p in enumerate(prompts):
+        first.submit(Request(rid=i, prompt=p, max_new_tokens=FT_NEW))
+    for _ in range(40):
+        first.tick()
+    with recorded_folds() as folds:
+        snap = first.snapshot()
+    path = snap.save(str(snap_dir))
+    second = rt.engine(num_slots=FT_SLOTS)
+    n_req = second.load_snapshot(EngineSnapshot.load(path))
+    second.run_to_completion()
+    torch.cuda.synchronize()
+    add(ops.launch_counts())
+    if first.stats.evacuations or second.stats.evacuations:
+        raise AssertionError(f"ft snapshot: a run without a fault plan "
+                             f"evacuated ({first.ft_events}, "
+                             f"{second.ft_events})")
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    merged = {r.rid: r.generated for r in first.finished}
+    merged.update({r.rid: r.generated for r in second.finished})
+    if sorted(merged) != list(range(len(prompts))) or any(
+            len(s) != FT_NEW for s in merged.values()):
+        raise AssertionError(f"ft snapshot: streams lost ({len(merged)})")
+    ties = near_ties(torch, rt, prompts, clean_f32["dense"]["streams"],
+                     merged, "snapshot", folds)
+    parts.append(f"snapshot after 40 ticks: {len(first.finished)} finished "
+                 f"before, {n_req} requests restored into a fresh engine; "
+                 f"streams equal the uninterrupted run's but {ties}")
+
+    train_line, train_counts = ft_train(torch, gpu)
+    add(train_counts)
+    parts.append("train: " + train_line)
+
+    # costs: one scrub of the full int8 pool, params fingerprints, health
+    eng = scrubbed["eng"]
+    full = np.full(eng.pool.num_blocks, eng.pool.block_size, np.int32)
+    scrub_ms = timed_ms(torch, lambda: integrity.region_fingerprints(
+        eng.caches, full))
+    pool_mb = eng.kv_cache_bytes() / 2**20
+    exa = serving_params(bf.params, bf.cfg.dtype)
+    fp_exa = timed_ms(torch, lambda: integrity.tree_fingerprint(exa))
+    exa_mb = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(exa)) / 2**20
+    gcfg = get_config("gemma-2b")
+    gemma = init_params(model_specs(gcfg), 0, torch.bfloat16, bf.device,
+                        draw_on_device=True)
+    fp_gemma = timed_ms(torch, lambda: integrity.tree_fingerprint(gemma))
+    gemma_mb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(gemma)) / 2**20
+    del gemma
+    health_ms = timed_ms(torch, lambda: health.check_devices([bf.device]))
+    missing = [k for k in FT_KERNELS if not counts.get(k)]
+    line = (f"ft: exanode-100m capacity={FT_CAPACITY} slots={FT_SLOTS}, "
+            f"{len(prompts)} requests x {FT_NEW} new tokens, plan "
+            f"{FT_PLAN!r}, scrub_every=1 health_every=4 tick_retries=2; "
+            + "; ".join(parts)
+            + f"; one scrub of the full bf16 int8 pool ({pool_mb:.0f} MiB, "
+              f"{eng.pool.num_blocks} blocks): {scrub_ms:.3f} ms; params "
+              f"fingerprint exanode-100m bf16 ({exa_mb:.0f} MiB) "
+              f"{fp_exa:.3f} ms, gemma-2b bf16 ({gemma_mb:.0f} MiB) "
+              f"{fp_gemma:.3f} ms; one health check {health_ms:.3f} ms; "
+              f"evacuation latency {[round(s * 1e3, 1) for s in evac_s]} ms;"
+              f" launches {counts}; phase {time.perf_counter() - t_phase:.1f}"
+              f" s [{gpu}]")
+    if missing:
+        raise AssertionError(line + f"\nft phase failed: {missing} never "
+                             f"launched")
+    return line, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3042,7 +3475,8 @@ def main() -> int:
                       ("paged", functools.partial(paged_phase, mono=mono)),
                       ("sched", functools.partial(sched_phase, mono=mono)),
                       ("xlstm", xlstm_phase), ("jamba", jamba_phase),
-                      ("dense", dense_phase), ("train", train_phase)):
+                      ("dense", dense_phase), ("train", train_phase),
+                      ("ft", ft_phase)):
         if path in phases:
             line, by_path[path] = run(torch, gpu)
             print(line, flush=True)

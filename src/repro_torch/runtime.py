@@ -20,6 +20,10 @@
     engine = rt.engine(num_slots=16)                      # Mamba + MoE hybrid
     rt = Runtime.create("exanode-100m", capacity=2048, scheduler=True)
     engine = rt.engine(num_slots=16)                      # chunked prefill
+    engine = rt.engine(num_slots=16, health_every=4, scrub_every=1,
+                       injector=FaultInjector.parse(
+                           "tick=6,kind=corrupt,target=kv"))  # ft layer
+    rt.telemetry().snapshot()                              # every metric
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without a GPU ``create`` raises rather than carrying on on the CPU.  Pass
@@ -133,6 +137,7 @@ class Runtime:
                          and seq_len > CE_CHUNK else 0)
         self._params = params
         self._train_step = None
+        self._telemetry = None     # lazy obs.Telemetry (telemetry())
 
     @classmethod
     def create(cls, arch: Union[str, ModelConfig], *,
@@ -221,6 +226,50 @@ class Runtime:
                    param_dtype=param_dtype, scheduler=scheduler,
                    sched_kw=sched_kw)
 
+    def reshape(self, *, shape_kind: Optional[str] = None,
+                mesh=None, seq_len: Optional[int] = None,
+                capacity: Optional[int] = None,
+                kv_layout: Optional[str] = None,
+                kv_dtype: Optional[str] = None,
+                scheduler: Optional[bool] = None,
+                sched_kw: Optional[dict] = None) -> "Runtime":
+        """A new Runtime over the same config, device and params with other
+        shape or serving knobs (e.g. train -> decode); ``sched_kw``
+        entries merge over the current ones.  The telemetry carries over,
+        so counters stay monotonic and the tick timeline continuous across
+        an evacuation's rebuild.  The port runs on one device: a ``mesh``
+        raises ``NotImplementedError`` (ROADMAP queue 1, item 9)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "reshape(mesh=...) needs sharding, which the port does not "
+                "have yet (ROADMAP queue 1, item 9); it runs on one device")
+        new = Runtime.create(
+            self.cfg,
+            shape_kind=(shape_kind if shape_kind is not None
+                        else self.shape_kind),
+            seq_len=seq_len if seq_len is not None else self.seq_len,
+            capacity=capacity if capacity is not None else self.capacity,
+            seed=self.seed, params=self._params, device=self.device,
+            kv_layout=kv_layout if kv_layout is not None else self.kv_layout,
+            kv_dtype=kv_dtype if kv_dtype is not None else self.kv_dtype,
+            param_dtype=self.param_dtype,
+            scheduler=scheduler if scheduler is not None else self.scheduler,
+            sched_kw={**self.sched_kw, **(sched_kw or {})})
+        new.arch = self.arch
+        new._telemetry = self._telemetry
+        return new
+
+    # -- observability -------------------------------------------------------
+
+    def telemetry(self):
+        """This Runtime's ``obs.Telemetry`` (lazy): the metrics registry and
+        tracer every subsystem built on it reports into, carried over by
+        :meth:`reshape`."""
+        if self._telemetry is None:
+            from repro_torch.obs import Telemetry
+            self._telemetry = Telemetry()
+        return self._telemetry
+
     # -- params -------------------------------------------------------------
 
     @property
@@ -236,6 +285,14 @@ class Runtime:
     @params.setter
     def params(self, value):
         self._params = value
+
+    @property
+    def params_fingerprint(self) -> int:
+        """mod-2^32 checksum of the params (``ft.integrity``), the one the
+        serve engine registers at build and re-verifies; recomputed on
+        every read.  Equal to the reference's on the same values."""
+        from repro_torch.ft import integrity as ft_integrity
+        return int(ft_integrity.tree_fingerprint(self.params))
 
     @property
     def num_params(self) -> int:
@@ -322,7 +379,9 @@ class Runtime:
         ``engine_kw`` forwards the paged pool's sizing (``block_size``,
         ``num_blocks``, ``max_blocks_per_seq``), the scheduler and its
         knobs (defaulting to the Runtime's ``scheduler`` / ``sched_kw``)
-        and the knobs of later slices (which raise)."""
+        and the fault-tolerance knobs (``health_every``, ``injector``,
+        ``tick_retries``, ``retry_backoff_s``, ``straggler_kw``,
+        ``max_evacuations``, ``scrub_every``, ``trace``)."""
         from repro_torch.serve.engine import ServeEngine
         return ServeEngine(
             self, num_slots=num_slots,
@@ -407,7 +466,22 @@ class Runtime:
                      f"kv_bytes/stream={self.kv_bytes_per_stream():,} "
                      f"dtype={self.cfg.dtype} {sched} chunked_prefill_ok="
                      f"{self.caps.supports_chunked_prefill}")
+        lines.append(self._ft_status())
+        lines.append("  obs       : " + (
+            self._telemetry.describe() if self._telemetry is not None
+            else "not wired (Runtime.telemetry())"))
         return "\n".join(lines)
+
+    def _ft_status(self) -> str:
+        """Fault-tolerance posture on one device: losing it leaves no
+        survivor, so an evacuation rebuilds in place; and any armed
+        ``REPRO_TORCH_FAULT_PLAN``."""
+        import os
+        plan = os.environ.get("REPRO_TORCH_FAULT_PLAN", "").strip() or "none"
+        return (f"  ft        : devices=1 tp=1 evac(lose-1)->in-place "
+                f"rebuild (one device; mesh shrink: ROADMAP queue 1, item "
+                f"9) fault_plan={plan}\n"
+                f"  burn-in   : not ported (ROADMAP queue 1, item 12)")
 
     def routes(self) -> str:
         """Which kernel computes each attention-stack op in the working

@@ -24,10 +24,12 @@ exact equality, no hash collisions).  A later prompt with the same chain
 shares the physical block (refcount + 1, no write).  Released blocks keep
 their registration on the free list until they are recycled.
 
-The reference's quarantine / scrub entry points (``poison``,
-``scrub_poisoned``, ``drop_prefix_cache``, ``chain``) belong to the
-integrity and evacuation layers, which are not ported yet (ROADMAP queue
-1, item 10).
+Data integrity: a corrupted block is quarantined (``poison``: off the
+prefix cache and the free list) until the engine's scrub has wiped it
+(``scrub_poisoned``); ``alloc_gen`` counts each block's fresh
+allocations, so a sealed fingerprint can tell a recycled block from a
+corrupted one, and ``chain`` is the slot's block chain an evacuation
+records.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
+from repro_torch.obs.metrics import NULL_REGISTRY
 
 NULL_BLOCK = 0     # permanently empty; unused table entries point here
 TRASH_BLOCK = 1    # junk-write sink; never referenced by any table
@@ -49,34 +52,6 @@ KV_DTYPES = ("f32", "int8")
 
 class PoolExhausted(RuntimeError):
     """No free block: grow ``num_blocks`` (or wait for evictions)."""
-
-
-class _NullInstrument:
-    def inc(self, n: int = 1) -> None:
-        pass
-
-    def set(self, value) -> None:
-        pass
-
-    def labels(self, **values) -> "_NullInstrument":
-        return self
-
-
-class _NullRegistry:
-    """No-op stand-in for the reference's ``obs.metrics`` registry (the
-    observability layer is not ported yet); the block pool and the
-    scheduler record into it."""
-
-    def counter(self, name: str, help: str = "",
-                labels: tuple = ()) -> _NullInstrument:
-        return _NullInstrument()
-
-    def gauge(self, name: str, help: str = "",
-              labels: tuple = ()) -> _NullInstrument:
-        return _NullInstrument()
-
-
-NULL_REGISTRY = _NullRegistry()
 
 
 class BlockPool:
@@ -113,9 +88,17 @@ class BlockPool:
         # prefix cache: content chain -> block id, and the reverse
         self._cached: dict = {}
         self._key_of: dict[int, object] = {}
+        # data integrity: quarantined (poisoned) blocks are parked off the
+        # free list until scrubbed clean; alloc_gen bumps whenever a block
+        # is handed out fresh, so a seal can tell "recycled" from
+        # "corrupted"
+        self.poisoned: set[int] = set()
+        self.alloc_gen = np.zeros(num_blocks, np.int64)
         self.prefix_hits = 0
         self.cow_copies = 0
         self.high_water = 0
+        self.poisoned_total = 0
+        self.scrubbed_total = 0
         reg = NULL_REGISTRY if registry is None else registry
         self._c_hits = reg.counter("blockpool_prefix_hits_total",
                                    "prompt blocks shared from prefix cache")
@@ -123,18 +106,25 @@ class BlockPool:
                                      "keyed prompt blocks freshly allocated")
         self._c_cow = reg.counter("blockpool_cow_copies_total",
                                   "copy-on-write block duplications")
+        self._c_poisoned = reg.counter("blockpool_quarantined_total",
+                                       "blocks quarantined as corrupt")
+        self._c_scrubbed = reg.counter("blockpool_scrubbed_total",
+                                       "quarantined blocks scrubbed clean")
         self._g_used = reg.gauge("blockpool_used_blocks",
                                  "pool blocks referenced by >= 1 slot")
         self._g_free = reg.gauge("blockpool_free_blocks",
                                  "pool blocks on the free list")
         self._g_hwm = reg.gauge("blockpool_high_water_blocks",
                                 "max used_blocks ever observed")
+        self._g_poisoned = reg.gauge("blockpool_poisoned_blocks",
+                                     "blocks currently quarantined")
         self._sync_occupancy()
 
     def _sync_occupancy(self):
         self._g_used.set(self.used_blocks)
         self._g_free.set(self.free_blocks)
         self._g_hwm.set(self.high_water)
+        self._g_poisoned.set(len(self.poisoned))
 
     # -- introspection ------------------------------------------------------
 
@@ -158,6 +148,12 @@ class BlockPool:
     def blocks_needed(self, entries: int) -> int:
         return -(-entries // self.block_size)
 
+    def chain(self, slot: int) -> list[int]:
+        """The slot's live block chain (pool ids, in sequence order): with
+        the token prefix it was built from, what an evacuation records
+        before the engine replays the request."""
+        return [int(b) for b in self.table[slot, :int(self.seq_blocks[slot])]]
+
     # -- allocation core ----------------------------------------------------
 
     def _alloc(self) -> int:
@@ -166,10 +162,13 @@ class BlockPool:
                 f"KV block pool exhausted ({self.num_blocks} blocks of "
                 f"{self.block_size}); grow num_blocks or wait for evictions")
         bid = self._free.popleft()
+        assert bid not in self.poisoned, \
+            f"poisoned block {bid} leaked onto the free list"
         key = self._key_of.pop(bid, None)
         if key is not None:               # recycled: drop stale registration
             del self._cached[key]
         self.refcount[bid] = 1
+        self.alloc_gen[bid] += 1          # fresh owner: stale seals invalid
         self.high_water = max(self.high_water, self.used_blocks)
         return bid
 
@@ -254,13 +253,53 @@ class BlockPool:
         for col in range(int(self.seq_blocks[slot])):
             bid = int(self.table[slot, col])
             self.refcount[bid] -= 1
-            if self.refcount[bid] == 0:
-                self._free.append(bid)
+            if self.refcount[bid] == 0 and bid not in self.poisoned:
+                self._free.append(bid)    # poisoned blocks stay parked
         self.table[slot, :] = NULL_BLOCK
         self.seq_blocks[slot] = 0
         self.next_pos[slot] = 0
         self.reserved[slot] = 0
         self._sync_occupancy()
+
+    # -- quarantine (data integrity) ----------------------------------------
+
+    def poison(self, bid: int):
+        """Quarantine a corrupted block: deregister it from the prefix cache
+        at once (a later identical prompt must not share it) and park it
+        off the free list until :meth:`scrub_poisoned` clears it.  Blocks
+        still referenced stay in their tables until those slots release
+        (the engine replays the affected streams in the same breath)."""
+        if bid < NUM_RESERVED or bid in self.poisoned:
+            return
+        self.poisoned.add(bid)
+        self.poisoned_total += 1
+        self._c_poisoned.inc()
+        key = self._key_of.pop(bid, None)
+        if key is not None:
+            del self._cached[key]
+        if self.refcount[bid] == 0:       # cached/plain free: pull it out
+            self._free.remove(bid)
+        self._sync_occupancy()
+
+    def drop_prefix_cache(self):
+        """Deregister every cached prefix block (block contents are
+        wholesale untrustworthy, e.g. KV appended under corrupted params):
+        blocks stay where they are, but no admission may share one."""
+        self._cached.clear()
+        self._key_of.clear()
+
+    def scrub_poisoned(self) -> list[int]:
+        """Return quarantined blocks with no remaining references to the
+        free list and report them.  The caller wipes their device contents
+        (``ft.integrity.clear_regions``)."""
+        ready = sorted(b for b in self.poisoned if self.refcount[b] == 0)
+        for bid in ready:
+            self.poisoned.discard(bid)
+            self.scrubbed_total += 1
+            self._c_scrubbed.inc()
+            self._free.append(bid)
+        self._sync_occupancy()
+        return ready
 
     def fork(self, src: int, dst: int):
         """Point ``dst`` at ``src``'s chain (shared, refcounted); the next
@@ -312,7 +351,9 @@ class BlockPool:
     def __repr__(self) -> str:
         return (f"BlockPool(blocks={self.num_blocks}x{self.block_size}, "
                 f"free={self.free_blocks}, hits={self.prefix_hits}, "
-                f"cow={self.cow_copies}, hwm={self.high_water})")
+                f"cow={self.cow_copies}, hwm={self.high_water}"
+                + (f", poisoned={len(self.poisoned)}" if self.poisoned
+                   else "") + ")")
 
 
 # ---------------------------------------------------------------------------

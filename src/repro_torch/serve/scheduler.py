@@ -1,6 +1,5 @@
 """Token-budget continuous-batching scheduler (chunked prefill admission;
-port of ``repro.serve.scheduler``, host code copied as it is, with the
-block pool's no-op metrics registry in place of ``obs.metrics``).
+port of ``repro.serve.scheduler``, host code copied as it is).
 
 The monolithic engine admits a request by running its *entire* prompt
 through one prefill call, which stalls every in-flight decode stream for
@@ -54,7 +53,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Optional
 
-from repro_torch.serve.blockpool import NULL_REGISTRY
+from repro_torch.obs.metrics import NULL_REGISTRY
 
 DEFAULT_TOKEN_BUDGET = 256
 DEFAULT_CHUNK_SIZE = 32
@@ -84,7 +83,7 @@ class Scheduler:
                     proportionally more prefill starts.
     aging_ticks:    a request waiting this many engine ticks overrides WRR
                     (oldest first) — the starvation bound.
-    registry:       optional metrics registry; None keeps the
+    registry:       optional obs MetricsRegistry; None keeps the
                     scheduler dependency-free (no-op instruments).
     """
 

@@ -38,6 +38,10 @@ LOGITS_TOL, LOSS_TOL = 1e-3, 1e-4
 # tests/test_kernels.py:73-74: (B, S, Di, N, chunk, dblk)
 SCAN_SHAPES = [(2, 512, 256, 16, 128, 128), (1, 256, 512, 8, 256, 256)]
 
+# never-firing straggler thresholds: a slow tick on a loaded machine
+# must not evacuate and replay a stream these tests pin
+NO_STRAGGLER = dict(warn_ratio=1e9, remesh_ratio=1e9, abort_ratio=1e9)
+
 
 @pytest.fixture(scope="module")
 def jref():
@@ -438,9 +442,10 @@ def test_engine_token_streams_match_reference(jref):
         engine.run_to_completion()
         return {r.rid: list(r.generated) for r in engine.finished}
 
-    want = run(rrt.engine(num_slots=3, injector=None),
+    want = run(rrt.engine(num_slots=3, injector=None,
+                          straggler_kw=NO_STRAGGLER),
                jref["engine"].Request)
-    port = prt.engine(num_slots=3)
+    port = prt.engine(num_slots=3, straggler_kw=NO_STRAGGLER)
     got = run(port, PortRequest)
     assert port.stats.prefill_calls > 1 and port.stats.finished == len(reqs)
     assert {i: len(s) for i, s in got.items()} == {i: 5 for i in got}

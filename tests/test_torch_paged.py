@@ -580,7 +580,8 @@ def test_paged_engine_streams_match_reference(jref, kv_dtype):
     ref_eng = rrt.engine(num_slots=3, block_size=8, injector=None,
                          straggler_kw=NO_STRAGGLER)
     want = _run(ref_eng, jref["engine"].Request, reqs)
-    port = prt.engine(num_slots=3, block_size=8)
+    port = prt.engine(num_slots=3, block_size=8,
+                      straggler_kw=NO_STRAGGLER)
     got = _run(port, PortRequest, reqs)
     assert port.stats.finished == len(reqs) and port.stats.prefill_calls > 1
     assert port.pool.prefix_hits == ref_eng.pool.prefix_hits >= 2
@@ -608,7 +609,8 @@ def test_paged_engine_streams_equal_dense(capacity):
         rt = PortRuntime.create(cfg, capacity=capacity, device="cpu",
                                 kv_layout=layout)
         kw = dict(block_size=8) if layout == "paged" else {}
-        out[layout] = _run(rt.engine(num_slots=3, **kw), PortRequest, reqs)
+        out[layout] = _run(rt.engine(num_slots=3, straggler_kw=NO_STRAGGLER,
+                                        **kw), PortRequest, reqs)
     assert out["dense"] == out["paged"]
 
 

@@ -512,7 +512,7 @@ def _serve_port(pcfg, params, layout, reqs, sched_kw=None, **ekw):
                             sched_kw=sched_kw, **LAYOUTS[layout])
     if layout != "dense":
         ekw.setdefault("block_size", 8)
-    eng = rt.engine(num_slots=2, **ekw)
+    eng = rt.engine(num_slots=2, straggler_kw=NO_STRAGGLER, **ekw)
     for r in reqs:
         eng.submit(r)
     eng.run_to_completion()

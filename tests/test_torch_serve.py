@@ -24,6 +24,10 @@ from repro_torch.serve.engine import Request as PortRequest
 ARCHS = ["exanode-100m", "llama3.2-3b"]
 LOGITS_TOL = 1e-3
 
+# never-firing straggler thresholds: a slow tick on a loaded machine
+# must not evacuate and replay a stream these tests pin
+NO_STRAGGLER = dict(warn_ratio=1e9, remesh_ratio=1e9, abort_ratio=1e9)
+
 
 @pytest.fixture(scope="module")
 def ref():
@@ -165,9 +169,10 @@ def test_engine_token_streams_match_reference(ref):
         engine.run_to_completion()
         return {r.rid: list(r.generated) for r in engine.finished}
 
-    want = run(rrt.engine(num_slots=3, injector=None),
+    want = run(rrt.engine(num_slots=3, injector=None,
+                          straggler_kw=NO_STRAGGLER),
                ref["engine"].Request)
-    port = prt.engine(num_slots=3)
+    port = prt.engine(num_slots=3, straggler_kw=NO_STRAGGLER)
     got = run(port, PortRequest)
     assert port.stats.prefill_calls > 1 and port.stats.finished == len(reqs)
     for i, p, m in reqs:
@@ -227,9 +232,13 @@ def test_out_of_slice_requests_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PortRuntime.create(bad, device="cpu")
     rt = PortRuntime.create("exanode-100m", smoke=True, device="cpu")
+    # the fault layer is ported (tests/test_torch_ft.py); a mesh is not
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rt.reshape(mesh="2x4")
     for kw in ({"health_every": 1}, {"scrub_every": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.engine(**kw)
+        eng = rt.engine(**kw)
+        assert (eng.health_every, eng.scrub_every) == (
+            kw.get("health_every", 0), kw.get("scrub_every", 0))
     # the chunked-prefill scheduler is ported (tests/test_torch_sched.py)
     assert rt.engine(scheduler=True).sched is not None
 
