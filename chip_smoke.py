@@ -7,13 +7,17 @@
 Phases, in order, each printing one line:
 
   gpu      the card's name and power limit, as nvidia-smi reports them;
-  build    builds the nine kernel sources (fourteen kernels) from
+  build    builds the ten kernel sources (fifteen kernels) from
            src/repro_torch/csrc, one nvcc each, all started together;
   kernels  holds each kernel against its plain PyTorch version on the card
            at its path's shapes (serving; for the four backward kernels,
            training at batch 8 x 512; the mLSTM scan at xlstm-125m's
            prefill, q [4,4,1024,384], chunk 256, f32, also from a state,
-           and timed at the xlstm profile's 16 x 1024; the Mamba scan at
+           and timed at the xlstm profile's 16 x 1024; the mLSTM scan's
+           backward (#13b) at xlstm-125m's train shape, q [8,4,512,384],
+           at [4,4,1024,384] and over one chunk, from a zero state and from
+           a given one with the final carry's grads, timed at the train
+           shape; the Mamba scan at
            jamba-v0.1-52b's, dt/x [4,1024,8192], N 16, timed also at the
            jamba profile's 16 x 1024), in f32 and bf16 (the
            paged kernels also with int8 pools; the paged and backward
@@ -99,12 +103,13 @@ Phases, in order, each printing one line:
   sched    the chunked-prefill scheduler: in f32 at full width a 600-token
            prompt through model_chunk_prefill in chunks of 32 on dense,
            paged and int8 pools, logits on the card against the plain path
-           on the CPU and the monolithic prefill; then
-           Runtime.create("exanode-100m", capacity=2048, scheduler=True)
-           .engine(num_slots=16) with the reference's default knobs serves
-           the paged phase's 32 requests in bf16, dense, paged and int8,
-           cold and then warm, beside the monolithic engine's warm run of
-           each layout; fails unless no monolithic prefill ran, the pools
+           on the CPU and the monolithic prefill; then exanode-100m at
+           full width cut to 4 of its 12 layers, Runtime.create(cfg,
+           capacity=2048, scheduler=True).engine(num_slots=16) with the
+           reference's default knobs serves the paged phase's 32 requests
+           in bf16, dense, paged and int8, cold and then warm, beside the
+           monolithic engine's warm run of each layout at the same depth;
+           fails unless no monolithic prefill ran, the pools
            drained and each layout's kernels launched (int8: the pool
            write and #11);
   train    exanode-100m at full width: in f32, one step's loss and every
@@ -118,6 +123,17 @@ Phases, in order, each printing one line:
            memory; fails unless the loss falls and every kernel of the
            train path (flash forward and backward, fused SwiGLU forward
            and backward) launched;
+  xlstm_train  xlstm-125m at full width: in f32, one step's loss and
+           every grad leaf of one 4-layer period with the kernels on the
+           card against the plain path on the CPU (batch 2 x 512); then
+           at full depth python -m repro_torch.launch.train's loop for
+           xlstm-125m, bf16 activations and f32 params, batch 8 x 512, 20
+           cosine steps to peak lr 1e-3,
+           every launch counter zeroed just before and read just after:
+           losses, step time p50, tokens/s, peak memory; fails unless the
+           loss falls and mlstm_scan and mlstm_scan_bwd launched; then
+           torch.profiler over one more step: device time by group (mLSTM
+           forward, mLSTM backward, cuBLAS, the rest: the eager sLSTM);
   ft       fault tolerance on one card, exanode-100m at full width on the
            serve cell: in f32 over dense, paged and int8 pools a clean
            run and one with scrub_every=1, health_every=4 and FT_PLAN (a
@@ -157,8 +173,9 @@ Phases, in order, each printing one line:
 One more phase runs only when named: int8_cpu (the int8 pool's token
 agreement on the card and through the plain versions on the CPU).
 
-Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
-...}.  Any failed check raises before the last line.  Without a CUDA
+Then a line of each phase's wall seconds, one JSON line {"kernels":
+[...]} and, last, {"ok": true, "device": ...}.  Any failed check raises
+before the last line.  Without a CUDA
 device, or without the repository beside it, the script fails.
 """
 from __future__ import annotations
@@ -174,7 +191,8 @@ import time
 from pathlib import Path
 
 PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "jamba",
-          "dense", "train", "ft", "train_profile", "xlstm_profile",
+          "dense", "train", "xlstm_train", "ft", "train_profile",
+          "xlstm_profile",
           "sched_profile", "jamba_profile")                      # the build always runs
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor-core FLOP/s
@@ -230,6 +248,14 @@ BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # (tests/test_kernels.py:69, 2e-4) on y and on the final carry, and
 # ||err|| / ||want|| <= 1e-4 on each, as tests/test_torch_kernels.py holds it.
 MLSTM_REL_TOL = 1e-4
+# The mLSTM scan's backward (#13b, f32 only) against its plain version:
+# every element within MLSTM_BWD_TOL of its output's largest value, and
+# ||err|| / ||want|| <= BWD_REL_TOL["float32"] per output, as the flash
+# backward's entries.  Not atol + rtol per element: dk and df_log are sums
+# of large terms that cancel, where the plain version's own f32 rounding
+# reaches 0.46x a 1e-3 atol + rtol against f64 at dh 384
+# (tests/test_torch_kernels.py); their norms agree to ~3e-6.
+MLSTM_BWD_TOL = 1e-4
 MODEL_LOGITS_TOL = 1e-3
 # The train phase's f32 step against the CPU: the reference's fast-path
 # bounds (tests/test_train_fastpath.py:71-76), atol + rtol.  At full width
@@ -278,6 +304,10 @@ SOURCES = {
                          "src/repro/kernels/fused_ffn.py:131"),
     "mlstm_scan": ("src/repro_torch/csrc/mlstm_scan.cu",
                    "src/repro/kernels/mlstm_scan.py:21"),
+    # #13b, the backward of #13: the reference has no Pallas backward and
+    # differentiates its jnp chunk math (src/repro/models/ssm.py:234)
+    "mlstm_scan_bwd": ("src/repro_torch/csrc/mlstm_scan_bwd.cu",
+                       "src/repro/kernels/mlstm_scan.py:21"),
     "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:32"),
     "quantize_int8": ("src/repro_torch/csrc/quant.cu",
@@ -292,6 +322,7 @@ SOURCES = {
 TRAIN_KERNELS = ("flash_attention", "fused_ffn", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "fused_ffn_bwd_dx",
                  "fused_ffn_bwd_dw")
+XLSTM_TRAIN_KERNELS = ("mlstm_scan", "mlstm_scan_bwd")
 
 
 def gpu_line() -> str:
@@ -561,6 +592,7 @@ def kernels_phase(torch, timer) -> dict:
     out.update(paged_kernels(torch, timer))
     out.update(backward_kernels(torch, timer))
     out.update(mlstm_kernel(torch, timer))
+    out.update(mlstm_bwd_kernel(torch, timer))
     out.update(quant_kernels(torch, timer))
     out.update(ssm_kernel(torch, timer))
     return out
@@ -854,6 +886,99 @@ def mlstm_kernel(torch, timer) -> dict:
     entry = case(4, state_check=True)
     entry["xlstm_profile_shape"] = case(16, state_check=False)
     return {ml.NAME: entry}
+
+
+def check_mlstm_bwd(got, want, what: str) -> tuple[float, float]:
+    """Max |got - want| and ||got - want|| / ||want||; raises unless every
+    element is finite and within MLSTM_BWD_TOL of max |want|, and the
+    relative error within BWD_REL_TOL["float32"]."""
+    got, want = got.float(), want.float()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    rel = rel_err(got, want)
+    if not bool(got.isfinite().all()) or not err <= MLSTM_BWD_TOL * scale \
+            or (scale and not rel <= BWD_REL_TOL["float32"]):
+        raise AssertionError(
+            f"mlstm_scan_bwd {what}: max abs err {err:.3g} over "
+            f"{MLSTM_BWD_TOL} x max |want| {scale:.3g}, or ||err|| / "
+            f"||want|| {rel:.3g} over {BWD_REL_TOL['float32']}")
+    return err, rel
+
+
+def mlstm_bwd_kernel(torch, timer) -> dict:
+    """#13b, the mLSTM scan's backward, against ``ref_mlstm_scan_bwd`` on
+    the card, both fed the forward kernel's y and kept tensors, f32, chunk
+    256, the reference test's inputs and N(0, 1) cotangents: at the train
+    shape (8 x 512: two chunks), at [4,4,1024,384] (four) and over one
+    chunk (8 x 256), from the zero state; at 4 x 512 from the carry of a
+    first call, with the final carry's grads (dC, dn, dm) given.  Timed at
+    the train shape on the ``ms``, ``device_ms`` and ``host_us`` timers.
+
+    The bound counts each input (q, k, v, dy, y, the gates, d and the kept
+    carries) and output (dq, dk, dv, di, df_log) once, and the operations
+    these inputs need at the TF32 tensor-core rate (as #13's): per chunk
+    the five products over its causal pairs (S, dP, dv, dq, dk), and in
+    every chunk but the first (whose carry is zero) the carry-in product
+    dnum·C0 and its dC step, and the carry-out products V·dC1 and
+    K·dC1ᵀ.  No single PyTorch call computes it: no library yardstick."""
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    H, dh, L = 4, 384, 256
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def inputs(B: int, S: int) -> list:
+        return [randn(B, H, S, dh), randn(B, H, S, dh) * dh ** -0.5,
+                randn(B, H, S, dh), randn(B, H, S),
+                torch.nn.functional.logsigmoid(randn(B, H, S) + 2.0)]
+
+    errs, rels = {}, {}
+
+    def case(what: str, B: int, S: int, state=None):
+        ins = inputs(B, S)
+        y, _, kept = ml.mlstm_scan(*ins, chunk=L, state=state, keep=True)
+        dy = randn(B, H, S, dh)
+        cot = {} if state is None else dict(
+            dC=randn(B, H, dh, dh), dn=randn(B, H, dh), dm=randn(B, H))
+        got = ml.mlstm_scan_bwd(*ins, y, kept, dy, chunk=L, state=state,
+                                **cot)
+        want = ref.ref_mlstm_scan_bwd(*ins, y, kept, dy, chunk=L,
+                                      state=state, **cot)
+        for name, g, w in zip(("dq", "dk", "dv", "di", "df", "dC", "dn",
+                               "dm"), got, want):
+            if w is not None:
+                key = f"{what} {name}"
+                errs[key], rels[key] = check_mlstm_bwd(g, w, key)
+        return ins, y, kept, dy
+
+    ins, y, kept, dy = case("8x512", 8, 512)
+    case("4x1024", 4, 1024)
+    case("8x256 one chunk", 8, 256)
+    _, first = ml.mlstm_scan(*inputs(4, 512), chunk=L)
+    case("4x512 from a state", 4, 512, first)
+    B, S = 8, 512
+    nc = S // L
+    pairs = L * (L + 1) / 2
+    flops = B * H * (10 * dh * pairs * nc + 8 * L * dh * dh * (nc - 1))
+    nb = nbytes(*ins, y, dy, *kept) + nbytes(*ins[:3]) + 2 * nbytes(ins[3])
+    b_ms, b_by = bound(nb, flops, "tfloat32")
+
+    def kern():
+        return ml.mlstm_scan_bwd(*ins, y, kept, dy, chunk=L)
+    return {ml.NAME_BWD: dict(
+        shape=f"q/k/v/dy [{B},{H},{S},{dh}], chunk {L}, f32, from the zero "
+              f"state",
+        max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
+        rel_err_by_output=rels,
+        ms=timer.ms(kern), device_ms=timer.device_ms(kern),
+        host_us=timer.host_us(kern),
+        plain_ms=timer.ms(lambda: ref.ref_mlstm_scan_bwd(
+            *ins, y, kept, dy, chunk=L)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes a chunkwise mLSTM's "
+                "backward",
+        flops_counted=flops, bytes_counted=nb)}
 
 
 def quant_kernels(torch, timer) -> dict:
@@ -1551,77 +1676,212 @@ def scan_quant_line(torch, entries: dict, gpu: str) -> str:
     return "scan_quant: " + " | ".join(parts) + f" [{gpu}]"
 
 
-def train_phase(torch, gpu: str) -> tuple[str, dict]:
-    """Full-width training: an f32 step's loss and grads on the card
-    against the CPU, then the bf16 training run with the launch counters
-    zeroed just before and read just after."""
-    import numpy as np
-    from repro_torch.configs import get_config
+def leaf_paths(tree, pre: str = "") -> list:
+    """"/a/b[0]"-style paths of a dict / list tree, in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k],
+                                                            f"{pre}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in leaf_paths(t, f"{pre}[{i}]")]
+    return [pre]
+
+
+def f32_step_errs(torch, cfg, B: int, S: int,
+                  rel_tols: dict | None = None) -> tuple[dict, list]:
+    """One f32 step of ``cfg`` (params from seed 0, the synthetic batch
+    of step 0, B x S): its loss and every grad leaf with the kernels on the
+    card against the plain path on the CPU.  Returns ({"loss": max abs
+    err, "grad": max abs grad err, "rel": largest leaf ||err|| / ||grad||
+    held to TRAIN_GRAD_REL_TOL, "own_rel": that of the leaves ``rel_tols``
+    names, "cpu_s" / "cuda_s": each side's wall seconds}, failures)
+    against TRAIN_LOSS_TOL, TRAIN_GRAD_TOL and TRAIN_GRAD_REL_TOL; a leaf
+    whose last path key is in ``rel_tols`` is held to its own relative
+    bound there instead."""
     from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
-    from repro_torch.kernels import ops
-    from repro_torch.launch.train import train_loop
     from repro_torch.models.common import init_params, tree_leaves, tree_map
     from repro_torch.models.registry import model_specs
     from repro_torch.train.steps import value_and_grad
-    cfg = get_config("exanode-100m").scaled(dtype=torch.float32)
+    cfg = cfg.scaled(dtype=torch.float32)
     cpu_params = init_params(model_specs(cfg), seed=0)
-    batch = synthetic_batch(DataConfig(cfg.vocab_size, 512, 2), 0)
-    res = {dev: value_and_grad(tree_map(lambda t: t.to(dev), cpu_params),
-                               to_device(batch, dev), cfg)
-           for dev in ("cpu", "cuda")}
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, S, B), 0)
+    res, errs = {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        res[dev] = value_and_grad(tree_map(lambda t: t.to(dev), cpu_params),
+                                  to_device(batch, dev), cfg)
+        torch.cuda.synchronize()
+        errs[f"{dev}_s"] = time.perf_counter() - t0
     loss_err = abs(float(res["cuda"][0]) - float(res["cpu"][0]))
     failed = []
     if not loss_err <= TRAIN_LOSS_TOL * (1 + abs(float(res["cpu"][0]))):
         failed.append(f"f32 loss differs by {loss_err:.3g}")
-    grad_err = grad_rel = 0.0
-    for g, w in zip(tree_leaves(res["cuda"][2]), tree_leaves(res["cpu"][2])):
+    grad_err = grad_rel = own_rel = 0.0
+    rel_tols = rel_tols or {}
+    for path, g, w in zip(leaf_paths(res["cpu"][2]),
+                          tree_leaves(res["cuda"][2]),
+                          tree_leaves(res["cpu"][2])):
         diff = (g.cpu() - w).abs()
         rel = rel_err(g.cpu(), w)
         grad_err = max(grad_err, float(diff.max()))
-        grad_rel = max(grad_rel, rel)
         if not bool((diff <= TRAIN_GRAD_TOL * (1 + w.abs())).all()):
-            failed.append(f"f32 grad leaf {tuple(w.shape)} max abs err "
+            failed.append(f"f32 grad leaf {path} max abs err "
                           f"{float(diff.max()):.3g}")
-        if not rel <= TRAIN_GRAD_REL_TOL:
-            failed.append(f"f32 grad leaf {tuple(w.shape)} ||err|| / "
-                          f"||grad|| {rel:.3g}")
-    del res
+        tol = rel_tols.get(path.rsplit("/", 1)[-1])
+        if tol is None:
+            tol, grad_rel = TRAIN_GRAD_REL_TOL, max(grad_rel, rel)
+        else:
+            own_rel = max(own_rel, rel)
+        if not rel <= tol:
+            failed.append(f"f32 grad leaf {path} ||err|| / ||grad|| "
+                          f"{rel:.3g} over {tol}")
+    errs.update(loss=loss_err, grad=grad_err, rel=grad_rel, own_rel=own_rel)
+    return errs, failed
 
-    steps, B, S = 20, 8, 512
+
+def bf16_train_run(torch, arch: str, kernels, steps: int = 20, B: int = 8,
+                   S: int = 512, lr: float = 3e-4) -> tuple[dict, list]:
+    """python -m repro_torch.launch.train's loop for ``arch``: bf16
+    activations, f32 params, batch B x S, ``steps`` cosine steps to peak
+    ``lr`` (the launcher's default 3e-4, warmup 2), every
+    launch counter zeroed just before and read just after.  Returns
+    ({"losses", "drop", "p50", "peak", "launches", "text"}, failures): the
+    loss finite and falling by more than TRAIN_LOSS_DROP (first-5 minus
+    last-5 mean), each of ``kernels`` launched."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    _, hist = train_loop("exanode-100m", steps=steps, global_batch=B,
-                         seq_len=S)
+    _, hist = train_loop(arch, steps=steps, global_batch=B, seq_len=S, lr=lr)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in hist]
     p50 = float(np.median([h["seconds"] for h in hist]))
     drop = float(np.mean(losses[:5]) - np.mean(losses[-5:]))
+    failed = []
     if not all(np.isfinite(losses)):
         failed.append("non-finite loss")
     if not drop > TRAIN_LOSS_DROP:
         failed.append(f"loss fell by {drop:.4f}, not more than "
                       f"{TRAIN_LOSS_DROP}")
-    missing = [n for n in TRAIN_KERNELS if not launches[n]]
+    missing = [n for n in kernels if not launches[n]]
     if missing:
         failed.append(f"kernels of the train path never launched: {missing}")
-    line = (f"train: exanode-100m f32, batch 2 x 512: loss err "
-            f"{loss_err:.3g}, max abs grad err {grad_err:.3g}, largest "
-            f"leaf ||err|| / ||grad|| {grad_rel:.3g} (tol loss "
-            f"{TRAIN_LOSS_TOL}, grads {TRAIN_GRAD_TOL} atol + rtol and "
-            f"{TRAIN_GRAD_REL_TOL} relative per leaf); bf16 "
-            f"activations, f32 params, global batch {B} x {S}, {steps} "
-            f"cosine steps: losses {[round(x, 4) for x in losses]}; first-5 "
+    text = (f"bf16 activations, f32 params, global batch {B} x {S}, {steps} "
+            f"cosine steps to peak lr {lr:g}: losses "
+            f"{[round(x, 4) for x in losses]}; first-5 "
             f"minus last-5 mean {drop:.4f} (gate {TRAIN_LOSS_DROP}); step "
             f"p50 {p50 * 1e3:.1f} ms, {B * S / p50:.0f} tokens/s; peak "
             f"memory {peak / 2**30:.3f} GiB; launches {launches} "
-            f"({steps} steps) [{gpu}]")
+            f"({steps} steps)")
+    return dict(losses=losses, drop=drop, p50=p50, peak=peak,
+                launches=launches, text=text), failed
+
+
+def step_errs_text(errs: dict, what: str) -> str:
+    return (f"{what}: loss err {errs['loss']:.3g}, max abs grad err "
+            f"{errs['grad']:.3g}, largest leaf ||err|| / ||grad|| "
+            f"{errs['rel']:.3g} (tol loss {TRAIN_LOSS_TOL}, grads "
+            f"{TRAIN_GRAD_TOL} atol + rtol and {TRAIN_GRAD_REL_TOL} relative "
+            f"per leaf)")
+
+
+def train_phase(torch, gpu: str) -> tuple[str, dict]:
+    """Full-width training: an f32 step's loss and grads on the card
+    against the CPU, then the bf16 training run with the launch counters
+    zeroed just before and read just after."""
+    from repro_torch.configs import get_config
+    errs, failed = f32_step_errs(torch, get_config("exanode-100m"), 2, 512)
+    run, more = bf16_train_run(torch, "exanode-100m", TRAIN_KERNELS)
+    failed += more
+    line = (f"train: {step_errs_text(errs, 'exanode-100m f32, batch 2 x 512')}"
+            f"; {run['text']} [{gpu}]")
     if failed:
         raise AssertionError(line + "\ntrain phase failed: "
                              + "; ".join(failed))
-    return line, {n: launches[n] for n in TRAIN_KERNELS}
+    return line, {n: run["launches"][n] for n in TRAIN_KERNELS}
+
+
+# where an xlstm-125m train step's device time goes: the backward's five
+# kernels first (their names contain no forward kernel's)
+XLSTM_TRAIN_PROFILE_GROUPS = (
+    ("mLSTM backward (#13b)", ("mlstm_bwd_",)),
+    ("mLSTM forward (#13)", ("mlstm_carry_kernel", "mlstm_out_kernel")),
+    ("cuBLAS GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
+)
+
+
+# The xlstm_train phase's f32 step runs one 4-layer period at full width,
+# not the full depth: at the full depth the CPU's own grads move by 2-3%
+# (largest leaf ||diff|| / ||grad||, every leaf below the top period)
+# when the params are scaled by 1 + 1e-7 N(0, 1), past any f32 bound of
+# 1e-4 (one period moves 1.5-2.2e-5 there; measured on an NVIDIA H100
+# 80GB HBM3 machine at 700 W, CPU and card).
+# Within it the leaves of the mLSTM that take their grad through the
+# gates' di and df_log, summed over every token (w_if, b_if, and the conv
+# feeding them), are held to ||err|| / ||grad|| <= 1e-3: df_log is a
+# reverse cumsum over the chunk of terms that cancel, and two f32
+# evaluations of the same scan backward on the same inputs (its plain
+# version on the card and on the CPU) differ by 7.8e-5 of ||df_log||;
+# the card's 3xTF32 forward moves its inputs by ~3e-6, and the gate
+# leaves by 0.9-6.5e-4 over four runs (b_if 5.1e-4 to 1.1e-3, w_if 9e-5
+# to 1.9e-4, conv_b 5.8e-5 to 1.25e-4; the same machine).  Every leaf keeps the
+# elementwise TRAIN_GRAD_TOL, the others TRAIN_GRAD_REL_TOL.
+XLSTM_GATE_GRAD_REL_TOL = 1e-3
+XLSTM_TRAIN_REL_TOLS = {k: XLSTM_GATE_GRAD_REL_TOL
+                        for k in ("w_if", "b_if", "conv_w", "conv_b")}
+# The xlstm_train run's peak learning rate: at the launcher's default
+# 3e-4 the loss fell 0.0269 in 20 steps, under TRAIN_LOSS_DROP.
+XLSTM_TRAIN_LR = 1e-3
+
+
+def xlstm_train_phase(torch, gpu: str) -> tuple[str, dict]:
+    """xlstm-125m training at full width: an f32 step's loss and grads
+    of one full-width period (mlstm x3, slstm) on the card against the CPU
+    (batch 2 x 512: two mLSTM chunks of 256, two sLSTM remat chunks), then
+    the bf16 training run at full depth with the launch counters zeroed
+    just before and read just after, then ``profile_windows`` over one
+    more bf16 step (8 x 512) by kernel group: mLSTM forward, mLSTM
+    backward, cuBLAS and the rest, which is the eager sLSTM cell (its
+    forward, its remat recompute and its autograd backward, a few small
+    kernels a step and layer) and the elementwise glue."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
+    from repro_torch.models.common import LayerGroup
+    from repro_torch.runtime import Runtime
+    cfg = get_config("xlstm-125m")
+    period = cfg.scaled(num_layers=4, groups=(LayerGroup(
+        ("mlstm", "mlstm", "mlstm", "slstm"), 1),))
+    errs, failed = f32_step_errs(torch, period, 2, 512,
+                                 rel_tols=XLSTM_TRAIN_REL_TOLS)
+    run, more = bf16_train_run(torch, "xlstm-125m", XLSTM_TRAIN_KERNELS,
+                               lr=XLSTM_TRAIN_LR)
+    failed += more
+    rt = Runtime.create("xlstm-125m", shape_kind="train", seq_len=512)
+    state = rt.init_train_state()
+    batch = to_device(synthetic_batch(DataConfig(rt.cfg.vocab_size, 512, 8),
+                                      0), "cuda")
+    parts = profile_windows(
+        torch, {"step": (lambda: rt.train_step(state, batch), 1)},
+        XLSTM_TRAIN_PROFILE_GROUPS, "xlstm_train")
+    del rt, state
+    torch.cuda.empty_cache()
+    what = "xlstm-125m f32, one full-width period (4 layers), batch 2 x 512"
+    line = (f"xlstm_train: {step_errs_text(errs, what)}; the mLSTM gate "
+            f"leaves {sorted(XLSTM_TRAIN_REL_TOLS)} largest ||err|| / "
+            f"||grad|| {errs['own_rel']:.3g} (tol "
+            f"{XLSTM_GATE_GRAD_REL_TOL}); CPU side {errs['cpu_s']:.1f} s, "
+            f"card {errs['cuda_s']:.1f} s; "
+            f"full depth: {run['text']}; profile of one bf16 step 8 x 512, "
+            f"{parts[0]} [{gpu}]")
+    if failed:
+        raise AssertionError(line + "\nxlstm_train phase failed: "
+                             + "; ".join(failed))
+    return line, {n: run["launches"][n] for n in XLSTM_TRAIN_KERNELS}
 
 
 # kernel-name substrings -> the groups of the train profile
@@ -2597,10 +2857,9 @@ def paged_prompts(vocab: int) -> list:
     return prompts
 
 
-def paged_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
+def paged_phase(torch, gpu: str) -> tuple[str, dict]:
     """``paged_prompts`` served dense, paged and paged int8, each once cold
-    and once warm on a fresh engine; the warm runs are kept in ``mono``
-    by layout for the sched phase.  The warm paged runs' launch counts
+    and once warm on a fresh engine.  The warm paged runs' launch counts
     are the paged kernels'.  A failed gate raises with every run's
     figures in its message."""
     from repro_torch.runtime import Runtime
@@ -2616,8 +2875,7 @@ def paged_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
                             params=base.params, **kv)
         engine_kw = dict(block_size=16) if kv else {}
         cold = serve_run(torch, rt, prompts, new, **engine_kw)
-        warm = runs[way] = mono[way] = serve_run(torch, rt, prompts, new,
-                                                 **engine_kw)
+        warm = runs[way] = serve_run(torch, rt, prompts, new, **engine_kw)
         eng, launches = warm["eng"], warm["launches"]
         hits = eng.pool.prefix_hits if eng.paged else 0
         lines.append(f"{way}: cold wall {cold['wall']:.3f} s prefill "
@@ -2665,6 +2923,11 @@ def paged_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
 
 SCHED_PROMPT, SCHED_CAPACITY = 600, 640  # f32 check: 19 chunks, last padded
 SCHED_CHUNK = 32                         # the reference's default chunk
+# The scheduler's serve runs (a cold and a warm one a layout, ~610 ticks
+# each, host-bound) at 4 of exanode-100m's 12 layers, full width, beside
+# monolithic runs at the same depth: at 12 layers they took 170 of the
+# whole script's 765 s on the H100, time the xlstm_train phase needs.
+SCHED_SERVE_LAYERS = 4
 # per layout: the kernels a scheduler run must launch (the chunk attends in
 # plain torch, as the reference's is jnp, so flash_attention does not run)
 SCHED_KERNELS = {"dense": ("fused_ffn", "decode_attention"),
@@ -2742,7 +3005,7 @@ def plain_int8_ops():
         ops.quantized_block_write, ops.dequantize_gather = saved
 
 
-def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
+def sched_phase(torch, gpu: str) -> tuple[str, dict]:
     """The chunked-prefill scheduler.  (a) exanode-100m at full width in
     f32: a SCHED_PROMPT-token prompt through ``model_chunk_prefill`` in
     chunks of 32 over dense, paged and int8 pools; each chunk's last-token
@@ -2753,19 +3016,20 @@ def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
     within one int8 code of the CPU's; their distances to the CPU's logits
     and to the monolithic prefill are printed (card and CPU products
     differ in the last bits, which moves some values to the next code).
-    (b) ``Runtime.create("exanode-100m", capacity=2048,
-    scheduler=True).engine(num_slots=16)`` with the reference's default
-    knobs (token budget 256, chunk 32) serves the paged phase's 32
-    requests in bf16, dense, paged and int8 at block size 16, each cold
-    and then warm with every launch counter zeroed just before; beside
-    each, the monolithic engine's warm run of the same layout (``mono``:
-    the paged phase's, else run here) and the share of token positions
-    where the two streams agree.  Fails unless every request finishes, no
+    (b) ``Runtime.create(cfg, capacity=2048,
+    scheduler=True).engine(num_slots=16)``, cfg exanode-100m at full width
+    cut to SCHED_SERVE_LAYERS layers, with the reference's default knobs
+    (token budget 256, chunk 32) serves the paged phase's 32 requests in
+    bf16, dense, paged and int8 at block size 16, each cold and then warm
+    with every launch counter zeroed just before; beside each, the
+    monolithic engine's warm run of the same cut and layout (after a cold
+    one) and the share of token positions where the two streams agree.
+    Fails unless every request finishes, no
     monolithic prefill runs, the pools drain and every kernel of each
     layout's path launched (int8: the pool write and #11)."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.models.common import init_params, tree_map
+    from repro_torch.models.common import LayerGroup, init_params, tree_map
     from repro_torch.models.registry import model_specs
     from repro_torch.runtime import Runtime
     from repro_torch.serve import blockpool as bp
@@ -2826,18 +3090,19 @@ def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
     del params, full
     f32_s = time.perf_counter() - t_phase
 
-    base = Runtime.create("exanode-100m", capacity=2048)
+    scfg = get_config("exanode-100m").scaled(
+        num_layers=SCHED_SERVE_LAYERS,
+        groups=(LayerGroup(("attn",), SCHED_SERVE_LAYERS),))
+    base = Runtime.create(scfg, capacity=2048)
     prompts, new = paged_prompts(base.cfg.vocab_size), 64
-    lines, launches = [], {}
+    lines, launches, mono = [], {}, {}
     for layout, kv in SCHED_LAYOUTS.items():
         engine_kw = dict(block_size=16) if kv else {}
-        if layout not in mono:
-            rt = Runtime.create("exanode-100m", capacity=2048,
-                                params=base.params, **kv)
-            serve_run(torch, rt, prompts, new, **engine_kw)
-            mono[layout] = serve_run(torch, rt, prompts, new, **engine_kw)
-        rt = Runtime.create("exanode-100m", capacity=2048,
-                            params=base.params, scheduler=True, **kv)
+        rt = Runtime.create(scfg, capacity=2048, params=base.params, **kv)
+        serve_run(torch, rt, prompts, new, **engine_kw)
+        mono[layout] = serve_run(torch, rt, prompts, new, **engine_kw)
+        rt = Runtime.create(scfg, capacity=2048, params=base.params,
+                            scheduler=True, **kv)
         cold = serve_run(torch, rt, prompts, new, **engine_kw)
         warm = serve_run(torch, rt, prompts, new, **engine_kw)
         eng, counts = warm["eng"], warm["launches"]
@@ -2869,7 +3134,8 @@ def sched_phase(torch, gpu: str, mono: dict) -> tuple[str, dict]:
               f"{f32['int8'][2]:.3g}, pools within {f32['int8'][3]} code(s) "
               f"of the CPU's (tol {MODEL_LOGITS_TOL}; int8 is held to the "
               f"plain path on the card and to one code) "
-              f"[{f32_s:.1f} s]; serve bf16 capacity=2048 slots=16 "
+              f"[{f32_s:.1f} s]; serve bf16 {SCHED_SERVE_LAYERS} of 12 layers "
+              f"capacity=2048 slots=16 "
               f"scheduler token_budget=256 chunk_size={SCHED_CHUNK}, "
               f"{len(prompts)} paged-phase requests x {new} new tokens; "
             + "; ".join(lines)
@@ -3420,6 +3686,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     entries = {}
+    secs = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     if "kernels" in phases:
         entries = kernels_phase(torch, Timer(torch, args.iters))
 
@@ -3467,29 +3735,45 @@ def main() -> int:
         print(wide_groups_line(entries, gpu), flush=True)
         print(scan_quant_line(torch, entries, gpu), flush=True)
         print(split_sweep(torch, gpu, args.iters), flush=True)
+        secs["kernels"] = time.perf_counter() - t0
     if "model" in phases:
+        t0 = time.perf_counter()
         print(model_phase(torch), flush=True)
+        secs["model"] = time.perf_counter() - t0
     by_path = {}       # path -> that run's launch counts
-    mono = {}          # layout -> the paged phase's warm run, for sched
     for path, run in (("serve", serve_phase),
-                      ("paged", functools.partial(paged_phase, mono=mono)),
-                      ("sched", functools.partial(sched_phase, mono=mono)),
+                      ("paged", paged_phase), ("sched", sched_phase),
                       ("xlstm", xlstm_phase), ("jamba", jamba_phase),
                       ("dense", dense_phase), ("train", train_phase),
+                      ("xlstm_train", xlstm_train_phase),
                       ("ft", ft_phase)):
         if path in phases:
+            t0 = time.perf_counter()
             line, by_path[path] = run(torch, gpu)
             print(line, flush=True)
+            secs[path] = time.perf_counter() - t0
     if "int8_cpu" in phases:
+        t0 = time.perf_counter()
         print(int8_cpu_phase(torch, gpu), flush=True)
+        secs["int8_cpu"] = time.perf_counter() - t0
     if "train_profile" in phases:
+        t0 = time.perf_counter()
         print(train_profile_phase(torch, gpu), flush=True)
+        secs["train_profile"] = time.perf_counter() - t0
     if "xlstm_profile" in phases:
+        t0 = time.perf_counter()
         print(xlstm_profile_phase(torch, gpu), flush=True)
+        secs["xlstm_profile"] = time.perf_counter() - t0
     if "sched_profile" in phases:
+        t0 = time.perf_counter()
         print(sched_profile_phase(torch, gpu), flush=True)
+        secs["sched_profile"] = time.perf_counter() - t0
     if "jamba_profile" in phases:
+        t0 = time.perf_counter()
         print(jamba_profile_phase(torch, gpu), flush=True)
+        secs["jamba_profile"] = time.perf_counter() - t0
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}), flush=True)
     if entries:
         print(json.dumps({"kernels": [
             dict(name=n, route="cuda", source=SOURCES[n][0],

@@ -63,6 +63,7 @@
 // accurate one (no fast math).
 
 #include "common.cuh"
+#include "mlstm_gates.cuh"
 
 namespace {
 
@@ -180,49 +181,12 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4],
   }
 }
 
-// The chunk's gate statistics, one step a thread (L <= blockDim.x <= 512;
-// thread t < L holds i[t] and f_log[t], the others 0): g[t] =
-// Σ_{τ<=t} f_log[τ], a[t] = i[t] - g[t], cm[t] = max_{τ<=t} a[τ], by warp
-// scans and the warps' totals added in order.  red: 32 floats.  Ends with
-// a barrier.
-__device__ __forceinline__ void gate_scan(float ig, float fl, int L,
-                                          float* g, float* a, float* cm,
-                                          float* red) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float x = fl;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) red[warp] = x;
-  __syncthreads();
-  float base = 0.f;
-  for (int w = 0; w < warp; ++w) base += red[w];
-  x += base;
-  const float av = tid < L ? ig - x : -INFINITY;
-  float mx = av;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, mx, o);
-    if (lane >= o) mx = fmaxf(mx, y);
-  }
-  if (lane == 31) red[16 + warp] = mx;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) mx = fmaxf(mx, red[16 + w]);
-  if (tid < L) {
-    g[tid] = x;
-    a[tid] = av;
-    cm[tid] = mx;
-  }
-  __syncthreads();
-}
-
 struct Args {
   const float *q, *k, *v, *ig, *fl;  // [B,H,S,dh] x3, [B,H,S] x2
   const float *C0, *n0, *m0;         // the initial carry, or all null
   float *Cs, *ns, *ms;  // carries after chunks 0..nc-2 [B,H,nc-1,...]
   float *y, *C, *n, *m;  // outputs: y [B,H,S,dh], the final carry
+  float* d;  // [B,H,S] the signed denominators, for the backward, or null
   int H, S, dh, L, nc;
 };
 
@@ -495,6 +459,8 @@ mlstm_out_kernel(const Args p) {
     float d = 0.f;
     for (int w = 0; w < 8; ++w) d += rs[w];
     den[tid] = fmaxf(fabsf(d + inter[tid] * qn[tid]), 1.f);
+    if (p.d != nullptr && tid < tq)
+      p.d[bh * p.S + row0 + t0 + tid] = d + inter[tid] * qn[tid];
   }
   // den is read after the barriers of the loops below
 
@@ -582,7 +548,9 @@ mlstm_out_kernel(const Args p) {
 
 // q/k/v/y [B,H,S,dh] f32 (k pre-scaled by dh^-0.5); ig/fl [B,H,S] f32
 // (f_log already log-sigmoid); 0 < L <= 256, S % L == 0, dh % 4 == 0.
-// C [B,H,dh,dh], n [B,H,dh], m [B,H] receive the final carry.  With C0,
+// C [B,H,dh,dh], n [B,H,dh], m [B,H] receive the final carry; d [B,H,S],
+// where non-null, the denominators before the clamp (what the backward
+// reads beside the carries in Cs, ns, ms).  With C0,
 // n0, m0 non-null the carry starts from them; with all three null it
 // starts at zero.  Cs [B,H,nc-1,dh,dh], ns [B,H,nc-1,dh], ms [B,H,nc-1]
 // (nc = S / L; null when nc == 1) are scratch for the carries between
@@ -591,7 +559,8 @@ extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
                                 const void* ig, const void* fl,
                                 const void* C0, const void* n0,
                                 const void* m0, void* y, void* C, void* n,
-                                void* m, void* Cs, void* ns, void* ms, int B,
+                                void* m, void* Cs, void* ns, void* ms,
+                                void* d, int B,
                                 int H, int S, int dh, int L, void* stream) {
   const bool init = C0 != nullptr;
   if ((n0 != nullptr) != init || (m0 != nullptr) != init || L <= 0 ||
@@ -605,7 +574,8 @@ extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
          static_cast<float*>(Cs),       static_cast<float*>(ns),
          static_cast<float*>(ms),       static_cast<float*>(y),
          static_cast<float*>(C),        static_cast<float*>(n),
-         static_cast<float*>(m),        H,
+         static_cast<float*>(m),        static_cast<float*>(d),
+         H,
          S,                             dh,
          L,                             S / L};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

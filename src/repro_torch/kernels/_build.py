@@ -28,7 +28,7 @@ import torch
 
 SOURCES = ("flash_attention", "flash_attention_bwd", "fused_ffn",
            "fused_ffn_bwd", "decode_attention", "paged_attention",
-           "mlstm_scan", "quant", "ssm_scan")
+           "mlstm_scan", "mlstm_scan_bwd", "quant", "ssm_scan")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -7,7 +7,7 @@ Every kernel wrapper counts its own launches (a plain int on its module);
 ``launch_counts`` reads them and ``reset_launch_counts`` zeroes them, so a
 run can show that its main path went through the kernels.
 
-The two differentiable ops, ``flash_attention`` and ``swiglu_ffn``, are
+The differentiable ops ``flash_attention`` and ``swiglu_ffn`` are
 ``torch.autograd.Function``s (``FlashAttention``, ``SwiGLUFFN``) in place
 of the reference's ``jax.custom_vjp``: their forward and backward both
 dispatch by device, to the forward and backward kernels on the card and to
@@ -16,14 +16,17 @@ the plain forward and backward (``ref_attention_bwd``,
 saves (q, k, v, out, lse) and the FFN (x, w_gate, w_up, w_down): nothing
 [S, T]- or [N, F]-shaped.  Without grad (serving) they are the plain
 forward calls they were: the Functions are entered only when an input
-needs a gradient.  The mLSTM scan has no backward kernel (the reference
-differentiates its jnp chunk math): on the card it refuses inputs that
-need a gradient.  The Mamba selective scan has no backward kernel
-either (the reference has no Pallas backward for it): it refuses inputs
-that need a gradient on every device, so that no training runs through
-its plain version unnoticed.  The int8 ops (kernels #10 and #11 and the
-int8 pool's entry write) are bit for bit: their plain versions and
-kernels round the same f32 values the same way.
+needs a gradient.  So is ``mlstm_scan`` (``MLSTMScan``), where the
+reference differentiates its jnp chunk math: the port's backward is
+written by hand, the kernels ``mlstm_scan_bwd`` on the card and their
+plain passes (``ref_mlstm_scan_bwd``) on the CPU, and its forward keeps
+what that backward reads (the denominators and the carry entering every
+chunk) only while a gradient is taken.  The Mamba selective scan has no
+backward kernel (the reference has no Pallas backward for it): it
+refuses inputs that need a gradient on every device, so that no training
+runs through its plain version unnoticed.  The int8 ops (kernels #10 and
+#11 and the int8 pool's entry write) are bit for bit: their plain
+versions and kernels round the same f32 values the same way.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ KERNELS = {_fa.NAME: (_fa, "launches"), _ffn.NAME: (_ffn, "launches"),
            _ffn.NAME_BWD_DX: (_ffn, "launches_dx"),
            _ffn.NAME_BWD_DW: (_ffn, "launches_dw"),
            _ml.NAME: (_ml, "launches"),
+           _ml.NAME_BWD: (_ml, "launches_bwd"),
            _qt.NAME_QUANT: (_qt, "launches_quant"),
            _qt.NAME_DEQUANT: (_qt, "launches_dequant"),
            _qt.NAME_WRITE: (_qt, "launches_write"),
@@ -168,19 +172,57 @@ def paged_decode_attention_q8(q, k_pool, v_pool, k_scale, v_scale, pos_pool,
                                          pos_pool, block_table, pos)
 
 
+def _mlstm_fwd(q, k, v, i_gate, f_log, chunk: int, state, keep: bool):
+    if q.device.type == "cpu":
+        return ref.ref_mlstm_scan(q, k, v, i_gate, f_log, chunk=chunk,
+                                  state=state, keep=keep)
+    return _ml.mlstm_scan(q, k, v, i_gate, f_log, chunk=chunk, state=state,
+                          keep=keep)
+
+
+class MLSTMScan(torch.autograd.Function):
+    """The chunkwise mLSTM with its backward written by hand (the
+    reference takes ``jax.grad`` of its jnp chunk scan).  Saves the
+    inputs, y, the signed denominators and the carries entering chunks
+    1..nc-1; the final carry (C, n, m) is differentiable too.  The state
+    arguments are None for a scan from zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_gate, f_log, C0, n0, m0, chunk: int):
+        state = None if C0 is None else (C0, n0, m0)
+        y, (C, n, m), kept = _mlstm_fwd(q, k, v, i_gate, f_log, chunk,
+                                        state, keep=True)
+        ctx.save_for_backward(q, k, v, i_gate, f_log, y, *kept,
+                              *(state or ()))
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, C, n, m
+
+    @staticmethod
+    def backward(ctx, dy, dC, dn, dm):
+        q, k, v, i_gate, f_log, y, *rest = ctx.saved_tensors
+        kept, state = tuple(rest[:4]), (tuple(rest[4:]) or None)
+        dy = torch.zeros_like(y) if dy is None else dy.contiguous()
+        dC, dn, dm = (None if t is None else t.contiguous()
+                      for t in (dC, dn, dm))
+        bwd = (ref.ref_mlstm_scan_bwd if q.device.type == "cpu"
+               else _ml.mlstm_scan_bwd)
+        grads = bwd(q, k, v, i_gate, f_log, y, kept, dy, chunk=ctx.chunk,
+                    state=state, dC=dC, dn=dn, dm=dm)
+        return (*grads, None)
+
+
 def mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256, state=None):
     """q/k/v [B,H,S,dh] (k pre-scaled); i_gate/f_log [B,H,S], f32 ->
     (y [B,H,S,dh], (C, n, m)) with the final carry; ``state`` starts the
-    carry (default zero).  On the card an input that needs a gradient
-    raises: xLSTM training is not ported."""
-    if q.device.type == "cpu":
-        return ref.ref_mlstm_scan(q, k, v, i_gate, f_log, chunk=chunk,
-                                  state=state)
+    carry (default zero).  Differentiable in every input and the state
+    (``MLSTMScan``)."""
+    state = None if state is None else tuple(state[:3])
     if _needs_grad(q, k, v, i_gate, f_log, *(state or ())):
-        raise NotImplementedError(
-            "mlstm_scan has no backward kernel: training an xLSTM on the "
-            "card is not ported yet (ROADMAP queue 1, item 11)")
-    return _ml.mlstm_scan(q, k, v, i_gate, f_log, chunk=chunk, state=state)
+        y, C, n, m = MLSTMScan.apply(q, k, v, i_gate, f_log,
+                                     *(state or (None,) * 3), chunk)
+        return y, (C, n, m)
+    return _mlstm_fwd(q, k, v, i_gate, f_log, chunk, state, keep=False)
 
 
 def ssm_chunk_scan(dt, B_ssm, C_ssm, x, A, *, h0=None):

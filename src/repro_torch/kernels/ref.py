@@ -318,13 +318,43 @@ def ref_mlstm_chunk(q, k, v, i_gate, f_log, C0, n0, m0):
     return torch.stack(ys, dim=1), (C, n, m)
 
 
+def _at_least_f32(t):
+    """f32 for f32 and narrower floats; f64 stays f64 (the f64 checks)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _mlstm_entry(state, c: int, carries, like):
+    """The carry (C, n, m) entering chunk ``c``: the given ``state`` (or
+    zero, m = -inf) for chunk 0, else the forward's kept carry after chunk
+    c - 1 (``carries`` = (Cs, ns, ms) [B,H,nc-1,...])."""
+    if c > 0:
+        return tuple(t[:, :, c - 1] for t in carries)
+    if state is not None:
+        return tuple(_at_least_f32(t) for t in state[:3])
+    B, H, _, dh = like.shape
+    return (like.new_zeros(B, H, dh, dh), like.new_zeros(B, H, dh),
+            like.new_full((B, H), float("-inf")))
+
+
+def _mlstm_gates(ic, fc, m0):
+    """A chunk's gate statistics from its gates [B,H,L] and entering m
+    [B,H]: g = cumsum(f_log), a = i - g, the running max cm of a and its
+    arg (the last index on a tie, as ``torch.cummax``), and the row
+    stabilizer M = max(cm, m)."""
+    g = torch.cumsum(fc, dim=-1)
+    a = ic - g
+    cm, arg = torch.cummax(a, dim=-1)
+    return g, a, cm, arg, torch.maximum(cm, m0[..., None])
+
+
 def ref_mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256,
-                   state=None):
+                   state=None, keep: bool = False):
     """The chunkwise-parallel mLSTM (``models/ssm.py::_mlstm_chunk``
     scanned over chunks; the function of the Pallas ``_mlstm_kernel``),
-    in f32: q/k/v [B,H,S,dh] (k pre-scaled by dh^-0.5), i_gate/f_log
-    [B,H,S] (f already log-sigmoid), S a multiple of L = min(chunk, S) ->
-    (y [B,H,S,dh], (C [B,H,dh,dh], n [B,H,dh], m [B,H])).
+    in f32 (f64 inputs stay f64): q/k/v [B,H,S,dh] (k pre-scaled by
+    dh^-0.5), i_gate/f_log [B,H,S] (f already log-sigmoid), S a multiple
+    of L = min(chunk, S) -> (y [B,H,S,dh], (C [B,H,dh,dh], n [B,H,dh],
+    m [B,H])).
 
     The carry starts at ``state`` = (C, n, m) or at zero (C = 0, n = 0,
     m = -inf).  Per chunk, g = cumsum(f_log), a = i - g and
@@ -332,31 +362,34 @@ def ref_mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256,
     weighted by e^{a_s - M_t}, the carry enters as e^{m_prev - M_t}·q·Cᵀ,
     y = num / max(|den|, 1), and the carry becomes
     C' = Σ_s e^{a_s - M_L} v_s k_sᵀ + e^{m_prev - M_L} C, n' likewise,
-    m' = g_L + M_L."""
+    m' = g_L + M_L.
+
+    ``keep`` also returns what the backward reads, (d [B,H,S], Cs
+    [B,H,nc-1,dh,dh], ns [B,H,nc-1,dh], ms [B,H,nc-1]): the signed
+    denominators before the clamp and the carries entering chunks 1..nc-1
+    (nc = S / L)."""
     B, H, S, dh = q.shape
     L = min(chunk, S)
     if S % L:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {L}")
-    q, k, v, i_gate, f_log = (t.float() for t in (q, k, v, i_gate, f_log))
-    if state is None:
-        C = q.new_zeros(B, H, dh, dh)
-        n = q.new_zeros(B, H, dh)
-        m = q.new_full((B, H), float("-inf"))
-    else:
-        C, n, m = (t.float() for t in state[:3])
+    q, k, v, i_gate, f_log = (_at_least_f32(t)
+                              for t in (q, k, v, i_gate, f_log))
+    C, n, m = _mlstm_entry(state, 0, None, q)
     causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
-    ys = []
+    ys, ds, kept = [], [], []
     for c0 in range(0, S, L):
+        if c0:
+            kept.append((C, n, m))
         qc, kc, vc = (t[:, :, c0:c0 + L] for t in (q, k, v))
-        g = torch.cumsum(f_log[:, :, c0:c0 + L], dim=-1)          # [B,H,L]
-        a = i_gate[:, :, c0:c0 + L] - g
-        M = torch.maximum(torch.cummax(a, dim=-1).values, m[..., None])
+        g, a, _, _, M = _mlstm_gates(i_gate[:, :, c0:c0 + L],
+                                     f_log[:, :, c0:c0 + L], m)
         w = torch.exp(a[..., None, :] - M[..., :, None])          # [B,H,L,L]
         scores = torch.where(causal, (qc @ kc.transpose(-1, -2)) * w, 0.0)
         inter = torch.exp(m[..., None] - M)                       # [B,H,L]
         num = scores @ vc + inter[..., None] * (qc @ C.transpose(-1, -2))
         den = scores.sum(-1) + inter * (qc @ n[..., None])[..., 0]
         ys.append(num / den.abs().clamp(min=1.0)[..., None])
+        ds.append(den)
         M_L, g_L = M[..., -1], g[..., -1]
         wc = torch.exp(a - M_L[..., None])                        # [B,H,L]
         decay = torch.exp(m - M_L)
@@ -364,7 +397,207 @@ def ref_mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256,
             + decay[..., None, None] * C
         n = (wc[..., None] * kc).sum(-2) + decay[..., None] * n
         m = g_L + M_L
-    return torch.cat(ys, dim=2), (C, n, m)
+    y = torch.cat(ys, dim=2)
+    if not keep:
+        return y, (C, n, m)
+    if kept:
+        Cs, ns, ms = (torch.stack(t, dim=2) for t in zip(*kept))
+    else:
+        Cs, ns, ms = (q.new_zeros(B, H, 0, dh, dh), q.new_zeros(B, H, 0, dh),
+                      q.new_zeros(B, H, 0))
+    return y, (C, n, m), (torch.cat(ds, dim=2), Cs, ns, ms)
+
+
+# The mLSTM scan's backward, written out as the passes its kernels take
+# (csrc/mlstm_scan_bwd.cu).  Per chunk, with dnum_t = dy_t / den_t and
+# dd_t = -(dy_t·y_t) / den_t · sign(d_t) where |d_t| > 1 (else 0, as
+# jnp.maximum's and abs's slopes give), dP_ts = dnum_t·v_s + dd_t on
+# s <= t, P = W ⊙ S, W_ts = e^{a_s - M_t}, S = q·kᵀ:
+#
+#   dv = Pᵀ·dnum, dq = (dP ⊙ W)·k, dk = (dP ⊙ W)ᵀ·q, da_s += Σ_t dP_ts P_ts;
+#   the carry in: dq += ι_t (C₀ᵀ dnum_t + dd_t n₀), ι_t = e^{m₀ - M_t},
+#   dC₀ += Σ_t ι_t dnum_t q_tᵀ, dn₀ += Σ_t ι_t dd_t q_t, dm₀ += Σ_t
+#   q_t·(that dq term);
+#   the carry out, wc_s = e^{a_s - M_L}, decay = e^{m₀ - M_L}: dk_s +=
+#   wc_s (dC₁ᵀ v_s + dn₁), dv_s += wc_s dC₁ k_s, da_s += wc_s k_s·(dC₁ᵀ v_s
+#   + dn₁), dC₀ += decay dC₁, dn₀ += decay dn₁, dm₀ += decay (<dC₁, C₀> +
+#   dn₁·n₀), dM_L -= that and Σ_s wc_s (…), m₁ = g_L + M_L: dg_L += dm₁,
+#   dM_L += dm₁.
+#
+# The stabilizer's own gradient: W and ι send dM_t = -(dnum_t·num_t +
+# dd_t d_t), which is 0 where |d_t| > 1 (num and d both scale by e^{-M_t}
+# and y = num / |d| does not) and -(dy_t·y_t) where the clamp makes y =
+# num.  It is taken in that closed form (``ref_mlstm_bwd_rows``): where
+# |d_t| > 1 the reference's dM is rounding noise around 0, here exactly 0.
+# dM_t then goes to the argmax of max(m₀, cummax a), the chunk's da to
+# di = da, dg = -da, and df_log is the reverse cumsum of dg in the chunk.
+
+
+def ref_mlstm_bwd_rows(y, d, dy):
+    """Per row, from y [B,H,S,dh], the signed denominators d [B,H,S] and
+    dy: (rden = 1 / max(|d|, 1), dd = -(dy·y)·rden·sign(d) where |d| > 1
+    else 0, dM = -(dy·y) where |d| <= 1 else 0: the row's own stabilizer
+    gradient)."""
+    dyy = (dy * y).sum(-1)
+    big = d.abs() > 1.0
+    rden = 1.0 / d.abs().clamp(min=1.0)
+    zero = torch.zeros_like(dyy)
+    return (rden, torch.where(big, -dyy * rden * torch.sign(d), zero),
+            torch.where(big, zero, -dyy))
+
+
+def ref_mlstm_bwd_carry(q, i_gate, f_log, dy, rden, dd, *, chunk: int,
+                        state, carries, dC=None, dn=None):
+    """The reverse walk of the carry's grads: from (dC, dn) of the final
+    carry (None: zero), dC₀ = decay·dC₁ + Σ_t ι_t rden_t dy_t q_tᵀ and
+    dn₀ = decay·dn₁ + Σ_t ι_t dd_t q_t chunk by chunk.  Returns (dCs
+    [B,H,nc-1,dh,dh], dns [B,H,nc-1,dh]: the grads of the carries leaving
+    chunks 0..nc-2; dC_state, dn_state: those entering chunk 0; ddec
+    [B,H,nc]: <dC₁, C₀> + dn₁·n₀ of each chunk, the decay's grad over
+    decay)."""
+    B, H, S, dh = q.shape
+    L = min(chunk, S)
+    nc = S // L
+    G = q.new_zeros(B, H, dh, dh) if dC is None else dC
+    gn = q.new_zeros(B, H, dh) if dn is None else dn
+    dCs, dns, ddec = [None] * (nc - 1), [None] * (nc - 1), [None] * nc
+    for c in reversed(range(nc)):
+        sl = slice(c * L, (c + 1) * L)
+        C0, n0, m0 = _mlstm_entry(state, c, carries, q)
+        _, _, _, _, M = _mlstm_gates(i_gate[:, :, sl], f_log[:, :, sl], m0)
+        ddec[c] = (G * C0).sum((-2, -1)) + (gn * n0).sum(-1)
+        iota = torch.exp(m0[..., None] - M)                      # [B,H,L]
+        decay = torch.exp(m0 - M[..., -1])
+        qc = q[:, :, sl]
+        G = decay[..., None, None] * G + (
+            dy[:, :, sl] * (iota * rden[:, :, sl])[..., None]
+        ).transpose(-1, -2) @ qc
+        gn = decay[..., None] * gn + (
+            (iota * dd[:, :, sl])[..., None] * qc).sum(-2)
+        if c:
+            dCs[c - 1], dns[c - 1] = G, gn
+    if nc > 1:
+        dCs, dns = torch.stack(dCs, dim=2), torch.stack(dns, dim=2)
+    else:
+        dCs, dns = q.new_zeros(B, H, 0, dh, dh), q.new_zeros(B, H, 0, dh)
+    return dCs, dns, G, gn, torch.stack(ddec, dim=-1)
+
+
+def ref_mlstm_bwd_chunk(q, k, v, i_gate, f_log, dy, rden, dd, dCs, dns, *,
+                        chunk: int, state, carries, dC=None, dn=None):
+    """Every chunk at once, from its entering carry (the forward's) and
+    the grads of the carry leaving it (``ref_mlstm_bwd_carry``'s; the
+    last chunk's are dC, dn, None: zero).  Returns (dq, dk, dv [B,H,S,dh];
+    dA [B,H,S]: Σ_t dP_ts P_ts, the a_s grad through the scores; dwc
+    [B,H,S]: k_s·(dC₁ᵀ v_s + dn₁), the grad of wc_s; inter [B,H,S]: q_t·
+    ι_t(C₀ᵀ dnum_t + dd_t n₀), row t's share of dm₀ through ι_t)."""
+    B, H, S, dh = q.shape
+    L = min(chunk, S)
+    nc = S // L
+    causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    outs = []
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L)
+        qc, kc, vc, dyc = (t[:, :, sl] for t in (q, k, v, dy))
+        C0, n0, m0 = _mlstm_entry(state, c, carries, q)
+        _, a, _, _, M = _mlstm_gates(i_gate[:, :, sl], f_log[:, :, sl], m0)
+        W = torch.where(causal, torch.exp(a[..., None, :] - M[..., :, None]),
+                        0.0)
+        P = W * (qc @ kc.transpose(-1, -2))
+        dnum = dyc * rden[:, :, sl, None]
+        dP = torch.where(causal, dnum @ vc.transpose(-1, -2)
+                         + dd[:, :, sl, None], 0.0)
+        dS = dP * W
+        dq = dS @ kc
+        dk = dS.transpose(-1, -2) @ qc
+        dv = P.transpose(-1, -2) @ dnum
+        dA = (dP * P).sum(-2)
+        iota = torch.exp(m0[..., None] - M)
+        dqi = iota[..., None] * (dnum @ C0) \
+            + (iota * dd[:, :, sl])[..., None] * n0[:, :, None]
+        dq = dq + dqi
+        inter = (qc * dqi).sum(-1)
+        if c + 1 < nc or dC is not None or dn is not None:
+            G = dCs[:, :, c] if c + 1 < nc else (
+                q.new_zeros(B, H, dh, dh) if dC is None else dC)
+            gn = dns[:, :, c] if c + 1 < nc else (
+                q.new_zeros(B, H, dh) if dn is None else dn)
+            wc = torch.exp(a - M[..., -1:])[..., None]             # [B,H,L,1]
+            X = vc @ G + gn[:, :, None]
+            dk = dk + wc * X
+            dv = dv + wc * (kc @ G.transpose(-1, -2))
+            dwc = (kc * X).sum(-1)
+        else:
+            dwc = torch.zeros_like(dA)
+        outs.append((dq, dk, dv, dA, dwc, inter))
+    return tuple(torch.cat(t, dim=2) for t in zip(*outs))
+
+
+def ref_mlstm_bwd_gates(i_gate, f_log, dA, dwc, inter, dM, ddec, *,
+                        chunk: int, state, carries, dm=None):
+    """The sequential pass over the gates, chunks in reverse: per chunk
+    da_s = dA_s + wc_s dwc_s; dM_t = the row's own (``ref_mlstm_bwd_rows``)
+    and, at t = L-1, dm₁ - Σ_s wc_s dwc_s - decay·ddec; dm₀ = Σ_t inter_t +
+    decay·ddec (0 where m₀ = -inf) and each dM_t goes to m₀ or to the
+    argmax a_s of max(m₀, cummax a) (half each on a tie, as jnp.maximum
+    splits it); di = da, dg = -da (+ dm₁ at L-1), df_log = reverse
+    cumsum of dg.  The chunk's dm₀ is the previous chunk's dm₁.  Returns
+    (di, df [B,H,S], dm_state [B,H])."""
+    B, H, S = i_gate.shape
+    L = min(chunk, S)
+    nc = S // L
+    dm1 = i_gate.new_zeros(B, H) if dm is None else dm
+    dis, dfs = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        sl = slice(c * L, (c + 1) * L)
+        m0 = carries[2][:, :, c - 1] if c else (
+            i_gate.new_full((B, H), float("-inf")) if state is None
+            else _at_least_f32(state[2]))
+        _, a, cm, arg, M = _mlstm_gates(i_gate[:, :, sl], f_log[:, :, sl], m0)
+        wc = torch.exp(a - M[..., -1:])
+        decay = torch.exp(m0 - M[..., -1])
+        wdw = wc * dwc[:, :, sl]
+        da = dA[:, :, sl] + wdw
+        dMc = dM[:, :, sl].clone()
+        dMc[..., -1] += dm1 - wdw.sum(-1) - decay * ddec[..., c]
+        finite = m0 > float("-inf")
+        dm0 = torch.where(finite,
+                          inter[:, :, sl].sum(-1) + decay * ddec[..., c],
+                          torch.zeros_like(m0))
+        to_m = (m0[..., None] > cm).to(dMc.dtype) \
+            + 0.5 * (m0[..., None] == cm).to(dMc.dtype)
+        dm0 = dm0 + (dMc * to_m).sum(-1)
+        da = da.scatter_add(-1, arg, dMc * (1.0 - to_m))
+        dg = -da
+        dg[..., -1] += dm1
+        dis[c] = da
+        dfs[c] = torch.flip(torch.cumsum(torch.flip(dg, [-1]), -1), [-1])
+        dm1 = dm0
+    return torch.cat(dis, dim=-1), torch.cat(dfs, dim=-1), dm1
+
+
+def ref_mlstm_scan_bwd(q, k, v, i_gate, f_log, y, kept, dy, *,
+                       chunk: int = 256, state=None, dC=None, dn=None,
+                       dm=None):
+    """The backward of ``ref_mlstm_scan`` from its inputs, its y and what
+    ``keep=True`` returned (``kept`` = (d, Cs, ns, ms)), given dy and the
+    final carry's grads (dC, dn, dm; None: zero): (dq, dk, dv, di, df,
+    dC_state, dn_state, dm_state), the last three None without a
+    ``state``.  The passes of the kernels: the row scalars, the carry's
+    reverse walk, every chunk at once, the gates' sequential pass."""
+    d, Cs, ns, ms = kept
+    carries = (Cs, ns, ms)
+    rden, dd, dM = ref_mlstm_bwd_rows(y, d, dy)
+    kw = dict(chunk=chunk, state=state, carries=carries)
+    dCs, dns, dC0, dn0, ddec = ref_mlstm_bwd_carry(
+        q, i_gate, f_log, dy, rden, dd, dC=dC, dn=dn, **kw)
+    dq, dk, dv, dA, dwc, inter = ref_mlstm_bwd_chunk(
+        q, k, v, i_gate, f_log, dy, rden, dd, dCs, dns, dC=dC, dn=dn, **kw)
+    di, df, dm0 = ref_mlstm_bwd_gates(i_gate, f_log, dA, dwc, inter, dM,
+                                      ddec, dm=dm, **kw)
+    if state is None:
+        dC0 = dn0 = dm0 = None
+    return dq, dk, dv, di, df, dC0, dn0, dm0
 
 
 def ref_ssm_scan(dt, B_ssm, C_ssm, x, A, h0=None):

@@ -62,24 +62,31 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port serves but does
-    not train: recurrent blocks, whose scan kernels have no backward
-    kernel yet, and MoE, whose training is not ported.  (The
-    reference differentiates its jnp math; the port adds no silent
-    autograd through the plain versions.)"""
+    not train: Mamba blocks, whose scan kernel has no backward kernel yet,
+    and MoE, whose training is not ported.  (The reference differentiates
+    its jnp math; the port adds no silent autograd through the plain
+    versions.)  Attention stacks train through the flash and FFN backward
+    kernels, xLSTM stacks through the mLSTM backward kernel and autograd
+    over the sLSTM's plain cell, as the reference's is jnp."""
     kinds = {k for g in cfg.groups for k in g.pattern}
     missing = {
-        "Mamba blocks (a backward for the selective-scan kernel #12)":
-            bool(kinds & set(MAMBA_KINDS)),
-        "mixture of experts (the router and expert backward)":
-            cfg.moe is not None,
-        "xLSTM blocks (a backward for the mLSTM kernel #13)":
-            bool(kinds & {"mlstm", "slstm"}),
+        "Mamba blocks (a backward for the selective-scan kernel #12; "
+        "ROADMAP queue 1, entry 5)": bool(kinds & set(MAMBA_KINDS)),
+        "mixture of experts (the router and expert backward; ROADMAP "
+        "queue 1, entries 4 and 5)": cfg.moe is not None,
     }
     missing = [what for what, hit in missing.items() if hit]
     if missing:
         raise NotImplementedError(
             f"training {cfg.name!r} needs {', '.join(missing)}, which the "
             f"port does not have yet (ROADMAP queue 1, item 11)")
+
+
+def needs_flash_train(cfg: ModelConfig) -> bool:
+    """Whether training ``cfg`` runs the flash backward kernels: stacks
+    with an attention block kind (an xLSTM stack has none, whatever its
+    ``head_dim``)."""
+    return any(k.startswith("attn") for g in cfg.groups for k in g.pattern)
 
 
 @dataclass(frozen=True)

@@ -13,15 +13,18 @@ stabilizer m.  Its prefill runs the chunkwise-parallel form through
 ``kernels.ops.mlstm_scan`` (the Hopper kernel on the card, the plain
 ``ref_mlstm_scan`` on the CPU), which also returns the final state; its
 decode step is the sequential cell in plain PyTorch, as the reference's
-is jnp.  The sLSTM is a sequential recurrence (R·h_{t-1} has no parallel
-form) in plain PyTorch, one step per token.  Matrix products of the
-projections are ``torch.matmul``; layouts and the order of operations
-follow the reference.
+is jnp; its backward is ``MLSTMScan``'s, written by hand.  The sLSTM is
+a sequential recurrence (R·h_{t-1} has no parallel form) in plain
+PyTorch, one step per token, differentiated by autograd under chunked
+remat, as the reference's jnp cell is under ``jax.checkpoint``.  Matrix
+products of the projections are ``torch.matmul``; layouts and the order
+of operations follow the reference.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ref_mlstm_chunk
@@ -29,6 +32,7 @@ from repro_torch.models.common import (ModelConfig, PSpec, SSMConfig,
                                        XLSTMConfig)
 
 PAD_GATE = -1e30      # i-gate of a pad step: it weighs e^-1e30 = 0
+SLSTM_REMAT_CHUNK = 256   # the reference's _slstm_cell chunk
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -308,17 +312,11 @@ def slstm_specs(cfg: ModelConfig, xl: XLSTMConfig) -> dict:
     }
 
 
-def _slstm_cell(zx, ix, fx, ox, r_rec, bias, state):
-    """The sequential sLSTM (the reference's ``_slstm_cell``; its chunked
-    remat changes memory, not numbers): zx..ox [B,S,H,dh] input
-    pre-activations, r_rec [4,H,dh,dh] per-head recurrent weights, bias
-    [4,H,dh], state (c, n, m, h) [B,H,dh] -> (h_t stacked [B,S,H,dh],
-    final state).  One host step per token."""
+def _slstm_steps(zx, ix, fx, ox, r, bias, state):
+    """The sLSTM steps over zx..ox [B,S,H,dh] from ``state``; ``r`` is
+    r_rec as one [H] batch of [dh, 4·dh] blocks."""
     c, n, m, h = state
     B, S, H, dh = zx.shape
-    # rec[g,b,h,i] = Σ_j r[g,h,i,j] h[b,h,j] as one [H] batch of
-    # [B,dh] x [dh,4·dh] products
-    r = r_rec.permute(1, 3, 0, 2).reshape(H, dh, 4 * dh)
     ys = []
     for t in range(S):
         rec = torch.bmm(h.transpose(0, 1), r).view(H, B, 4, dh) \
@@ -337,6 +335,36 @@ def _slstm_cell(zx, ix, fx, ox, r_rec, bias, state):
         m = m_new
         ys.append(h)
     return torch.stack(ys, dim=1), (c, n, m, h)
+
+
+def _slstm_cell(zx, ix, fx, ox, r_rec, bias, state):
+    """The sequential sLSTM (the reference's ``_slstm_cell``): zx..ox
+    [B,S,H,dh] input pre-activations, r_rec [4,H,dh,dh] per-head
+    recurrent weights, bias [4,H,dh], state (c, n, m, h) [B,H,dh] -> (h_t
+    stacked [B,S,H,dh], final state).  One host step per token.
+
+    While a gradient is taken, each ``SLSTM_REMAT_CHUNK``-step chunk runs
+    under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    chunk body: the backward keeps only the carry at chunk boundaries and
+    recomputes the steps inside a chunk.  A sequence that is not a
+    multiple of min(chunk, S) runs as one plain loop, as there.  This
+    changes memory, not numbers."""
+    B, S, H, dh = zx.shape
+    # rec[g,b,h,i] = Σ_j r[g,h,i,j] h[b,h,j] as one [H] batch of
+    # [B,dh] x [dh,4·dh] products
+    r = r_rec.permute(1, 3, 0, 2).reshape(H, dh, 4 * dh)
+    L = min(SLSTM_REMAT_CHUNK, S)
+    trained = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (zx, ix, fx, ox, r_rec, bias, *state))
+    if not trained or S % L:
+        return _slstm_steps(zx, ix, fx, ox, r, bias, state)
+    ys = []
+    for c0 in range(0, S, L):
+        y, state = checkpoint(
+            _slstm_steps, *(t[:, c0:c0 + L] for t in (zx, ix, fx, ox)), r,
+            bias, state, use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
 
 
 def slstm_init_state(cfg: ModelConfig, batch: int, device="cpu") -> tuple:

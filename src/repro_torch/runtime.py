@@ -159,8 +159,9 @@ class Runtime:
         steps and the engine; the two default to each other, else 128.
         ``param_dtype`` is the params' storage type (bf16 selects mixed
         precision in training: an f32 master copy in the optimizer state).
-        A train shape needs ``caps.supports_flash_train`` (the flash
-        backward kernel's head dims).  ``grad_sync`` takes the
+        A train shape of a stack with attention needs
+        ``caps.supports_flash_train`` (the flash backward kernel's head
+        dims).  ``grad_sync`` takes the
         reference's strategies: on one device ``flat`` and ``hierarchical``
         are the same step (the reference degrades to ``flat`` without a
         mesh), and ``hierarchical_int8``, which needs a pod axis and its
@@ -176,10 +177,11 @@ class Runtime:
         recurrent blocks (xlstm-125m; jamba-v0.1-52b, whose Mamba states
         sit beside one attention layer's K/V) serves over the dense
         layout only (its states are O(1) per stream: the paged layout and
-        the int8 pool raise the reference's ``ValueError``), and a train
-        shape for it, or for any MoE config, raises
-        ``NotImplementedError`` (``registry.check_trainable``): their
-        training is not ported.  ``scheduler`` turns
+        the int8 pool raise the reference's ``ValueError``).  xlstm-125m
+        trains (the mLSTM backward kernel, autograd over the sLSTM cell
+        under chunked remat); a train shape for a Mamba or MoE config
+        raises ``NotImplementedError`` (``registry.check_trainable``):
+        their training is not ported.  ``scheduler`` turns
         on the engine's token-budget chunked-prefill scheduler
         (``serve.scheduler``; it needs ``caps.supports_chunked_prefill``,
         a pure self-attention stack without a sliding window, and raises
@@ -214,7 +216,8 @@ class Runtime:
                              "on one device (ROADMAP queue 1, item 9)")
         if shape_kind == "train":
             registry.check_trainable(cfg)
-        if shape_kind == "train" and not caps.supports_flash_train:
+        if shape_kind == "train" and registry.needs_flash_train(cfg) \
+                and not caps.supports_flash_train:
             raise ValueError(f"arch {cfg.name!r} cannot train through the "
                              f"flash kernels (caps: {caps.summary})")
         capacity = capacity if capacity is not None else (seq_len or 128)
@@ -447,14 +450,17 @@ class Runtime:
             lines.append(f"  routes    : {self.routes()}")
         try:
             registry.check_trainable(self.cfg)
+            kernels = ("mlstm_scan + mlstm_scan_bwd (torch.autograd."
+                       f"Function; {impl}), the sLSTM cell by autograd "
+                       "under chunked remat" if "mlstm" in rec else
+                       "flash_attention + flash_attention_bwd_dq/_dkv"
+                       + (", fused_ffn + fused_ffn_bwd_dx/_dw"
+                          if self.caps.supports_fused_ffn else "")
+                       + f" (torch.autograd.Function; {impl})")
             lines.append(
                 f"  train     : seq_len={self.seq_len} "
                 f"ce_chunk={self.ce_chunk} remat={self.cfg.remat_policy} "
-                f"param_dtype={self.param_dtype} kernels: flash_attention + "
-                f"flash_attention_bwd_dq/_dkv"
-                + (", fused_ffn + fused_ffn_bwd_dx/_dw"
-                   if self.caps.supports_fused_ffn else "")
-                + f" (torch.autograd.Function; {impl})")
+                f"param_dtype={self.param_dtype} kernels: {kernels}")
         except NotImplementedError as e:
             lines.append(f"  train     : not ported: {e}")
         sched = ("scheduler[" + ", ".join(

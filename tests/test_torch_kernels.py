@@ -768,6 +768,7 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
                                    "fused_ffn_bwd_dx": 0,
                                    "fused_ffn_bwd_dw": 0,
                                    "mlstm_scan": 0,
+                                   "mlstm_scan_bwd": 0,
                                    "quantize_int8": 0,
                                    "dequantize_int8": 0,
                                    "quantized_block_write": 0,
@@ -1661,15 +1662,186 @@ def test_mlstm_kernel_names_its_limits(cuda):
 
 
 @pytest.mark.cuda
-def test_mlstm_kernel_refuses_grads_and_other_dtypes(cuda):
+def test_mlstm_kernel_refuses_other_dtypes(cuda):
     ins = [torch.from_numpy(a).to(cuda) for a in _mlstm_inputs(1, 1, 8, 8)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.mlstm_scan(ins[0].requires_grad_(), *ins[1:], chunk=8)
     with pytest.raises(ValueError, match="f32"):
         ops.mlstm_scan(*(t.detach().to(torch.bfloat16) for t in ins),
                        chunk=8)
     with pytest.raises(ValueError, match="multiple"):
         ops.mlstm_scan(*(t.detach() for t in ins), chunk=3)
+
+
+# -- the mLSTM scan's backward (#13b) -----------------------------------------
+
+# the train shape (xlstm-125m, batch 8 x 512), four chunks, one chunk, and
+# the tiles' edges: dh 96 (a 64-row tile and a half, one 128-column tile
+# cut), L 80 (not a 32-piece), dh 36 and L 20 (five chunks), three tokens,
+# dh 512 (four 128-column tiles)
+MLSTM_BWD_SHAPES = [(8, 4, 512, 384, 256), (4, 4, 1024, 384, 256),
+                    (2, 4, 256, 384, 256), (2, 3, 240, 96, 80),
+                    (1, 2, 100, 36, 20), (2, 2, 3, 32, 256),
+                    (1, 2, 256, 512, 128)]
+# Each output of the backward kernels against its plain version in f32:
+# every element within MLSTM_BWD_TOL of the output's largest value, and
+# ||err|| / ||want|| <= MLSTM_BWD_REL_TOL.  Not atol + rtol per element:
+# dk and df_log are sums of large terms that cancel (at dh 384 the plain
+# version's own f32 rounding against f64 reaches 0.46x a 1e-3 atol + rtol
+# on dk, 0.32x on df_log), while the norms agree to ~3e-6.
+MLSTM_BWD_TOL, MLSTM_BWD_REL_TOL = 1e-4, 1e-4
+
+
+def _mlstm_bwd_close(got, want, what):
+    got, want = got.double().cpu(), want.double().cpu()
+    assert got.shape == want.shape, what
+    assert bool(torch.isfinite(got).all()), what
+    if not want.numel():
+        return
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= MLSTM_BWD_TOL * scale, what
+    if scale:
+        assert _rel(got, want) <= MLSTM_BWD_REL_TOL, what
+
+
+def _mlstm_bwd_case(cuda, B, H, S, dh, chunk, from_state, seed=80):
+    """Inputs on the card, the kernel forward's y and kept tensors, and
+    the cotangents (dy and the final carry's dC, dn, dm)."""
+    ins = [torch.from_numpy(a).to(cuda)
+           for a in _mlstm_inputs(B, H, S, dh, seed=seed)]
+    state = None
+    if from_state:
+        _, state = ml_kernel.mlstm_scan(
+            *(torch.from_numpy(a).to(cuda)
+              for a in _mlstm_inputs(B, H, S, dh, seed=seed + 10)),
+            chunk=chunk)
+    y, _, kept = ml_kernel.mlstm_scan(*ins, chunk=chunk, state=state,
+                                      keep=True)
+    cot = [torch.from_numpy(_rand(shape, seed + 20 + j)).to(cuda)
+           for j, shape in enumerate(((B, H, S, dh), (B, H, dh, dh),
+                                      (B, H, dh), (B, H)))]
+    return ins, state, y, kept, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("from_state", [False, True])
+@pytest.mark.parametrize("B,H,S,dh,chunk", MLSTM_BWD_SHAPES)
+def test_mlstm_bwd_kernels_match_plain(cuda, B, H, S, dh, chunk, from_state):
+    """Each pass of the backward (the row scalars, the carry walk, the
+    keys' and queries' kernels, the gates' pass) and the grads against
+    the plain passes fed the same forward tensors."""
+    ins, state, y, kept, (dy, dC, dn, dm) = _mlstm_bwd_case(
+        cuda, B, H, S, dh, chunk, from_state)
+    ops.reset_launch_counts()
+    grads, got = ml_kernel.mlstm_scan_bwd(
+        *ins, y, kept, dy, chunk=chunk, state=state, dC=dC, dn=dn, dm=dm,
+        return_passes=True)
+    assert ops.launch_counts()["mlstm_scan_bwd"] == 1
+    kw = dict(chunk=chunk, state=state, carries=kept[1:])
+    rows = ref.ref_mlstm_bwd_rows(y, kept[0], dy)
+    carry = ref.ref_mlstm_bwd_carry(ins[0], *ins[3:], dy, *rows[:2], dC=dC,
+                                    dn=dn, **kw)
+    chunk_ = ref.ref_mlstm_bwd_chunk(*ins, dy, *rows[:2], *carry[:2], dC=dC,
+                                     dn=dn, **kw)
+    gates = ref.ref_mlstm_bwd_gates(*ins[3:], *chunk_[3:], rows[2],
+                                    carry[4], dm=dm, **kw)
+    torch.cuda.synchronize()
+    for name, want in (("rows", rows), ("carry", carry), ("chunk", chunk_),
+                       ("gates", gates)):
+        for j, (g, w) in enumerate(zip(got[name], want)):
+            if w is None or (g is None and not from_state):
+                continue
+            _mlstm_bwd_close(g, w, f"{name}[{j}]")
+    want = ref.ref_mlstm_scan_bwd(*ins, y, kept, dy, chunk=chunk,
+                                  state=state, dC=dC, dn=dn, dm=dm)
+    for j, (g, w) in enumerate(zip(grads, want)):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _mlstm_bwd_close(g, w, f"grad {j}")
+
+
+@pytest.mark.cuda
+def test_mlstm_bwd_kernels_are_deterministic_and_keep_the_forward(cuda):
+    """Two backward launches give the same bits (fixed sums, no atomics);
+    the forward's keep mode gives y and the final carry bit for bit as
+    without it; dy alone (no carry grads) matches the plain version."""
+    ins, _, y, kept, (dy, *_) = _mlstm_bwd_case(cuda, 8, 4, 512, 384, 256,
+                                                False)
+    plain_y, plain_carry = ml_kernel.mlstm_scan(*ins, chunk=256)
+    _, carry, _ = ml_kernel.mlstm_scan(*ins, chunk=256, keep=True)
+    first = ml_kernel.mlstm_scan_bwd(*ins, y, kept, dy, chunk=256)
+    second = ml_kernel.mlstm_scan_bwd(*ins, y, kept, dy, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(plain_y, y)
+    for a, b in zip(plain_carry, carry):
+        assert torch.equal(a, b)
+    for a, b in zip(first[:5], second[:5]):
+        assert torch.equal(a, b)
+    want = ref.ref_mlstm_scan_bwd(*ins, y, kept, dy, chunk=256)
+    for g, w in zip(first[:5], want[:5]):
+        _mlstm_bwd_close(g, w, "dy only")
+
+
+@pytest.mark.cuda
+def test_mlstm_bwd_kernels_give_pad_steps_zero_grads(cuda):
+    """Pad steps as ``models.ssm.mlstm`` appends them, with zero dy there:
+    exactly zero q, k, v and i grads on those steps."""
+    ins, _, _, _, (dy, *_) = _mlstm_bwd_case(cuda, 2, 4, 512, 96, 256,
+                                             False, seed=90)
+    for t in ins[:3]:
+        t[:, :, 450:] = 0.0
+    ins[3][:, :, 450:] = -1e30
+    ins[4][:, :, 450:] = 0.0
+    dy[:, :, 450:] = 0.0
+    y, _, kept = ml_kernel.mlstm_scan(*ins, chunk=256, keep=True)
+    grads = ml_kernel.mlstm_scan_bwd(*ins, y, kept, dy, chunk=256)
+    torch.cuda.synchronize()
+    for g in grads[:4]:
+        assert bool(torch.isfinite(g).all())
+        assert not bool(g[:, :, 450:].any())
+    want = ref.ref_mlstm_scan_bwd(*ins, y, kept, dy, chunk=256)
+    for g, w in zip(grads[:5], want[:5]):
+        _mlstm_bwd_close(g, w, "padded")
+
+
+@pytest.mark.cuda
+def test_mlstm_scan_autograd_runs_the_backward_kernels(cuda):
+    """``ops.mlstm_scan`` on inputs that need a gradient: the forward and
+    backward kernels launch once each, and the grads (the state's too)
+    match the plain backward."""
+    ins, state, _, _, (dy, dC, dn, dm) = _mlstm_bwd_case(
+        cuda, 2, 4, 512, 384, 256, True, seed=100)
+    xs = [t.clone().requires_grad_() for t in ins + list(state)]
+    ops.reset_launch_counts()
+    y, carry = ops.mlstm_scan(*xs[:5], chunk=256, state=tuple(xs[5:]))
+    got = torch.autograd.grad((y, *carry), xs, (dy, dC, dn, dm))
+    counts = ops.launch_counts()
+    assert counts["mlstm_scan"] == 1 and counts["mlstm_scan_bwd"] == 1
+    yk, _, kept = ml_kernel.mlstm_scan(*ins, chunk=256, state=state,
+                                       keep=True)
+    want = ref.ref_mlstm_scan_bwd(*ins, yk, kept, dy, chunk=256, state=state,
+                                  dC=dC, dn=dn, dm=dm)
+    for j, (g, w) in enumerate(zip(got, want)):
+        _mlstm_bwd_close(g, w, f"grad {j}")
+
+
+def test_mlstm_grad_on_cpu_runs_the_plain_backward():
+    """On the CPU ``ops.mlstm_scan`` with a gradient goes through
+    ``MLSTMScan`` to ``ref_mlstm_scan_bwd``: no kernel launch, and the
+    grads equal torch.autograd's through the plain forward to f32
+    rounding."""
+    ins = [torch.from_numpy(a) for a in _mlstm_inputs(1, 2, 48, 8)]
+    xs = [t.clone().requires_grad_() for t in ins]
+    ops.reset_launch_counts()
+    y, _ = ops.mlstm_scan(*xs, chunk=16)
+    assert y.grad_fn is not None and "MLSTMScan" in type(y.grad_fn).__name__
+    dy = torch.from_numpy(_rand(tuple(y.shape), 5))
+    got = torch.autograd.grad(y, xs, dy)
+    assert ops.launch_counts()["mlstm_scan_bwd"] == 0
+    ys = [t.clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(ref.ref_mlstm_scan(*ys, chunk=16)[0], ys, dy)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ml_kernel.mlstm_scan_bwd(*ins, y.detach(), (None,) * 4, dy, chunk=16)
 
 
 # -- int8 quantization (#10, #11) and the int8 pool write --------------------

@@ -132,9 +132,11 @@ def test_loss_and_grads_match_reference(ref, arch, ce_chunk):
         _close(g, want, GRAD_TOL, ref["jax"].tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["xlstm-125m"])
 def test_remat_policies_give_identical_numbers(ref, arch):
-    """none / minimal / full change what is saved, never the numbers."""
+    """none / minimal / full change what is saved, never the numbers (on
+    xlstm-125m also through the mLSTM backward and the sLSTM's own
+    chunked remat)."""
     rcfg, pcfg = _cfgs(ref, arch)
     params = params_from_reference(_np_tree(ref, _ref_params(ref, rcfg)),
                                    pcfg)
