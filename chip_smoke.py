@@ -50,7 +50,13 @@ Phases, in order, each printing one line:
            SDPA's backward, and #3, #8 and #9 at granite-20b's decode shape
            (48 q heads on one kv head of 128: six head groups of 8; pools
            [2050,16,1,128]; bf16 and int8), a wide_groups line with their
-           times, bounds (K/V bytes once) and library times;
+           times, bounds (K/V bytes once) and library times; and the MoE
+           family's shapes, a moe_shapes line: #1, #4 and #5 at
+           mixtral-8x7b's window (q [1,32,4608,128], k/v [1,8,4608,128],
+           causal, window 4096), #4 and #5 at qwen3-moe-30b-a3b's train
+           shape (q [8,32,512,128], k/v [8,4,512,128]: G 8 on the bf16
+           tensor cores), #3 over mixtral's ring after a wrap (k/v
+           [16,4096,8,128], positions in ring order, window 4096);
   model    exanode-100m at full width in f32 with seeded weights: prefill
            and four decode ticks' logits, kernels on the card against the
            plain path on the CPU, over the dense cache and over paged pools
@@ -92,6 +98,22 @@ Phases, in order, each printing one line:
            bf16 training, 2 layers at batch 8 x 512, 20 steps, the loss
            falling; fails unless #4 / #5 ran at head dim 256, #3 / #8 / #9
            at G 48, and #2 in qwen3-4b's runs only;
+  moe      the MoE family at full width, weights drawn on the card:
+           qwen3-moe-30b-a3b (128 experts top-8) cut to 2 layers in f32
+           against the CPU (prefill logits of 2 prompts x 600 tokens, decode
+           ticks over dense, paged and int8 KV, a train step at 2 x 512,
+           the routes recorded); cut to 12 of 48 layers in bf16 serving the
+           serve phase's 32 requests over dense, paged and int8 KV, each
+           twice on fresh engines with equal streams (the top-8 combine is
+           a fixed-order sum), then the int8 pool through the scheduler at
+           4 layers; 20 bf16 train steps of the 2-layer cut at 8 x 512;
+           mixtral-8x7b (8 experts top-2, window 4096) cut to 4 of 32
+           layers in bf16 serving the same requests twice on its dense
+           ring buffer, and cut to 1 layer in f32 against the CPU at
+           capacity 4608 with a 600-token and a 4200-token prompt (the
+           prefill past the window, the ring rolled and wrapped), 16
+           decode steps each; fails unless every check held, each run
+           launched its kernels and #2 never launched;
   paged    the same 32 requests, those of 16-23 that are 256 tokens long
            opening with prompt 0's first 256 tokens, served dense,
            kv_layout="paged" and paged with kv_dtype="int8"
@@ -126,9 +148,9 @@ Phases, in order, each printing one line:
   xlstm_train  xlstm-125m at full width: in f32, one step's loss and
            every grad leaf of one 4-layer period with the kernels on the
            card against the plain path on the CPU (batch 2 x 512); then
-           at full depth python -m repro_torch.launch.train's loop for
-           xlstm-125m, bf16 activations and f32 params, batch 8 x 512, 20
-           cosine steps to peak lr 1e-3,
+           for that period (4 of 12 layers: the time limit) python -m
+           repro_torch.launch.train's loop, bf16 activations and f32
+           params, batch 8 x 512, 20 cosine steps to peak lr 1e-3,
            every launch counter zeroed just before and read just after:
            losses, step time p50, tokens/s, peak memory; fails unless the
            loss falls and mlstm_scan and mlstm_scan_bwd launched; then
@@ -191,7 +213,7 @@ import time
 from pathlib import Path
 
 PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "jamba",
-          "dense", "train", "xlstm_train", "ft", "train_profile",
+          "dense", "moe", "train", "xlstm_train", "ft", "train_profile",
           "xlstm_profile",
           "sched_profile", "jamba_profile")                      # the build always runs
 
@@ -591,6 +613,8 @@ def kernels_phase(torch, timer) -> dict:
                                    granite_width=decode["granite"])
     out.update(paged_kernels(torch, timer))
     out.update(backward_kernels(torch, timer))
+    for name, rows in moe_kernel_shapes(torch, timer).items():
+        out[name].update(rows)
     out.update(mlstm_kernel(torch, timer))
     out.update(mlstm_bwd_kernel(torch, timer))
     out.update(quant_kernels(torch, timer))
@@ -1608,6 +1632,244 @@ def backward_kernels(torch, timer) -> dict:
     return out
 
 
+def window_pairs(S: int, W: int) -> int:
+    """(query, key) pairs a causal S x S attention computes under a window
+    of W (W <= 0: none): query i reads min(i + 1, W) keys."""
+    if W <= 0 or W >= S:
+        return S * (S + 1) // 2
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def moe_kernel_shapes(torch, timer) -> dict:
+    """The shapes the MoE family brings to ported kernels, each checked in
+    f32 and bf16 against its plain version and timed in bf16 on the three
+    timers beside the plain version and the library's call: #1, #4 and #5
+    at mixtral-8x7b's window (one 4608-token sequence, 32 / 8 heads of
+    128, causal, window 4096: the first 512 queries see every earlier
+    key, the rest 4096); #4 and #5 at qwen3-moe-30b-a3b's train shape
+    (q/dO [8,32,512,128], k/v [8,4,512,128]: 8 q heads a kv head on the
+    bf16 tensor cores); #3 over mixtral's ring after a wrap (16 slots, k/v
+    [16,4096,8,128], each slot's positions in ring order: entry t holds
+    the newest position p <= pos with p % 4096 == t).  Returns rows keyed
+    by kernel name: ``mixtral_window``, ``qwen3_moe_g8``, ``ring``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def attn(B, S, H, KV, D):
+        """q, k, v, dO in the model's [B,S,H,D] -> [B,H,S,D] views."""
+        return (randn(B, S, H, D).transpose(1, 2),
+                randn(B, S, KV, D).transpose(1, 2),
+                randn(B, S, KV, D).transpose(1, 2),
+                randn(B, S, H, D).transpose(1, 2))
+
+    def window_mask(S, W):
+        i = torch.arange(S, device="cuda")
+        m = i[None, :] <= i[:, None]
+        return m & (i[None, :] > i[:, None] - W) if W else m
+
+    def bwd_errs(q, k, v, do, dt, what, W):
+        kw = dict(causal=True, window=W)
+        o, lse = fa.flash_attention(q, k, v, **kw)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        wq, wk, wv = ref.ref_attention_bwd(q, k, v, o, lse, do, **kw)
+        return (check_grad(fa.NAME_BWD_DQ, dq, wq, dt, what),
+                worst(check_grad(fa.NAME_BWD_DKV, dk, wk, dt, what + " dk"),
+                      check_grad(fa.NAME_BWD_DKV, dv, wv, dt, what + " dv")))
+
+    def bwd_rows(q, k, v, do, W, errs, what) -> dict:
+        """#4 and #5 at one shape in bf16: each kernel's times and bound,
+        the plain backward's and SDPA's backward (with the window's mask
+        where there is one), which both rows share."""
+        B, H, S, D = q.shape
+        kw = dict(causal=True, window=W)
+        o, lse = fa.flash_attention(q, k, v, **kw)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+        pairs = B * H * window_pairs(S, W)
+        stats = B * H * S * 4
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = (dict(attn_mask=window_mask(S, W)) if W
+                else dict(is_causal=True))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True,
+                                            **sdpa)
+
+        def library():
+            return torch.autograd.grad(ol, (ql, kl, vl), do,
+                                       retain_graph=True)
+        shared = dict(
+            plain_ms=timer.ms(lambda: ref.ref_attention_bwd(q, k, v, o, lse,
+                                                            do, **kw)),
+            library_ms=timer.ms(library),
+            library_device_ms=timer.device_ms(library),
+            library_host_us=timer.host_us(library),
+            plain="ref_attention_bwd (dq, dk, dv in one call)",
+            library="backward of torch.nn.functional."
+                    "scaled_dot_product_attention with enable_gqa"
+                    + (" and the window's boolean mask" if W else "")
+                    + " (dq, dk, dv in one call)")
+        rows = {}
+        for i, (name, fn, nb, flops) in enumerate((
+                (fa.NAME_BWD_DQ,
+                 lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
+                 nbytes(q, k, v, o, do, q) + 2 * stats, 6 * D * pairs),
+                (fa.NAME_BWD_DKV,
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    **kw),
+                 nbytes(q, k, v, do, k, v) + 2 * stats, 8 * D * pairs))):
+            b_ms, b_by = bound(nb, flops, "bfloat16")
+            rows[name] = dict(
+                shape=f"q/dO [{B},{H},{S},{D}] k/v {list(k.shape)} causal"
+                      + (f" window {W}" if W else "") + f" bf16, {what} "
+                      f"(route {fa.route_bwd(q.dtype, D)})",
+                max_abs_err=errs["bfloat16"][i]["err"],
+                rel_err=errs["bfloat16"][i]["rel"],
+                max_abs_err_f32=errs["float32"][i]["err"],
+                rel_err_f32=errs["float32"][i]["rel"],
+                ms=timer.ms(fn), device_ms=timer.device_ms(fn),
+                host_us=timer.host_us(fn), bound_ms=b_ms, bound_by=b_by,
+                **shared)
+        return rows
+
+    out = {n: {} for n in ("flash_attention", fa.NAME_BWD_DQ,
+                           fa.NAME_BWD_DKV, "decode_attention")}
+    # mixtral-8x7b's window
+    B, S, H, KV, D, W = 1, 4608, 32, 8, 128, 4096
+    base = attn(B, S, H, KV, D)
+    what = "mixtral-8x7b, window 4096 over 4608 positions"
+    ferrs, berrs = {}, {}
+    for dt in (f32, bf16):
+        name = str(dt).split(".")[1]
+        q, k, v, do = (t.to(dt) for t in base)
+        o, lse = fa.flash_attention(q, k, v, causal=True, window=W)
+        wo, wlse = ref.ref_attention(q, k, v, causal=True, window=W)
+        ferrs[name] = check("flash_attention", o, wo, name, what)
+        check("flash_attention", lse, wlse, "float32", f"{what} lse {name}")
+        del o, lse, wo, wlse
+        berrs[name] = bwd_errs(q, k, v, do, name, what, W)
+        torch.cuda.empty_cache()
+    q, k, v, do = (t.to(bf16) for t in base)
+    mask = window_mask(S, W)
+
+    def kern():
+        return fa.flash_attention(q, k, v, causal=True, window=W)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    b_ms, b_by = bound(nbytes(q, k, v, q) + B * H * S * 4,
+                       4 * D * B * H * window_pairs(S, W), "bfloat16")
+    out["flash_attention"]["mixtral_window"] = dict(
+        shape=f"q [{B},{H},{S},{D}] k/v [{B},{KV},{S},{D}] causal window "
+              f"{W} bf16 (route {fa.route(bf16, D)})",
+        max_abs_err=ferrs["bfloat16"], max_abs_err_f32=ferrs["float32"],
+        ms=timer.ms(kern), device_ms=timer.device_ms(kern),
+        host_us=timer.host_us(kern),
+        plain_ms=timer.ms(lambda: ref.ref_attention(q, k, v, causal=True,
+                                                    window=W)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer.ms(library),
+        library_device_ms=timer.device_ms(library),
+        library_host_us=timer.host_us(library),
+        library="torch.nn.functional.scaled_dot_product_attention with the "
+                "window's boolean mask")
+    for name, row in bwd_rows(q, k, v, do, W, berrs, what).items():
+        out[name]["mixtral_window"] = row
+    del base, q, k, v, do, mask
+    torch.cuda.empty_cache()
+
+    # qwen3-moe-30b-a3b's train shape: G 8 at head dim 128
+    base = attn(8, 512, 32, 4, 128)
+    what = "qwen3-moe-30b-a3b, 32 / 4 heads (G 8)"
+    errs = {str(dt).split(".")[1]: bwd_errs(*(t.to(dt) for t in base),
+                                            str(dt).split(".")[1], what, 0)
+            for dt in (f32, bf16)}
+    for name, row in bwd_rows(*(t.to(bf16) for t in base), 0, errs,
+                              what).items():
+        out[name]["qwen3_moe_g8"] = row
+    del base
+    torch.cuda.empty_cache()
+
+    # #3 over mixtral's ring after a wrap
+    B, T, KV, G, D = 16, 4096, 8, 4, 128
+    H = KV * G
+    pos = torch.randint(T, 3 * T, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    t_idx = torch.arange(T, device="cuda", dtype=torch.int32)
+    kv_pos = (pos[:, None] - (pos[:, None] - t_idx[None]) % T).contiguous()
+    q32, k32, v32 = (randn(*s) for s in ((B, H, D), (B, T, KV, D),
+                                          (B, T, KV, D)))
+    errs = {}
+    for dt in (f32, bf16):
+        q, k, v = (t.to(dt) for t in (q32, k32, v32))
+        name = str(dt).split(".")[1]
+        errs[name] = check(
+            "decode_attention",
+            da.decode_attention(q, k, v, kv_pos, pos, window=W),
+            ref.ref_decode_attention(q, k, v, kv_pos, pos, window=W), name,
+            f"a wrapped ring of {T}, window {W}")
+    q, k, v = (t.to(bf16) for t in (q32, k32, v32))
+    live = (kv_pos <= pos[:, None]) & (kv_pos > pos[:, None] - W)
+    valid = int(live.sum())
+    b_ms, b_by = bound(nbytes(q, kv_pos, pos, q)
+                       + 2 * valid * KV * D * k.element_size(),
+                       4 * H * D * valid, "bfloat16")
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    groups = da.head_groups(G)
+    splits, split_len = da.plan_splits(B * KV * groups, T,
+                                       da.tile_entries(D, k.element_size()))
+
+    def dkern():
+        return da.decode_attention(q, k, v, kv_pos, pos, window=W)
+
+    def dlib():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=live[:, None, None, :],
+            enable_gqa=True)
+    out["decode_attention"]["ring"] = dict(
+        shape=f"q [{B},{H},{D}] k/v [{B},{T},{KV},{D}] bf16, a ring after "
+              f"a wrap (pos {int(pos.min())}-{int(pos.max())}), window {W}: "
+              f"{valid} of {B * T} entries attended; {splits} splits of "
+              f"{split_len}",
+        max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
+        ms=timer.ms(dkern), device_ms=timer.device_ms(dkern),
+        host_us=timer.host_us(dkern),
+        plain_ms=timer.ms(lambda: ref.ref_decode_attention(
+            q, k, v, kv_pos, pos, window=W)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer.ms(dlib),
+        library_device_ms=timer.device_ms(dlib),
+        library_host_us=timer.host_us(dlib),
+        library="torch.nn.functional.scaled_dot_product_attention with the "
+                "mask")
+    return out
+
+
+def moe_shapes_line(entries: dict, gpu: str) -> str:
+    """The kernels phase's rows at the MoE family's shapes: each on the
+    three timers beside its bound, the plain version and the library."""
+    parts = []
+    for name, key in (("flash_attention", "mixtral_window"),
+                      ("flash_attention_bwd_dq", "mixtral_window"),
+                      ("flash_attention_bwd_dkv", "mixtral_window"),
+                      ("flash_attention_bwd_dq", "qwen3_moe_g8"),
+                      ("flash_attention_bwd_dkv", "qwen3_moe_g8"),
+                      ("decode_attention", "ring")):
+        e = entries[name][key]
+        parts.append(
+            f"{name} {e['shape']}: {e['ms']:.4f} ms, device "
+            f"{e['device_ms']:.4f}, host {e['host_us']:.1f} us; bound "
+            f"{e['bound_ms']:.5f} {e['bound_by']}; plain {e['plain_ms']:.3f}"
+            f"; library {e['library_ms']:.4f}, device "
+            f"{e['library_device_ms']:.4f}; err bf16 {e['max_abs_err']:.3g}"
+            f", f32 {e['max_abs_err_f32']:.3g}")
+    return "moe_shapes: " + " | ".join(parts) + f" [{gpu}]"
+
+
 def flash_bwd_line(entries: dict, gpu: str) -> str:
     """#4 and #5 at each head dim (64, 128 and gemma-2b's 256): device and
     host time of each kernel, the pair as the train path launches it, and
@@ -1740,12 +2002,15 @@ def f32_step_errs(torch, cfg, B: int, S: int,
     return errs, failed
 
 
-def bf16_train_run(torch, arch: str, kernels, steps: int = 20, B: int = 8,
-                   S: int = 512, lr: float = 3e-4) -> tuple[dict, list]:
+def bf16_train_run(torch, arch, kernels, steps: int = 20, B: int = 8,
+                   S: int = 512, lr: float = 3e-4,
+                   draw_on_device: bool = False) -> tuple[dict, list]:
     """python -m repro_torch.launch.train's loop for ``arch``: bf16
     activations, f32 params, batch B x S, ``steps`` cosine steps to peak
     ``lr`` (the launcher's default 3e-4, warmup 2), every
-    launch counter zeroed just before and read just after.  Returns
+    launch counter zeroed just before and read just after (``arch`` a
+    registry name or a config; ``draw_on_device`` draws the params on the
+    card).  Returns
     ({"losses", "drop", "p50", "peak", "launches", "text"}, failures): the
     loss finite and falling by more than TRAIN_LOSS_DROP (first-5 minus
     last-5 mean), each of ``kernels`` launched."""
@@ -1755,7 +2020,8 @@ def bf16_train_run(torch, arch: str, kernels, steps: int = 20, B: int = 8,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    _, hist = train_loop(arch, steps=steps, global_batch=B, seq_len=S, lr=lr)
+    _, hist = train_loop(arch, steps=steps, global_batch=B, seq_len=S, lr=lr,
+                         draw_on_device=draw_on_device)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1835,15 +2101,21 @@ XLSTM_GATE_GRAD_REL_TOL = 1e-3
 XLSTM_TRAIN_REL_TOLS = {k: XLSTM_GATE_GRAD_REL_TOL
                         for k in ("w_if", "b_if", "conv_w", "conv_b")}
 # The xlstm_train run's peak learning rate: at the launcher's default
-# 3e-4 the loss fell 0.0269 in 20 steps, under TRAIN_LOSS_DROP.
+# 3e-4 the loss fell 0.0269 in 20 steps (full depth), under
+# TRAIN_LOSS_DROP.
 XLSTM_TRAIN_LR = 1e-3
+# The xlstm_train run and its profiled step run one full-width period
+# (4 of xlstm-125m's 12 layers): at full depth its 20 eager-sLSTM steps
+# took 174 of the whole script's 1080 s (8.7 s a step, on an NVIDIA H100
+# 80GB HBM3 at 700 W), which with the moe phase left too little of the
+# 1200 s limit.
 
 
 def xlstm_train_phase(torch, gpu: str) -> tuple[str, dict]:
     """xlstm-125m training at full width: an f32 step's loss and grads
     of one full-width period (mlstm x3, slstm) on the card against the CPU
     (batch 2 x 512: two mLSTM chunks of 256, two sLSTM remat chunks), then
-    the bf16 training run at full depth with the launch counters zeroed
+    the bf16 training run of that period with the launch counters zeroed
     just before and read just after, then ``profile_windows`` over one
     more bf16 step (8 x 512) by kernel group: mLSTM forward, mLSTM
     backward, cuBLAS and the rest, which is the eager sLSTM cell (its
@@ -1858,10 +2130,10 @@ def xlstm_train_phase(torch, gpu: str) -> tuple[str, dict]:
         ("mlstm", "mlstm", "mlstm", "slstm"), 1),))
     errs, failed = f32_step_errs(torch, period, 2, 512,
                                  rel_tols=XLSTM_TRAIN_REL_TOLS)
-    run, more = bf16_train_run(torch, "xlstm-125m", XLSTM_TRAIN_KERNELS,
+    run, more = bf16_train_run(torch, period, XLSTM_TRAIN_KERNELS,
                                lr=XLSTM_TRAIN_LR)
     failed += more
-    rt = Runtime.create("xlstm-125m", shape_kind="train", seq_len=512)
+    rt = Runtime.create(period, shape_kind="train", seq_len=512)
     state = rt.init_train_state()
     batch = to_device(synthetic_batch(DataConfig(rt.cfg.vocab_size, 512, 8),
                                       0), "cuda")
@@ -1876,7 +2148,8 @@ def xlstm_train_phase(torch, gpu: str) -> tuple[str, dict]:
             f"||grad|| {errs['own_rel']:.3g} (tol "
             f"{XLSTM_GATE_GRAD_REL_TOL}); CPU side {errs['cpu_s']:.1f} s, "
             f"card {errs['cuda_s']:.1f} s; "
-            f"full depth: {run['text']}; profile of one bf16 step 8 x 512, "
+            f"one period (4 of 12 layers): {run['text']}; profile of one "
+            f"bf16 step 8 x 512, "
             f"{parts[0]} [{gpu}]")
     if failed:
         raise AssertionError(line + "\nxlstm_train phase failed: "
@@ -2615,23 +2888,29 @@ def dense_config(arch: str, **kw):
 
 
 def dense_f32_check(torch, arch: str) -> tuple[dict, dict]:
-    """(a) of the dense phase for one config: a DENSE_CUT-layer cut at
-    full width in f32, weights drawn on the card and copied to the CPU;
-    prefill logits of two XLSTM_PROMPT-token prompts at every position,
-    four decode ticks over the dense cache, then over f32 and int8 paged
-    pools (``paged_model_errs``), and one train step at batch 2 x 256
-    (loss, every grad leaf), the card's kernels against the plain path on
-    the CPU.  Returns the figures and the launch counts of the card's
-    side, zeroed just before."""
-    import numpy as np
-    from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
-    from repro_torch.kernels import ops
-    from repro_torch.models.common import LayerGroup, tree_leaves, tree_map
-    from repro_torch.runtime import Runtime
-    from repro_torch.train.steps import value_and_grad
+    """(a) of the dense phase for one config: ``f32_cut_check`` of its
+    DENSE_CUT-layer cut at full width, the train step at batch 2 x 256."""
+    from repro_torch.models.common import LayerGroup
     cfg = dense_config(arch, num_layers=DENSE_CUT,
                        groups=(LayerGroup(("attn",), DENSE_CUT),),
                        dtype=torch.float32)
+    return f32_cut_check(torch, cfg, train_seq=256)
+
+
+def f32_cut_check(torch, cfg, train_seq: int) -> tuple[dict, dict]:
+    """A cut of a paged-capable config at full width in f32, weights drawn
+    on the card and copied to the CPU; prefill logits of two
+    XLSTM_PROMPT-token prompts at every position, four decode ticks over
+    the dense cache, then over f32 and int8 paged pools
+    (``paged_model_errs``), and one train step at batch 2 x ``train_seq``
+    (loss, every grad leaf), the card's kernels against the plain path on
+    the CPU.  With MoE blocks every routing decision of both sides is
+    recorded, and the figures name where they first differ
+    (``route_margin``).  Returns the figures and the launch counts of the
+    card's side, zeroed just before."""
+    import numpy as np
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime import Runtime
     gpu_params = card_params(torch, cfg, torch.float32)
     sides = {dev: Runtime.create(cfg, capacity=640, device=dev, params=p)
              for dev, p in (("cuda", gpu_params),
@@ -2641,6 +2920,25 @@ def dense_f32_check(torch, arch: str) -> tuple[dict, dict]:
                                               (2, XLSTM_PROMPT),
                                               dtype=np.int32)
     torch.cuda.synchronize()
+    routes = (recorded_routes(torch) if cfg.moe is not None
+              else contextlib.nullcontext({}))
+    with routes as seen:
+        figs, launches = _f32_cut_runs(torch, cfg, sides, toks, train_seq)
+    margin = route_margin(seen) if seen else ""
+    if margin:
+        figs["routes"] = margin
+        figs["failed"] = [f"{b} ({margin})" for b in figs["failed"]]
+    del sides, gpu_params, seen
+    torch.cuda.empty_cache()
+    return figs, launches
+
+
+def _f32_cut_runs(torch, cfg, sides: dict, toks, train_seq: int):
+    """The runs of ``f32_cut_check`` on both sides."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.steps import value_and_grad
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     logits, caches = {}, {}
@@ -2661,7 +2959,7 @@ def dense_f32_check(torch, arch: str) -> tuple[dict, dict]:
     toks[1, :32] = toks[0, :32]                  # two shared pool blocks
     paged = {kv: paged_model_errs(torch, sides, toks, kv)
              for kv in ("f32", "int8")}
-    batch = synthetic_batch(DataConfig(cfg.vocab_size, 256, 2), 0)
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, train_seq, 2), 0)
     res = {dev: value_and_grad(rt.params, to_device(batch, dev), cfg)
            for dev, rt in sides.items()}
     torch.cuda.synchronize()
@@ -2687,8 +2985,6 @@ def dense_f32_check(torch, arch: str) -> tuple[dict, dict]:
     figs = dict(params=sides["cpu"].num_params, errs=errs, paged=paged,
                 loss_err=loss_err, grad_err=grad_err, grad_rel=grad_rel,
                 seconds=time.perf_counter() - t0, failed=bad)
-    del sides, res, gpu_params
-    torch.cuda.empty_cache()
     return figs, launches
 
 
@@ -2835,6 +3131,284 @@ def dense_phase(torch, gpu: str) -> tuple[str, dict]:
     line = "dense: " + " | ".join(parts) + f" [{gpu}]"
     if failed:
         raise AssertionError(line + "\ndense phase failed: "
+                             + "; ".join(failed))
+    return line, total
+
+
+MOE_CUT = 2                 # layers of qwen3-moe's f32 checks and training
+QWEN_MOE_SERVE_LAYERS = 12  # of 48: 8.1 B params, 16 GB in bf16
+QWEN_MOE_SCHED_LAYERS = 4   # the scheduler run's depth (the time limit)
+MIXTRAL_SERVE_LAYERS = 4    # of 32: 6.1 B params, 12 GB in bf16
+# mixtral's f32 check: one layer at a capacity past the window (a ring of
+# 4096), a prompt inside it and one past it, each decoded for some steps
+MIXTRAL_F32_CAPACITY = 4608
+MIXTRAL_F32_PROMPTS = (600, 4200)
+MOE_DECODE_STEPS = 16
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 20, 8, 512
+MOE_TRAIN_LR = 3e-4          # the launcher's default peak
+# what each run of the moe phase must launch; no run launches #2 (every
+# block is attn_moe, whose experts are torch.bmm)
+MOE_KERNELS = {
+    "dense": ("flash_attention", "decode_attention"),
+    "paged": ("flash_attention", "paged_decode_attention"),
+    "int8": ("flash_attention", "paged_decode_attention_q8",
+             "quantize_int8", "quantized_block_write"),
+    "sched": ("paged_decode_attention_q8", "quantized_block_write",
+              "dequantize_int8"),
+    "train": ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")}
+
+
+def cut_params(params: dict, n: int) -> dict:
+    """The first ``n`` layers of a stacked one-group parameter tree (views,
+    no copy): the params of the same config cut to ``n`` layers."""
+    from repro_torch.models.common import tree_map
+    return dict(params, groups=[tree_map(lambda t: t[:n], g)
+                                for g in params["groups"]])
+
+
+def mixtral_ring_check(torch) -> tuple[dict, dict]:
+    """mixtral-8x7b at full width cut to one layer, in f32, weights drawn
+    on the card and copied to the CPU, capacity MIXTRAL_F32_CAPACITY (a
+    ring of 4096 entries): each of MIXTRAL_F32_PROMPTS alone, prefill
+    logits at every position, then MOE_DECODE_STEPS decode steps, the
+    card's kernels against the plain path on the CPU.  The 4200-token
+    prompt runs the prefill past the window (the flash forward masks, the
+    cache keeps the last 4096 entries, rolled by 104 into ring order) and
+    every decode step on a wrapped ring.  Returns the figures and the card
+    side's launch counts."""
+    import numpy as np
+    from repro_torch.configs.mixtral_8x7b import cut
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime import Runtime
+    cfg = cut(1).scaled(dtype=torch.float32)
+    gpu_params = card_params(torch, cfg, torch.float32)
+    sides = {dev: Runtime.create(cfg, capacity=MIXTRAL_F32_CAPACITY,
+                                 device=dev, params=p)
+             for dev, p in (("cuda", gpu_params),
+                            ("cpu", tree_map(lambda t: t.cpu(),
+                                             gpu_params)))}
+    figs = {"params": sides["cpu"].num_params, "errs": {}, "failed": []}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_routes(torch) as seen:
+        for S in MIXTRAL_F32_PROMPTS:
+            toks = np.random.default_rng(S).integers(0, cfg.vocab_size,
+                                                     (1, S), dtype=np.int32)
+            logits, caches = {}, {}
+            for dev, rt in sides.items():
+                logits[dev], caches[dev] = rt.prefill(
+                    torch.from_numpy(toks).to(dev))
+            errs = [float((logits["cuda"].cpu() - logits["cpu"]).abs()
+                          .max())]
+            ring = caches["cpu"][0]["sub0"]["pos"]
+            if not torch.equal(caches["cuda"][0]["sub0"]["pos"].cpu(), ring):
+                figs["failed"].append(f"{S}-token prompt: ring positions "
+                                      f"differ")
+            nxt = logits["cpu"][:, -1].argmax(-1).to(torch.int32)[:, None]
+            pos = torch.full((1,), S, dtype=torch.int32)
+            for _ in range(MOE_DECODE_STEPS):
+                for dev, rt in sides.items():
+                    logits[dev] = rt.decode_step(nxt.to(dev), caches[dev],
+                                                 pos.to(dev))
+                errs.append(float((logits["cuda"].cpu() - logits["cpu"])
+                                  .abs().max()))
+                nxt = logits["cpu"][:, -1].argmax(-1).to(torch.int32)[:, None]
+                pos = pos + 1
+            ring = caches["cpu"][0]["sub0"]["pos"]
+            figs["errs"][S] = errs
+            figs[f"ring_{S}"] = (f"T {ring.shape[-1]}, positions "
+                                 f"{int(ring[ring >= 0].min())}-"
+                                 f"{int(ring.max())}, "
+                                 f"{'wrapped' if S >= ring.shape[-1] else 'unwrapped'}")
+            if not max(errs) <= MODEL_LOGITS_TOL:
+                figs["failed"].append(
+                    f"{S}-token prompt: logits max abs err "
+                    f"{[float(f'{e:.3g}') for e in errs]} over "
+                    f"{MODEL_LOGITS_TOL}")
+            del logits, caches
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    figs["routes"] = route_margin(seen)
+    if figs["failed"]:
+        figs["failed"] = [f"{b} ({figs['routes']})" for b in figs["failed"]]
+    figs["seconds"] = time.perf_counter() - t0
+    del sides, gpu_params, seen
+    torch.cuda.empty_cache()
+    return figs, launches
+
+
+def moe_phase(torch, gpu: str) -> tuple[str, dict]:
+    """The MoE family at full width, weights drawn on the card from seed 0.
+    qwen3-moe-30b-a3b: (a) a MOE_CUT-layer cut in f32 against the CPU
+    (``f32_cut_check``: prefill and decode logits over dense, paged and
+    int8 KV within MODEL_LOGITS_TOL, a train step at 2 x 512 within
+    TRAIN_LOSS_TOL / TRAIN_GRAD_TOL); (b) QWEN_MOE_SERVE_LAYERS layers in
+    bf16, ``Runtime.create(cfg, capacity=2048, param_dtype=bf16)`` serving
+    the serve phase's 32 requests on 16 slots over dense KV, the paged
+    pool and the int8 pool (block size 16), each twice on fresh engines:
+    the two runs' streams must be equal (the top-8 combine is a fixed-order
+    sum); then the int8 pool through the chunked-prefill scheduler (the
+    reference's default knobs) at QWEN_MOE_SCHED_LAYERS layers; (c) the
+    MOE_CUT-layer cut's bf16 training, batch 8 x 512, 20 cosine steps to
+    the launcher's peak lr, the loss falling by more than TRAIN_LOSS_DROP.
+    mixtral-8x7b: (d) MIXTRAL_SERVE_LAYERS layers in bf16 serving the same
+    requests on its dense ring buffer (capacity 2048: a ring of 2048 that
+    these prompts never wrap), twice, streams equal; (e)
+    ``mixtral_ring_check`` (one layer in f32, a 4200-token prompt past the
+    window).  Every launch counter is zeroed just before each run and read
+    just after; fails unless each run launched its kernels
+    (MOE_KERNELS), #2 never launched, and every check held."""
+    from repro_torch.configs import mixtral_8x7b, qwen3_moe_30b_a3b
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import Runtime
+    parts, failed, total = [], [], {}
+    fmt = lambda es: [float(f"{e:.3g}") for e in es]        # noqa: E731
+
+    def add(counts, what, need):
+        for n, x in counts.items():
+            total[n] = total.get(n, 0) + x
+        missing = [n for n in need if not counts[n]]
+        if missing:
+            failed.append(f"{what}: never launched {missing}")
+        if counts["fused_ffn"]:
+            failed.append(f"{what}: fused_ffn launched for an MoE stack")
+
+    # (a) qwen3-moe, f32 cut against the CPU
+    cut = qwen3_moe_30b_a3b.cut(MOE_CUT).scaled(dtype=torch.float32)
+    figs, launches = f32_cut_check(torch, cut, train_seq=MOE_TRAIN_SEQ)
+    add(launches, "qwen3-moe f32", sorted(set(MOE_KERNELS["paged"]
+                                              + MOE_KERNELS["int8"]
+                                              + MOE_KERNELS["train"])))
+    failed += [f"qwen3-moe f32: {b}" for b in figs["failed"]]
+    parts.append(
+        f"qwen3-moe-30b-a3b f32 {MOE_CUT}-layer cut ({figs['params']:,} "
+        f"params), 2 prompts x {XLSTM_PROMPT}: logits err prefill "
+        f"{figs['errs'][0]:.3g}, dense ticks {fmt(figs['errs'][1:])}, paged "
+        f"f32 {fmt(figs['paged']['f32']['errs'])}, int8 "
+        f"{fmt(figs['paged']['int8']['errs'])}; train step 2 x "
+        f"{MOE_TRAIN_SEQ} loss err {figs['loss_err']:.3g}, max abs grad err "
+        f"{figs['grad_err']:.3g}, largest leaf ||err|| / ||grad|| "
+        f"{figs['grad_rel']:.3g}; {figs['routes']} ({figs['seconds']:.1f} "
+        f"s); launches { {n: x for n, x in launches.items() if x} }")
+
+    # (b) qwen3-moe, bf16 serving
+    cfg = qwen3_moe_30b_a3b.cut(QWEN_MOE_SERVE_LAYERS)
+    prompts, new = serve_prompts(cfg.vocab_size), 64
+    t0 = time.perf_counter()
+    params = card_params(torch, cfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    for way in ("dense", "paged", "int8"):
+        rt = Runtime.create(cfg, capacity=2048, param_dtype=torch.bfloat16,
+                            params=params, **SCHED_LAYOUTS[way])
+        kw = {} if way == "dense" else dict(block_size=16)
+        first = serve_run(torch, rt, prompts, new, **kw)
+        second = serve_run(torch, rt, prompts, new, **kw)
+        add(first["launches"], f"qwen3-moe {way}", MOE_KERNELS[way])
+        add(second["launches"], f"qwen3-moe {way}", MOE_KERNELS[way])
+        same = first["streams"] == second["streams"]
+        if not same:
+            share = match_share(first["streams"], second["streams"])
+            failed.append(f"qwen3-moe {way}: two identical runs gave other "
+                          f"streams (equal on {share:.4f} of positions)")
+        lines.append(
+            f"{way}: first wall {first['wall']:.3f} s prefill "
+            f"{first['prefill']:.3f} s; second {run_figures(second)}; "
+            f"streams of the two runs equal: {same}; launches "
+            f"{ {n: x for n, x in second['launches'].items() if x} }")
+        del rt, first, second
+    peak = torch.cuda.max_memory_allocated()
+    sched_cfg = qwen3_moe_30b_a3b.cut(QWEN_MOE_SCHED_LAYERS)
+    rt = Runtime.create(sched_cfg, capacity=2048, param_dtype=torch.bfloat16,
+                        params=cut_params(params, QWEN_MOE_SCHED_LAYERS),
+                        scheduler=True, **SCHED_LAYOUTS["int8"])
+    run = serve_run(torch, rt, prompts, new, block_size=16)
+    add(run["launches"], "qwen3-moe sched", MOE_KERNELS["sched"])
+    if run["eng"].stats.prefill_calls:
+        failed.append("qwen3-moe sched: monolithic prefills ran")
+    lines.append(
+        f"int8 through the scheduler at {QWEN_MOE_SCHED_LAYERS} layers "
+        f"(budget {run['eng'].sched.token_budget}, chunk "
+        f"{run['eng'].sched.chunk_size}; one run after the monolithic ones):"
+        f" {run_figures(run)}; launches "
+        f"{ {n: x for n, x in run['launches'].items() if x} }")
+    del rt, run
+    G = cfg.num_heads // cfg.num_kv_heads
+    parts.append(
+        f"qwen3-moe-30b-a3b bf16 serve, {cfg.num_layers} of 48 layers "
+        f"({sum(t.numel() for t in tree_leaves(params)):,} params, drawn "
+        f"on the card in {init_s:.3f} s), 128 experts top-8, capacity=2048 "
+        f"slots=16, {len(prompts)} requests x {new} new tokens, G {G} "
+        f"({da.head_groups(G)} head group): " + "; ".join(lines)
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) qwen3-moe, bf16 training
+    run, more = bf16_train_run(
+        torch, qwen3_moe_30b_a3b.cut(MOE_CUT), MOE_KERNELS["train"],
+        steps=MOE_TRAIN_STEPS, B=MOE_TRAIN_BATCH, S=MOE_TRAIN_SEQ,
+        lr=MOE_TRAIN_LR, draw_on_device=True)
+    add(run["launches"], "qwen3-moe train", ())     # checked by the run
+    failed += [f"qwen3-moe train: {b}" for b in more]
+    parts.append(f"qwen3-moe-30b-a3b train, {MOE_CUT} layers at full width "
+                 f"(params drawn on the card): {run['text']}")
+    torch.cuda.empty_cache()
+
+    # (d) mixtral, bf16 serving on its dense ring buffer
+    cfg = mixtral_8x7b.cut(MIXTRAL_SERVE_LAYERS)
+    prompts = serve_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    params = card_params(torch, cfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rt = Runtime.create(cfg, capacity=2048, param_dtype=torch.bfloat16,
+                        params=params)
+    first = serve_run(torch, rt, prompts, new)
+    second = serve_run(torch, rt, prompts, new)
+    peak = torch.cuda.max_memory_allocated()
+    for r in (first, second):
+        add(r["launches"], "mixtral dense", MOE_KERNELS["dense"])
+    same = first["streams"] == second["streams"]
+    if not same:
+        failed.append("mixtral: two identical runs gave other streams")
+    T = second["eng"].caches[0]["sub0"]["pos"].shape[2]
+    parts.append(
+        f"mixtral-8x7b bf16 serve, {cfg.num_layers} of 32 layers "
+        f"({rt.num_params:,} params, drawn on the card in {init_s:.3f} s), "
+        f"8 experts top-2, window {cfg.sliding_window}, capacity=2048 (a "
+        f"ring of {T}) slots=16, {len(prompts)} requests x {new} new tokens "
+        f"({second['eng'].stats.summary}): first wall {first['wall']:.3f} s "
+        f"prefill {first['prefill']:.3f} s; second {run_figures(second)}; "
+        f"streams of the two runs equal: {same}; launches "
+        f"{ {n: x for n, x in second['launches'].items() if x} }; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    del rt, first, second, params
+    torch.cuda.empty_cache()
+
+    # (e) mixtral, f32 one-layer cut against the CPU past the window
+    figs, launches = mixtral_ring_check(torch)
+    add(launches, "mixtral f32", MOE_KERNELS["dense"])
+    failed += [f"mixtral f32: {b}" for b in figs["failed"]]
+    parts.append(
+        f"mixtral-8x7b f32 1-layer cut ({figs['params']:,} params), capacity "
+        f"{MIXTRAL_F32_CAPACITY}, one prompt at a time: " + "; ".join(
+            f"{S} tokens ({figs[f'ring_{S}']} after {MOE_DECODE_STEPS} "
+            f"steps): logits err prefill {es[0]:.3g}, decode {fmt(es[1:])}"
+            for S, es in figs["errs"].items())
+        + f" (tol {MODEL_LOGITS_TOL}; {figs['routes']}; both sides "
+          f"{figs['seconds']:.1f} s); launches "
+          f"{ {n: x for n, x in launches.items() if x} }")
+    line = "moe: " + " | ".join(parts) + f" [{gpu}]"
+    if failed:
+        raise AssertionError(line + "\nmoe phase failed: "
                              + "; ".join(failed))
     return line, total
 
@@ -3732,6 +4306,7 @@ def main() -> int:
             f"{entries['decode_attention']['jamba_width']['bound_ms']:.4f})"
             + f"; tolerances {TOL} [{gpu}]", flush=True)
         print(flash_bwd_line(entries, gpu), flush=True)
+        print(moe_shapes_line(entries, gpu), flush=True)
         print(wide_groups_line(entries, gpu), flush=True)
         print(scan_quant_line(torch, entries, gpu), flush=True)
         print(split_sweep(torch, gpu, args.iters), flush=True)
@@ -3744,7 +4319,8 @@ def main() -> int:
     for path, run in (("serve", serve_phase),
                       ("paged", paged_phase), ("sched", sched_phase),
                       ("xlstm", xlstm_phase), ("jamba", jamba_phase),
-                      ("dense", dense_phase), ("train", train_phase),
+                      ("dense", dense_phase), ("moe", moe_phase),
+                      ("train", train_phase),
                       ("xlstm_train", xlstm_train_phase),
                       ("ft", ft_phase)):
         if path in phases:

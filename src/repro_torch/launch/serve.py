@@ -4,11 +4,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch exanode-100m \
         --requests 32 --prompt-len 256 --max-new 64 --slots 16 \
         --capacity 2048 [--smoke] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mixtral-8x7b --layers 4 --draw-on-device \
+        --requests 32 --prompt-len 1024 --max-new 64 --slots 16 \
+        --capacity 2048
 
 Builds a decode-shaped ``repro_torch.runtime.Runtime`` on the CUDA card
 (``--device cpu`` runs the kernels' plain PyTorch versions), runs the
 continuous-batching engine over seeded synthetic prompts and reports
-throughput and latency percentiles.
+throughput and latency percentiles.  ``--layers N`` cuts an arch too deep
+for one card (granite-20b, qwen3-moe-30b-a3b, mixtral-8x7b) to N layers
+at full width; ``--draw-on-device`` draws the weights on the card from
+the seed, quick for billions of parameters (other values than the CPU
+draw).
 
 Fault tolerance, as the reference's: ``--health-every N`` gates every Nth
 tick on a device health check, ``--tick-retries`` bounds the transient-
@@ -31,9 +39,10 @@ import argparse
 
 import numpy as np
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_arch_config
 from repro_torch.ft.inject import FaultInjector
 from repro_torch.obs.export import dump_metrics, write_events_jsonl
+from repro_torch.models.common import init_params
 from repro_torch.obs.metrics import percentile
 from repro_torch.runtime import Runtime
 from repro_torch.serve.engine import Request
@@ -43,6 +52,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="exanode-100m")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the full-width arch to this many layers "
+                         "(archs with a cut only; 0 = the published depth)")
+    ap.add_argument("--draw-on-device", action="store_true",
+                    help="draw the weights on the device from the seed")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -101,7 +115,7 @@ def main(argv=None):
             "--burn-in (memory test + PRBS link sweep) is not ported yet "
             "(ROADMAP queue 1, item 12)")
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = get_arch_config(args.arch, smoke=args.smoke, layers=args.layers)
     sched_kw = {}
     if args.token_budget:
         sched_kw["token_budget"] = args.token_budget
@@ -111,6 +125,9 @@ def main(argv=None):
                         kv_layout=args.kv_layout, kv_dtype=args.kv_dtype,
                         scheduler=args.scheduler,
                         sched_kw=sched_kw or None, device=args.device)
+    if args.draw_on_device:
+        rt.params = init_params(rt.specs, rt.seed, rt.param_dtype,
+                                rt.device, draw_on_device=True)
     if args.trace_out:
         rt.telemetry().tracer.enable()
     print(rt.describe(), flush=True)

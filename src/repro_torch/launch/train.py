@@ -4,6 +4,9 @@ restore -> step loop -> checkpoints.
     PYTHONPATH=src python -m repro_torch.launch.train --arch exanode-100m \
         --steps 20 --batch 8 --seq 512 [--smoke] [--device cpu] \
         [--ckpt-dir DIR --save-every 50]
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen3-moe-30b-a3b --layers 2 --draw-on-device --steps 20 \
+        --batch 8 --seq 512
 
 Runs on the CUDA card unless ``--device cpu`` is given (then through the
 kernels' plain PyTorch versions).  Each step trains on
@@ -15,7 +18,11 @@ the reference, ``--ckpt-dir`` restores the newest checkpoint there
 where ``step % save_every == 0``, written by a background thread, the
 newest three kept) and once more after the last step, in the reference's
 format (``checkpoint.serialize``); a ``StragglerMonitor`` with the
-reference's training thresholds watches step times.
+reference's training thresholds watches step times.  ``--layers N`` cuts
+an arch too deep for one card (granite-20b, qwen3-moe-30b-a3b,
+mixtral-8x7b) to N layers at full width (``configs.get_arch_config``);
+``--draw-on-device`` draws the weights on the card from the seed, which
+is quick for billions of parameters (other values than the CPU draw).
 
 Not ported yet: the reference's preflight (ROADMAP queue 1, item 12) and
 its mesh and grad-sync options (item 9).
@@ -28,7 +35,7 @@ import time
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_arch_config
 from repro_torch.data.pipeline import DataConfig, synthetic_batch, to_device
 from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.optim.adamw import AdamWConfig
@@ -44,10 +51,12 @@ def _sync(device: torch.device) -> None:
 def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                microbatches: int = 1, lr: float = 3e-4, ckpt_dir: str = "",
                save_every: int = 50, log_every: int = 10,
-               param_dtype=torch.float32, device=None):
+               param_dtype=torch.float32, device=None,
+               draw_on_device: bool = False):
     """Train ``cfg`` (a ``ModelConfig`` or a registry name) up to step
     ``steps`` (from the newest checkpoint in ``ckpt_dir`` when there is
-    one).  Returns (state, history): one dict per step run with its
+    one; ``draw_on_device`` draws the first params on the device).
+    Returns (state, history): one dict per step run with its
     ``step``, ``loss``, ``grad_norm``, ``lr`` and wall ``seconds`` (host
     clock around the step, ending in a device synchronize)."""
     rt = Runtime.create(cfg, shape_kind="train", seq_len=seq_len,
@@ -61,7 +70,7 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                       global_batch=global_batch)
     mgr = (CheckpointManager(ckpt_dir, save_every=save_every) if ckpt_dir
            else None)
-    state = rt.init_train_state()
+    state = rt.init_train_state(draw_on_device=draw_on_device)
     start = 0
     if mgr is not None:
         restored, at = mgr.restore_latest(state, device=rt.device)
@@ -109,6 +118,11 @@ def main(argv=None):
     ap.add_argument("--arch", default="exanode-100m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the full-width arch to this many layers "
+                         "(archs with a cut only; 0 = the published depth)")
+    ap.add_argument("--draw-on-device", action="store_true",
+                    help="draw the weights on the device from the seed")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -121,13 +135,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cpu to run the plain versions (default: the GPU)")
     args = ap.parse_args(argv)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = get_arch_config(args.arch, smoke=args.smoke, layers=args.layers)
     train_loop(cfg, steps=args.steps, global_batch=args.batch,
                seq_len=args.seq, microbatches=args.microbatches, lr=args.lr,
                ckpt_dir=args.ckpt_dir, save_every=args.save_every,
                log_every=args.log_every,
                param_dtype=torch.bfloat16 if args.bf16_params
-               else torch.float32, device=args.device)
+               else torch.float32, device=args.device,
+               draw_on_device=args.draw_on_device)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Block assembly over stacked layer parameters (port of
-``repro.models.blocks``: the ``attn``, ``mamba``, ``mamba_nof``,
-``mamba_moe``, ``mlstm`` and ``slstm`` kinds).
+``repro.models.blocks``: the ``attn``, ``attn_moe``, ``mamba``,
+``mamba_nof``, ``mamba_moe``, ``mlstm`` and ``slstm`` kinds).
 
 A group's parameters are stacked along a leading "layers" axis, as in the
 reference, so a reference parameter tree carries over leaf for leaf.  The
@@ -14,6 +14,8 @@ of a Mamba or xLSTM one).
 
 Block kinds
   attn       RMSNorm, GQA attention; RMSNorm, SwiGLU FFN
+  attn_moe   RMSNorm, GQA attention; RMSNorm, MoE FFN (its router loss is
+             the block's aux loss)
   mamba      RMSNorm, Mamba mixer; RMSNorm, SwiGLU FFN
   mamba_nof  RMSNorm, Mamba mixer (no FFN)
   mamba_moe  RMSNorm, Mamba mixer; RMSNorm, MoE FFN (its router loss is
@@ -51,6 +53,7 @@ from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
 
+ATTN_KINDS = ("attn", "attn_moe")
 MAMBA_KINDS = ("mamba", "mamba_nof", "mamba_moe")
 # the state leaves of a recurrent block's cache, in the order its mixer
 # returns them
@@ -61,9 +64,11 @@ STATE_LEAVES = {"mlstm": ("C", "n", "m", "conv"),
 
 def block_specs(kind: str, cfg: ModelConfig) -> dict:
     D = cfg.d_model
-    if kind == "attn":
+    if kind in ATTN_KINDS:
         return {"norm1": rmsnorm_spec(D), "attn": attention_specs(cfg),
-                "norm2": rmsnorm_spec(D), "ffn": mlp_specs(cfg)}
+                "norm2": rmsnorm_spec(D),
+                "ffn": (moe_specs(cfg, cfg.moe) if kind == "attn_moe"
+                        else mlp_specs(cfg))}
     if kind in MAMBA_KINDS:
         s = {"norm1": rmsnorm_spec(D),
              "mixer": ssm.mamba_specs(cfg, cfg.ssm)}
@@ -99,12 +104,12 @@ def layer(tree, i: int):
 
 def _ffn(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig):
     """The residual FFN half of a block: (x + FFN(norm2(x)), aux): the
-    MoE FFN of a ``mamba_moe`` block with its router loss, else the SwiGLU
-    FFN (``mamba_nof``: none) with aux None."""
+    MoE FFN of an ``attn_moe`` or ``mamba_moe`` block with its router
+    loss, else the SwiGLU FFN (``mamba_nof``: none) with aux None."""
     if kind == "mamba_nof":
         return x, None
     h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    if kind == "mamba_moe":
+    if kind.endswith("_moe"):
         f, aux = moe_ffn(h2, p["ffn"], cfg, cfg.moe)
         return x + f, aux
     return x + mlp(h2, p["ffn"], cfg), None
@@ -115,9 +120,12 @@ def block_forward(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     """One block of ``kind`` over the standard positions 0..S-1.
     Returns (x, aux, cache or None): aux is the block's MoE router loss
     (f32 scalar; None without MoE); the cache is the grouped (k, v)
-    [B,S,KV,Dh] of an ``attn`` block, or the final recurrent state of a
+    [B,S,KV,Dh] of an attention block (``attn``, ``attn_moe``), or the
+    final recurrent state of a
     Mamba (h, conv), ``mlstm`` (C, n, m, conv) or ``slstm`` (c, n, m, h)
-    block."""
+    block.  Under a sliding window the attention cache keeps only the
+    last ``window`` entries of a longer sequence (the reference's trim,
+    ``blocks.py:100``): no later query attends past them."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     cache = None
     if kind in MAMBA_KINDS:
@@ -136,6 +144,9 @@ def block_forward(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         return x + m, None, cache
     if collect_cache:
         a, (k, v) = attention(h, p["attn"], cfg, return_kv=True)
+        W = cfg.sliding_window
+        if W is not None and k.shape[1] > W:
+            k, v = k[:, -W:], v[:, -W:]
         cache = {"k": k, "v": v}
     else:
         a = attention(h, p["attn"], cfg)
@@ -226,7 +237,7 @@ def block_decode(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig,
                  cache: dict, *, pos: torch.Tensor, write_idx: torch.Tensor,
                  paged=None) -> torch.Tensor:
     """One block of ``kind``, one token; ``cache`` (this layer's views of
-    the stacked caches) is updated in place: an ``attn`` block writes the
+    the stacked caches) is updated in place: an attention block writes the
     token's K/V entry, a recurrent block copies its new state into every
     leaf.  ``paged`` = {"block_table": [B,M], "write_bids": [B]} switches
     an attention cache to the pooled paged layout (its leaves are then this
@@ -257,8 +268,7 @@ def block_decode(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig,
         a = attention_decode(h, p["attn"], cfg, k_cache=cache["k"],
                              v_cache=cache["v"], kv_positions=cache["pos"],
                              pos=pos, write_idx=write_idx)
-    x = x + a
-    return x + mlp(rmsnorm(x, p["norm2"], cfg.norm_eps), p["ffn"], cfg)
+    return _ffn(kind, x + a, p, cfg)[0]
 
 
 def run_groups_decode(x: torch.Tensor, group_params: list, caches: list,
@@ -287,7 +297,7 @@ def block_chunk(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig,
     reference: a recurrent mixer would need the sequential in-chunk scan
     that the full prefill already is.  ``paged`` = {"block_table": [B,M],
     "write_bids": [B,C]} switches to the pooled layout."""
-    if kind != "attn":
+    if kind not in ATTN_KINDS:
         raise ValueError(f"chunked prefill only supports self-attention "
                          f"blocks; got block kind {kind!r}")
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
@@ -302,8 +312,7 @@ def block_chunk(kind: str, x: torch.Tensor, p: dict, cfg: ModelConfig,
         a = attention_chunk_append(
             h, p["attn"], cfg, k_cache=cache["k"], v_cache=cache["v"],
             kv_positions=cache["pos"], positions=positions, reset=reset)
-    x = x + a
-    return x + mlp(rmsnorm(x, p["norm2"], cfg.norm_eps), p["ffn"], cfg)
+    return _ffn(kind, x + a, p, cfg)[0]
 
 
 def run_groups_chunk(x: torch.Tensor, group_params: list, caches: list,

@@ -5,11 +5,18 @@ The router picks each token's top-k experts; ``_dispatch`` packs the
 (token, expert) pairs into per-expert slots of a fixed capacity (pairs
 past it are dropped), the experts run as batched SwiGLU products over
 their [C, D] slots, and ``_combine`` adds each token's k weighted expert
-outputs back.  Routing is exactly the reference's: the capacity is a
-function of the call's token count (pad rows included), ties in the top-k
-go to the lower expert index, and the dispatch order is a stable sort by
-expert.  The expert products are ``torch.matmul``, as the reference leaves
-them to XLA outside any Pallas kernel.
+outputs back, in a fixed order: its pairs' order in the dispatch's stable
+sort by expert, left to right from zero, which is the order the
+reference's scatter-add (``.at[].add``) applies them on the CPU.  (An
+``index_add_`` would add them with atomics on the card, in no fixed order:
+at top-8 a token's sum could change from run to run.)  Routing is exactly
+the reference's: the capacity is a function of the call's token count
+(pad rows included), ties in the top-k go to the lower expert index, and
+the dispatch order is a stable sort by expert.  The expert products are
+``torch.bmm``, as the reference leaves them to XLA outside any Pallas
+kernel.  Every step is differentiable by autograd (the sorted top-k
+values, the dispatch's gather, the combine), as the reference
+differentiates its jnp; the router stays f32.
 
 The reference's expert-parallel and tensor-parallel bodies (all-to-all or
 psum across a mesh) and its token chunking under sharding rules need a
@@ -84,14 +91,25 @@ def _dispatch(x: torch.Tensor, experts: torch.Tensor, capacity: int,
 
 def _combine(yg: torch.Tensor, slot, pair_token_sorted, keep, weights,
              order, T: int) -> torch.Tensor:
-    """Scatter the expert outputs back to their tokens, weighted by the
-    router.  Each token's row gets exactly its k terms added onto zero, so
-    the order of the adds does not change the sum."""
+    """Gather the expert outputs back to their tokens, weighted by the
+    router, each token's k terms summed in a fixed order.  The sorted
+    pairs' contributions are placed at [T, k] by their rank among the
+    token's pairs in the sort (a token's pairs have distinct experts, so
+    the stable sort by expert ranks them by expert) and added left to
+    right onto zero: the order the reference's scatter-add applies them
+    in, and the same on every device and every run."""
+    k = order.numel() // T
     pair_w = weights.reshape(-1)[order]
     yg_pad = torch.cat([yg, yg.new_zeros(1, yg.shape[-1])])
     contrib = yg_pad[slot] * (pair_w * keep).to(yg.dtype)[:, None]
-    return yg.new_zeros(T, yg.shape[-1]).index_add_(0, pair_token_sorted,
-                                                    contrib)
+    # a stable sort by token lists each token's k sorted positions in
+    # increasing order: row t of ``per`` holds t's terms by their rank
+    by_token = torch.argsort(pair_token_sorted, stable=True)
+    per = contrib[by_token].view(T, k, -1)
+    y = contrib.new_zeros(T, contrib.shape[-1])
+    for r in range(k):
+        y = y + per[:, r]
+    return y
 
 
 def _expert_ffn(xg: torch.Tensor, wi_gate, wi_up, wo) -> torch.Tensor:

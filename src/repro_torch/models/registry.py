@@ -4,9 +4,10 @@ family's functional surface (port of the parts of
 
 ``check_supported`` is the slices' gate: the dense family (SwiGLU or
 GeGLU, with or without scaled embeddings: exanode-100m, llama3.2-3b,
-qwen3-4b, gemma-2b, granite-20b), xlstm-125m and jamba-v0.1-52b pass; a
-config that needs anything outside them raises ``NotImplementedError``
-naming the ROADMAP item that will bring it.
+qwen3-4b, gemma-2b, granite-20b), the MoE family (qwen3-moe-30b-a3b;
+mixtral-8x7b, with its sliding window), xlstm-125m and jamba-v0.1-52b
+pass; a config that needs anything outside them raises
+``NotImplementedError`` naming the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -16,29 +17,29 @@ import torch
 
 from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
 from repro_torch.models import lm
-from repro_torch.models.blocks import MAMBA_KINDS, kind_cache_key
+from repro_torch.models.blocks import (ATTN_KINDS, MAMBA_KINDS,
+                                      kind_cache_key)
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve import kvcache
 
 _LATER = "ROADMAP queue 1, item 11 (remaining families)"
 
 
-PORTED_KINDS = ("attn", "mlstm", "slstm") + MAMBA_KINDS
+PORTED_KINDS = ATTN_KINDS + ("mlstm", "slstm") + MAMBA_KINDS
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the port: dense
     decoder-only ``attn`` stacks with RoPE and a gated FFN (SwiGLU, or
     GeGLU as gemma-2b and granite-20b have it), scaled embeddings or not,
-    xLSTM stacks of ``mlstm`` / ``slstm`` blocks (xlstm-125m), and hybrid
-    stacks of ``attn`` and Mamba blocks with dense or MoE FFNs (jamba).
-    Refused: sliding windows, both logit softcaps, encoder-decoders,
-    frontends, learned positions and block kinds outside
-    ``PORTED_KINDS``."""
+    ``attn_moe`` stacks (qwen3-moe-30b-a3b, mixtral-8x7b), with or
+    without a sliding window (a ring-buffer KV cache), xLSTM stacks of
+    ``mlstm`` / ``slstm`` blocks (xlstm-125m), and hybrid stacks of
+    ``attn`` and Mamba blocks with dense or MoE FFNs (jamba).  Refused:
+    both logit softcaps, encoder-decoders, frontends, learned positions
+    and block kinds outside ``PORTED_KINDS``."""
     kinds = {k for g in cfg.groups for k in g.pattern}
     unsupported = {
-        "sliding-window attention (ring-buffer KV)":
-            cfg.sliding_window is not None,
         "attention logit softcap": cfg.attn_logit_softcap is not None,
         "final logit softcap": cfg.logit_softcap is not None,
         "Mamba blocks without an ssm config": cfg.ssm is None and bool(
@@ -62,18 +63,18 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port serves but does
-    not train: Mamba blocks, whose scan kernel has no backward kernel yet,
-    and MoE, whose training is not ported.  (The reference differentiates
-    its jnp math; the port adds no silent autograd through the plain
-    versions.)  Attention stacks train through the flash and FFN backward
-    kernels, xLSTM stacks through the mLSTM backward kernel and autograd
-    over the sLSTM's plain cell, as the reference's is jnp."""
+    not train: Mamba blocks, whose scan kernel has no backward kernel yet
+    (the port adds no silent autograd through the plain version).
+    Attention stacks train through the flash and FFN backward kernels,
+    MoE FFNs by autograd over the router, dispatch, ``torch.bmm`` experts
+    and fixed-order combine (the reference differentiates its jnp MoE,
+    outside any Pallas kernel), xLSTM stacks through the mLSTM backward
+    kernel and autograd over the sLSTM's plain cell, as the reference's
+    is jnp."""
     kinds = {k for g in cfg.groups for k in g.pattern}
     missing = {
         "Mamba blocks (a backward for the selective-scan kernel #12; "
         "ROADMAP queue 1, entry 5)": bool(kinds & set(MAMBA_KINDS)),
-        "mixture of experts (the router and expert backward; ROADMAP "
-        "queue 1, entries 4 and 5)": cfg.moe is not None,
     }
     missing = [what for what, hit in missing.items() if hit]
     if missing:
@@ -121,17 +122,24 @@ class Capabilities:
                         if getattr(self, n)) or "-"
 
 
+def _self_attention_stack(cfg: ModelConfig) -> bool:
+    """Every block a self-attention kind (the reference's structural law:
+    ``startswith("attn")`` and not ``attn_cross``), with no window."""
+    return cfg.sliding_window is None and all(
+        k.startswith("attn") and k != "attn_cross"
+        for g in cfg.groups for k in g.pattern)
+
+
 def capabilities(cfg: ModelConfig) -> Capabilities:
-    # Paged KV covers self-attention stacks without a sliding window (the
-    # reference's structural law).  The port has no plain gather route on
-    # the card, so the paged kernel's own limit (no logit softcap, the
-    # reference's ``paged_pallas_supported``) is part of the capability;
-    # the int8 pool shares both.  Recurrent (Mamba, xLSTM) states are O(1)
-    # per slot: there is nothing to page, so their stacks, hybrid ones
-    # included, are not paged.
-    paged = (cfg.sliding_window is None
-             and cfg.attn_logit_softcap is None
-             and all(k == "attn" for g in cfg.groups for k in g.pattern))
+    # Paged KV covers self-attention stacks without a sliding window, MoE
+    # FFNs or not (the reference's structural law; a ring buffer stays
+    # dense).  The port has no plain gather route on the card, so the
+    # paged kernel's own limit (no logit softcap, the reference's
+    # ``paged_pallas_supported``) is part of the capability; the int8 pool
+    # shares both.  Recurrent (Mamba, xLSTM) states are O(1) per slot:
+    # there is nothing to page, so their stacks, hybrid ones included, are
+    # not paged.
+    paged = _self_attention_stack(cfg) and cfg.attn_logit_softcap is None
     return Capabilities(
         swa=cfg.sliding_window is not None,
         subquadratic=cfg.subquadratic,
@@ -144,9 +152,7 @@ def capabilities(cfg: ModelConfig) -> Capabilities:
         # the reference's structural law: pure self-attention stacks with
         # absolute positions (a ring buffer would need ring-order chunk
         # writes, a recurrent mixer a sequential in-chunk scan)
-        supports_chunked_prefill=(
-            cfg.sliding_window is None
-            and all(k == "attn" for g in cfg.groups for k in g.pattern)))
+        supports_chunked_prefill=_self_attention_stack(cfg))
 
 
 def model_specs(cfg: ModelConfig):

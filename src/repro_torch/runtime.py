@@ -18,6 +18,12 @@
                         params=init_params(model_specs(cfg), 0, torch.bfloat16,
                                            "cuda", draw_on_device=True))
     engine = rt.engine(num_slots=16)                      # Mamba + MoE hybrid
+    cfg = qwen3_moe_30b_a3b.cut(12)                       # attn_moe, top-8
+    rt = Runtime.create(cfg, capacity=2048, param_dtype=torch.bfloat16,
+                        kv_layout="paged", kv_dtype="int8",
+                        params=init_params(model_specs(cfg), 0, torch.bfloat16,
+                                           "cuda", draw_on_device=True))
+    rt = Runtime.create(mixtral_8x7b.cut(4), ...)         # SWA ring buffer
     rt = Runtime.create("exanode-100m", capacity=2048, scheduler=True)
     engine = rt.engine(num_slots=16)                      # chunked prefill
     engine = rt.engine(num_slots=16, health_every=4, scrub_every=1,
@@ -39,7 +45,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import decode_attention as decode_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models import registry
-from repro_torch.models.blocks import MAMBA_KINDS, STATE_LEAVES
+from repro_torch.models.blocks import (MAMBA_KINDS, STATE_LEAVES,
+                                      kind_cache_key)
 from repro_torch.models.common import ModelConfig, count_params, init_params
 from repro_torch.serve import kvcache
 from repro_torch.serve import steps as serve_steps
@@ -95,6 +102,22 @@ def resolve_device(device) -> torch.device:
 # step loop is plain PyTorch)
 PREFILL_KERNELS = {"mlstm": "mlstm_scan (mLSTM prefill)",
                    **{k: "ssm_scan (Mamba prefill)" for k in MAMBA_KINDS}}
+
+
+MOE_NOTE = ("the MoE FFN's router, dispatch, torch.bmm experts and "
+            "fixed-order combine in plain PyTorch, as the reference's jnp")
+
+
+def block_kinds(cfg: ModelConfig) -> set[str]:
+    return {k for g in cfg.groups for k in g.pattern}
+
+
+def dense_ffn(cfg: ModelConfig) -> bool:
+    """Whether some block of ``cfg`` runs the dense SwiGLU FFN (#2): an
+    ``attn`` or ``mamba`` block of a SwiGLU config (``attn_moe`` and
+    ``mamba_moe`` blocks run the MoE FFN instead)."""
+    return cfg.mlp_act == "silu" and bool(block_kinds(cfg)
+                                          & {"attn", "mamba"})
 
 
 def recurrent_kinds(cfg: ModelConfig) -> dict[str, int]:
@@ -171,17 +194,21 @@ class Runtime:
         working dtype, "int8" quantized blocks with per-(block, kv head)
         scales, paged only); bad values raise ``ValueError`` here.  A
         config outside the port (any family but the dense decoder-only
-        ``attn`` stack, the xLSTM stack and the Jamba hybrid) raises
-        ``NotImplementedError`` naming the ROADMAP item that will bring
-        it.  A config with
+        ``attn`` stack, the ``attn_moe`` stack, the xLSTM stack and the
+        Jamba hybrid) raises ``NotImplementedError`` naming the ROADMAP
+        item that will bring it.  A sliding-window config (mixtral-8x7b)
+        serves over a dense ring buffer only: the paged layout, the int8
+        pool and the scheduler raise the reference's ``ValueError``, and
+        so does the engine's ``scrub_every``.  A config with
         recurrent blocks (xlstm-125m; jamba-v0.1-52b, whose Mamba states
         sit beside one attention layer's K/V) serves over the dense
         layout only (its states are O(1) per stream: the paged layout and
         the int8 pool raise the reference's ``ValueError``).  xlstm-125m
         trains (the mLSTM backward kernel, autograd over the sLSTM cell
-        under chunked remat); a train shape for a Mamba or MoE config
-        raises ``NotImplementedError`` (``registry.check_trainable``):
-        their training is not ported.  ``scheduler`` turns
+        under chunked remat), and so do MoE stacks (autograd over the
+        router and experts); a train shape for a Mamba config raises
+        ``NotImplementedError`` (``registry.check_trainable``): its
+        training is not ported.  ``scheduler`` turns
         on the engine's token-budget chunked-prefill scheduler
         (``serve.scheduler``; it needs ``caps.supports_chunked_prefill``,
         a pure self-attention stack without a sliding window, and raises
@@ -303,13 +330,15 @@ class Runtime:
 
     # -- training -----------------------------------------------------------
 
-    def init_train_state(self, seed: Optional[int] = None):
+    def init_train_state(self, seed: Optional[int] = None, *,
+                         draw_on_device: bool = False):
         """A fresh ``TrainState`` on this Runtime's device: params drawn
         from ``seed`` (default: the Runtime's) in ``param_dtype``, and
-        zero AdamW moments."""
+        zero AdamW moments; ``draw_on_device`` as in
+        ``models.common.init_params``."""
         return train_state_mod.init_train_state(
             self.specs, self.seed if seed is None else seed,
-            self.param_dtype, self.device)
+            self.param_dtype, self.device, draw_on_device=draw_on_device)
 
     def make_train_step(self, *, schedule=None, opt_cfg=None,
                         microbatches: int = 1):
@@ -402,7 +431,8 @@ class Runtime:
         realized number: ``ServeEngine.kv_cache_bytes``)."""
         kv_dtype = kv_dtype if kv_dtype is not None else self.kv_dtype
         cfg = self.cfg
-        layers = sum(g.repeats * sum(1 for k in g.pattern if k == "attn")
+        layers = sum(g.repeats * sum(1 for k in g.pattern
+                                     if kind_cache_key(k) == "attn")
                      for g in cfg.groups)
         itemsize = 1 if kv_dtype == "int8" else cfg.dtype.itemsize
         total = (layers * self.capacity * 2 * cfg.num_kv_heads
@@ -429,7 +459,8 @@ class Runtime:
                   f"{kvcache.state_bytes_per_stream(self.cfg):,})")
             kernels = list(dict.fromkeys(PREFILL_KERNELS[k] for k in rec
                                          if k in PREFILL_KERNELS))
-            if "attn" in {k for g in self.cfg.groups for k in g.pattern}:
+            if any(kind_cache_key(k) == "attn"
+                   for k in block_kinds(self.cfg)):
                 kernels.append("flash_attention fused_ffn decode_attention")
             lines.append(
                 f"  kernels   : {' '.join(kernels)} (the recurrent decode "
@@ -443,10 +474,11 @@ class Runtime:
                           (self.kv_layout, self.kv_dtype)]
             if self.scheduler and self.kv_dtype == "int8":
                 decode += " dequantize_int8"
-            ffn = " fused_ffn" if self.caps.supports_fused_ffn else ""
+            ffn = " fused_ffn" if dense_ffn(self.cfg) else ""
+            moe = (f"; {MOE_NOTE}" if self.cfg.moe is not None else "")
             lines.append(
-                f"  kernels   : flash_attention{ffn} {decode} ({impl})")
-        if "attn" in {k for g in self.cfg.groups for k in g.pattern}:
+                f"  kernels   : flash_attention{ffn} {decode} ({impl}){moe}")
+        if any(kind_cache_key(k) == "attn" for k in block_kinds(self.cfg)):
             lines.append(f"  routes    : {self.routes()}")
         try:
             registry.check_trainable(self.cfg)
@@ -455,8 +487,10 @@ class Runtime:
                        "under chunked remat" if "mlstm" in rec else
                        "flash_attention + flash_attention_bwd_dq/_dkv"
                        + (", fused_ffn + fused_ffn_bwd_dx/_dw"
-                          if self.caps.supports_fused_ffn else "")
-                       + f" (torch.autograd.Function; {impl})")
+                          if dense_ffn(self.cfg) else "")
+                       + f" (torch.autograd.Function; {impl})"
+                       + (f"; {MOE_NOTE}, by autograd"
+                          if self.cfg.moe is not None else ""))
             lines.append(
                 f"  train     : seq_len={self.seq_len} "
                 f"ce_chunk={self.ce_chunk} remat={self.cfg.remat_policy} "
@@ -492,13 +526,17 @@ class Runtime:
     def routes(self) -> str:
         """Which kernel computes each attention-stack op in the working
         dtype on the card: the FFN through #2 (SwiGLU) or in plain
-        PyTorch (GeGLU, as the reference keeps it on jnp), the flash
+        PyTorch (GeGLU, as the reference keeps it on jnp; the MoE FFN), the
+        flash
         forward's and backward's routes (``"tc"``: tensor cores, or
         ``"simt"``) at the config's head dim, and the q-head groups of
         the split-KV decode (``decode_attention.head_groups``)."""
         cfg, dt = self.cfg, self.cfg.dtype
         D, G = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
-        ffn = ("fused_ffn (#2, SwiGLU)" if cfg.mlp_act == "silu" else
+        ffn = (f"MoE (top-{cfg.moe.top_k} of {cfg.moe.num_experts} "
+               f"experts, plain PyTorch)"
+               if not dense_ffn(cfg) and cfg.moe is not None else
+               "fused_ffn (#2, SwiGLU)" if cfg.mlp_act == "silu" else
                f"plain {cfg.mlp_act} gating (GeGLU: three torch.matmul, as "
                f"the reference keeps it on jnp)")
         bwd = (flash_kernel.route_bwd(dt, D)
@@ -507,7 +545,11 @@ class Runtime:
         return (f"ffn={ffn}; flash forward={flash_kernel.route(dt, D)} "
                 f"backward={bwd} ({str(dt).split('.')[1]}, head dim {D}); "
                 f"decode G={G} in {groups} head group"
-                f"{'s' if groups > 1 else ''} of {G // groups}")
+                f"{'s' if groups > 1 else ''} of {G // groups}"
+                + (f"; window {cfg.sliding_window} (flash forward, backward"
+                   f" and decode over a ring buffer of "
+                   f"{kvcache.attn_cache_len(cfg, self.capacity)} entries)"
+                   if cfg.sliding_window is not None else ""))
 
     def __repr__(self) -> str:
         return f"Runtime({self.cfg.name!r}, device={self.device})"

@@ -378,7 +378,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     for g in cfg.groups:
         L, per = g.repeats, {}
         for j, kind in enumerate(g.pattern):
-            if kind != "attn":
+            if not kind.startswith("attn") or kind == "attn_cross":
                 raise ValueError(f"paged KV cache only supports "
                                  f"self-attention stacks; got {kind!r}")
             shape = (L, num_blocks, block_size, KV, Dh)

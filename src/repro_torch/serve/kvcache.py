@@ -11,9 +11,10 @@ sub-layer holds ``k``/``v`` [L,B,T,KV,Dh] in the working dtype and
 ``conv`` [L,B,K-1,Di]) and an ``slstm`` one (``c``, ``n``, ``m``, ``h``
 [L,B,H,dh], ``m`` starting at -inf), all f32.  Recurrent states are
 independent of the context length.  Where the reference returns updated
-copies, the port updates tensors in place.  Sliding-window ring buffers
-are not in this slice (``models.registry.check_supported`` rejects SWA
-configs).
+copies, the port updates tensors in place.  A sliding-window arch
+(mixtral-8x7b) keeps a ring buffer of T = min(window, capacity) entries:
+a token at position p sits in entry ``p % T`` (``write_index``), and the
+positional mask, not the entry order, says what a query attends.
 """
 from __future__ import annotations
 
@@ -130,13 +131,16 @@ def slot_rows(caches: list, slot: int) -> list:
 
 def pad_prefill_cache(cfg: ModelConfig, caches: list, prefill_len: int,
                       capacity: int) -> list:
-    """Prefill caches -> decode caches.  Attention (k, v) [L,B,S,KV,Dh]
-    go to [L,B,T,...] with T = capacity: entry i holds position i; entries
-    past S are empty (``pos = -1``); when S > T only the last T entries are
-    kept.  Recurrent states pass through as they are."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window ring-buffer caches are not "
-                                  "ported (ROADMAP queue 1, item 11)")
+    """Prefill caches -> decode caches.  Attention (k, v) [L,B,S,KV,Dh],
+    whose entries hold positions ``prefill_len - S .. prefill_len - 1``
+    (S is already the window under a sliding window whose prefill was
+    longer: ``blocks.block_forward`` trims it), go to [L,B,T,...] with T =
+    ``attn_cache_len(cfg, capacity)``.  When S < T entry i holds position
+    i and the entries past S are empty (``pos = -1``); when S >= T only the
+    last T entries are kept, and for a ring buffer they are rolled right by
+    ``p0 % T`` (p0 the first kept position), so that each sits at its slot
+    ``pos % T`` (the reference's ``kvcache.py:140-190``).  Recurrent
+    states pass through as they are."""
     T = attn_cache_len(cfg, capacity)
     out = []
     for g, gc in zip(cfg.groups, caches):
@@ -152,9 +156,12 @@ def pad_prefill_cache(cfg: ModelConfig, caches: list, prefill_len: int,
             pos = torch.arange(p_start, prefill_len, dtype=torch.int32,
                                device=k.device).expand(L, B, S)
             if S >= T:
-                per[name] = {"k": k[:, :, S - T:].contiguous(),
-                             "v": v[:, :, S - T:].contiguous(),
-                             "pos": pos[:, :, S - T:].contiguous()}
+                kept = [t[:, :, S - T:] for t in (k, v, pos)]
+                shift = ((p_start + S - T) % T
+                         if cfg.sliding_window is not None else 0)
+                per[name] = dict(zip(("k", "v", "pos"), (
+                    (torch.roll(t, shift, dims=2) if shift else t)
+                    .contiguous() for t in kept)))
                 continue
             nk = k.new_zeros((L, B, T) + tuple(k.shape[3:]))
             nv = v.new_zeros(nk.shape)

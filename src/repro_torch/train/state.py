@@ -22,9 +22,12 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(specs, seed: int = 0, param_dtype=torch.float32,
-                     device="cpu") -> TrainState:
-    """Params drawn from ``seed`` (``models.common.init_params``) and a
-    fresh AdamW state; ``param_dtype=torch.bfloat16`` selects mixed
-    precision (bf16 compute weights, f32 master copy in the optimizer)."""
-    params = init_params(specs, seed, param_dtype, device)
+                     device="cpu", *, draw_on_device: bool = False
+                     ) -> TrainState:
+    """Params drawn from ``seed`` (``models.common.init_params``, on
+    ``device`` itself with ``draw_on_device``) and a fresh AdamW state;
+    ``param_dtype=torch.bfloat16`` selects mixed precision (bf16 compute
+    weights, f32 master copy in the optimizer)."""
+    params = init_params(specs, seed, param_dtype, device,
+                         draw_on_device=draw_on_device)
     return TrainState(params, adamw_init(params))

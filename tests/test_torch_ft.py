@@ -547,8 +547,8 @@ def test_engine_injector_defaults_from_env(monkeypatch):
 
 def test_scrub_rejects_swa_arch():
     """The reference refuses ``scrub_every`` on a sliding-window arch with
-    a ``ValueError``; the port builds no SWA config (its registry refuses
-    them), so its engine's guard is exercised through the capability."""
+    a ``ValueError``; the port's engine guard, exercised here through the
+    capability (tests/test_torch_moe.py builds mixtral-8x7b itself)."""
     rt = PortRuntime.create(_cfg(), capacity=32, device="cpu")
     rt.caps = dataclasses.replace(rt.caps, swa=True)
     with pytest.raises(ValueError, match="sliding-window"):

@@ -485,7 +485,7 @@ def test_runtime_refuses_paged_int8_scheduler_and_training(jref):
     with pytest.raises(NotImplementedError, match="Mamba.*ROADMAP"):
         PortRuntime.create(ARCH, smoke=True, device="cpu",
                            shape_kind="train")
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
+    with pytest.raises(NotImplementedError, match="Mamba.*entry 5"):
         check_trainable(rt.cfg)
     text = rt.describe()
     assert ("  family    : hybrid (recurrent: mamba x3, mamba_moe x4; state "

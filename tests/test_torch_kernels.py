@@ -853,8 +853,10 @@ def test_ffn_dw_plan_tiles_fit_and_split_rows(N, D, F, splits):
 
 
 # every config the port registers with a SwiGLU FFN (xlstm-125m has none,
-# d_ff 0): the bf16 tensor-core FFN's widths
-SILU_ARCHS = ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b", "qwen3-4b")
+# d_ff 0): the bf16 tensor-core FFN's widths (the MoE configs' experts are
+# SwiGLU FFNs of d_ff each, which run as torch.bmm)
+SILU_ARCHS = ("exanode-100m", "llama3.2-3b", "jamba-v0.1-52b", "qwen3-4b",
+              "qwen3-moe-30b-a3b", "mixtral-8x7b")
 
 
 def test_silu_archs_are_every_registered_silu_config():

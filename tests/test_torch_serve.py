@@ -223,9 +223,10 @@ def test_runtime_without_cuda_raises(monkeypatch):
 
 def test_out_of_slice_requests_raise():
     cfg = port_smoke("exanode-100m")
-    # GeGLU and scaled embeddings are ported (tests/test_torch_dense.py);
-    # a frontend and learned positions are not
-    for bad in (cfg.scaled(sliding_window=8),
+    # GeGLU and scaled embeddings are ported (tests/test_torch_dense.py),
+    # and sliding windows (tests/test_torch_moe.py); a frontend, learned
+    # positions and the logit softcaps are not
+    for bad in (cfg.scaled(logit_softcap=30.0),
                 cfg.scaled(frontend="vision_stub", frontend_len=4),
                 cfg.scaled(attn_logit_softcap=30.0),
                 cfg.scaled(pos_emb="learned", max_position_embeddings=64)):

@@ -588,11 +588,11 @@ def test_runtime_rejects_paged_for_xlstm(jref):
 
 
 def test_runtime_still_rejects_train_for_jamba():
-    """xlstm-125m trains (tests/test_torch_xlstm_train.py); the hybrid,
-    with its Mamba and MoE blocks, still refuses a train shape, naming
-    the ROADMAP entries."""
+    """xlstm-125m trains (tests/test_torch_xlstm_train.py), and so do MoE
+    stacks (tests/test_torch_moe.py); the hybrid, with its Mamba blocks,
+    still refuses a train shape, naming the ROADMAP entry."""
     with pytest.raises(NotImplementedError,
-                       match="Mamba.*mixture of experts.*ROADMAP"):
+                       match="Mamba.*entry 5.*ROADMAP"):
         PortRuntime.create("jamba-v0.1-52b", smoke=True, device="cpu",
                            shape_kind="train")
 
@@ -615,17 +615,22 @@ def _port_config(rcfg) -> PortConfig:
 @pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "Mamba"),
                                        ("mixtral-8x7b", "mixture of experts")])
 def test_check_supported_still_rejects_jamba_and_mixtral(jref, arch, what):
-    """What the port still refuses of these archs: training their Mamba
-    or MoE blocks (``check_trainable``), with the message naming ROADMAP.
-    Serving jamba is ported (tests/test_torch_jamba.py), so
-    ``check_supported`` admits it; mixtral stays refused there for its
-    sliding-window ring buffer."""
+    """What the port still refuses of these archs: training jamba's Mamba
+    blocks (``check_trainable``), with the message naming ROADMAP; serving
+    jamba is ported (tests/test_torch_jamba.py), so ``check_supported``
+    admits it.  mixtral-8x7b, carried over field for field from the
+    reference's config, is ported whole since its sliding-window ring
+    buffer and MoE training came (tests/test_torch_moe.py): both gates
+    admit it, and its MoE blocks are no longer named as missing."""
     cfg = _port_config(jref["configs"].get_config(arch))
+    if arch == "mixtral-8x7b":
+        check_supported(cfg)
+        check_trainable(cfg)
+        with pytest.raises(NotImplementedError) as err:
+            check_trainable(_port_config(
+                jref["configs"].get_config("jamba-v0.1-52b")))
+        assert what not in str(err.value)
+        return
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
         check_trainable(cfg)
-    if arch == "mixtral-8x7b":
-        with pytest.raises(NotImplementedError,
-                           match="sliding-window.*ROADMAP"):
-            check_supported(cfg)
-    else:
-        check_supported(cfg)
+    check_supported(cfg)
