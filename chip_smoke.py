@@ -7,7 +7,7 @@
 Phases, in order, each printing one line:
 
   gpu      the card's name and power limit, as nvidia-smi reports them;
-  build    builds the ten kernel sources (fifteen kernels) from
+  build    builds the eleven kernel sources (sixteen kernels) from
            src/repro_torch/csrc, one nvcc each, all started together;
   kernels  holds each kernel against its plain PyTorch version on the card
            at its path's shapes (serving; for the four backward kernels,
@@ -19,7 +19,14 @@ Phases, in order, each printing one line:
            a given one with the final carry's grads, timed at the train
            shape; the Mamba scan at
            jamba-v0.1-52b's, dt/x [4,1024,8192], N 16, timed also at the
-           jamba profile's 16 x 1024), in f32 and bf16 (the
+           jamba profile's 16 x 1024; the Mamba scan's backward (#12b) at
+           jamba-v0.1-52b's train shape, dt/dy [8,512,8192], N 16, chunk
+           256, in f32 and bf16, from the zero state, from a given one
+           with the final state's gradient and over 600 steps padded to
+           768, timed in bf16 (a scan_bwd line with its times, bound and
+           SFU floor); the SwiGLU backward #6 / #7 at jamba width, x/dy
+           [4096,4096], F 14336, bf16, timed, and in f32 at 600 rows),
+           in f32 and bf16 (the
            paged kernels also with int8 pools; the paged and backward
            attention kernels also at llama3.2-3b's head dim 128 with 24 / 8
            heads; the int8 kernels #10, #11 and the int8 pool write at the
@@ -93,20 +100,21 @@ Phases, in order, each printing one line:
            Runtime.create(cfg, capacity=2048, param_dtype=bf16)
            .engine(num_slots=16), the serve phase's 32 requests over dense
            KV and the int8 paged pool, cold then warm, gemma-2b also
-           once through the chunked-prefill scheduler: qwen3-4b and gemma-2b at
-           full depth, granite-20b at 8 of its 52 layers; (c) gemma-2b's
+           once through the chunked-prefill scheduler: qwen3-4b at 12 of
+           its 36 layers, gemma-2b at 6 of 18, granite-20b at 8 of 52
+           (the time limit); (c) gemma-2b's
            bf16 training, 2 layers at batch 8 x 512, 20 steps, the loss
            falling; fails unless #4 / #5 ran at head dim 256, #3 / #8 / #9
            at G 48, and #2 in qwen3-4b's runs only;
   moe      the MoE family at full width, weights drawn on the card:
-           qwen3-moe-30b-a3b (128 experts top-8) cut to 2 layers in f32
+           qwen3-moe-30b-a3b (128 experts top-8) cut to 1 layer in f32
            against the CPU (prefill logits of 2 prompts x 600 tokens, decode
            ticks over dense, paged and int8 KV, a train step at 2 x 512,
-           the routes recorded); cut to 12 of 48 layers in bf16 serving the
+           the routes recorded); cut to 4 of 48 layers in bf16 serving the
            serve phase's 32 requests over dense, paged and int8 KV, each
            twice on fresh engines with equal streams (the top-8 combine is
            a fixed-order sum), then the int8 pool through the scheduler at
-           4 layers; 20 bf16 train steps of the 2-layer cut at 8 x 512;
+           2 layers; 20 bf16 train steps of a 2-layer cut at 8 x 512;
            mixtral-8x7b (8 experts top-2, window 4096) cut to 4 of 32
            layers in bf16 serving the same requests twice on its dense
            ring buffer, and cut to 1 layer in f32 against the CPU at
@@ -126,7 +134,7 @@ Phases, in order, each printing one line:
            prompt through model_chunk_prefill in chunks of 32 on dense,
            paged and int8 pools, logits on the card against the plain path
            on the CPU and the monolithic prefill; then exanode-100m at
-           full width cut to 4 of its 12 layers, Runtime.create(cfg,
+           full width cut to 2 of its 12 layers, Runtime.create(cfg,
            capacity=2048, scheduler=True).engine(num_slots=16) with the
            reference's default knobs serves the paged phase's 32 requests
            in bf16, dense, paged and int8, cold and then warm, beside the
@@ -156,6 +164,18 @@ Phases, in order, each printing one line:
            loss falls and mlstm_scan and mlstm_scan_bwd launched; then
            torch.profiler over one more step: device time by group (mLSTM
            forward, mLSTM backward, cuBLAS, the rest: the eager sLSTM);
+  jamba_train  jamba-v0.1-52b training at full width: in f32, one step's
+           loss and every grad leaf of the jamba phase's three-layer cut
+           (about 3.96 B parameters, drawn on the card), batch 1 x 600,
+           the kernels on the card (#12 keeping its chunk starts, #12b,
+           the flash and FFN backward kernels) against the plain path on
+           the CPU; then python -m repro_torch.launch.train's loop over
+           train_cut() (mamba, attn: 1,036,464,128 parameters), bf16
+           activations and f32 params, batch 8 x 512, 20 cosine steps,
+           every launch counter zeroed just before and read just after:
+           losses, step time p50, tokens/s, peak memory, launches a step;
+           fails unless the loss falls and ssm_scan, ssm_scan_bwd and the
+           flash and FFN forward and backward kernels launched;
   ft       fault tolerance on one card, exanode-100m at full width on the
            serve cell: in f32 over dense, paged and int8 pools a clean
            run and one with scrub_every=1, health_every=4 and FT_PLAN (a
@@ -213,7 +233,8 @@ import time
 from pathlib import Path
 
 PHASES = ("kernels", "model", "serve", "paged", "sched", "xlstm", "jamba",
-          "dense", "moe", "train", "xlstm_train", "ft", "train_profile",
+          "dense", "moe", "train", "xlstm_train", "jamba_train", "ft",
+          "train_profile",
           "xlstm_profile",
           "sched_profile", "jamba_profile")                      # the build always runs
 
@@ -278,6 +299,14 @@ MLSTM_REL_TOL = 1e-4
 # reaches 0.46x a 1e-3 atol + rtol against f64 at dh 384
 # (tests/test_torch_kernels.py); their norms agree to ~3e-6.
 MLSTM_BWD_TOL = 1e-4
+# The Mamba scan's backward (#12b) against its plain version, each output:
+# every element within SSM_BWD_TOL x max |want| and ||err|| / ||want||
+# within it.  f32 outputs (ddt, dA, dh0, and dx, dB, dC with f32
+# activations): 1e-4, as #13b; both sides rebuild the states from the
+# forward kernel's kept starts, the kernel with ex2.approx (2 ulp).  The
+# bf16 outputs (dx, dB, dC with bf16 activations) are rounded once from
+# f32 sums taken in another order: a bf16 step, BWD_REL_TOL["bfloat16"].
+SSM_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 MODEL_LOGITS_TOL = 1e-3
 # The train phase's f32 step against the CPU: the reference's fast-path
 # bounds (tests/test_train_fastpath.py:71-76), atol + rtol.  At full width
@@ -332,6 +361,10 @@ SOURCES = {
                        "src/repro/kernels/mlstm_scan.py:21"),
     "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:32"),
+    # #12b, the backward of #12: the reference has no Pallas backward and
+    # differentiates its jnp chunk body (src/repro/models/ssm.py:94)
+    "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
+                     "src/repro/kernels/ssm_scan.py:32"),
     "quantize_int8": ("src/repro_torch/csrc/quant.cu",
                       "src/repro/kernels/quant.py:39"),
     "dequantize_int8": ("src/repro_torch/csrc/quant.cu",
@@ -345,6 +378,7 @@ TRAIN_KERNELS = ("flash_attention", "fused_ffn", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "fused_ffn_bwd_dx",
                  "fused_ffn_bwd_dw")
 XLSTM_TRAIN_KERNELS = ("mlstm_scan", "mlstm_scan_bwd")
+JAMBA_TRAIN_KERNELS = ("ssm_scan", "ssm_scan_bwd") + TRAIN_KERNELS
 
 
 def gpu_line() -> str:
@@ -619,6 +653,9 @@ def kernels_phase(torch, timer) -> dict:
     out.update(mlstm_bwd_kernel(torch, timer))
     out.update(quant_kernels(torch, timer))
     out.update(ssm_kernel(torch, timer))
+    out.update(ssm_bwd_kernel(torch, timer))
+    for name, row in ffn_bwd_jamba_width(torch, timer).items():
+        out[name]["jamba_width"] = row
     return out
 
 
@@ -807,7 +844,7 @@ def ssm_kernel(torch, timer) -> dict:
                          check(sk.NAME, h, wh, name, "h"))
     del args32, y, h, wy, wh
 
-    def case(B: int, plain: bool) -> dict:
+    def case(B: int) -> dict:
         args = inputs(B, torch.bfloat16)
         y, h = sk.ssm_scan(*args)
         flops = 7 * B * S * Di * N + B * S * Di
@@ -822,19 +859,241 @@ def ssm_kernel(torch, timer) -> dict:
                   f"layer)",
             ms=timer.ms(kern), device_ms=timer.device_ms(kern),
             host_us=timer.host_us(kern),
-            plain_ms=timer.ms(lambda: ref.ref_ssm_scan(*args))
-            if plain else None,
+            plain_ms=timer.ms(lambda: ref.ref_ssm_scan(*args)),
             bound_ms=b_ms, bound_by=b_by, flops_counted=flops,
             exps_counted=B * S * Di * N)
         return out
 
-    entry = case(4, plain=True)
+    entry = case(4)
     entry.update(
         max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
         library_ms=None,
         library="none: no single PyTorch call computes a selective scan",
-        jamba_profile_shape=case(16, plain=False))
+        jamba_profile_shape=case(16))
     return {sk.NAME: entry}
+
+
+def check_ssm_bwd(got, want, what: str) -> tuple[float, float]:
+    """Max |got - want| and ||got - want|| / ||want|| of one #12b output;
+    raises unless every element is finite and within SSM_BWD_TOL of max
+    |want|, and the relative error within it too (the tolerance of the
+    output's dtype)."""
+    tol = SSM_BWD_TOL[str(want.dtype).split(".")[1]]
+    got, want = got.float(), want.float()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    rel = rel_err(got, want)
+    if not bool(got.isfinite().all()) or not err <= tol * scale \
+            or not rel <= tol:
+        raise AssertionError(
+            f"ssm_scan_bwd {what}: max abs err {err:.3g} over {tol} x max "
+            f"|want| {scale:.3g}, or ||err|| / ||want|| {rel:.3g} over {tol}")
+    return err, rel
+
+
+def ssm_bwd_kernel(torch, timer) -> dict:
+    """#12b, the Mamba scan's backward, against ``ref_ssm_scan_bwd`` on
+    the card at jamba-v0.1-52b's train shape: dt [8,512,8192] f32, A
+    [8192,16], chunk 256 (two chunks), x and B/C in f32 and in bf16 (the
+    train path's dtype), the kernel phase's recipe (dt = softplus(N(0,1)),
+    A = -exp(N(0,1))) and N(0, 1) cotangents, both sides fed the states #12
+    kept at the chunk starts: from the zero state, from a given state with
+    the final state's gradient, and over a padded length (600 steps in 768
+    with dt = 0 and dy = 0 past 600, as the mixer pads: dx, dB and dC must
+    be zero there).  Timed in bf16 from the zero state on the ``ms``,
+    ``device_ms`` and ``host_us`` timers.
+
+    The bound counts each input (dt, x, B, C, A, the kept starts, dy) and
+    output (ddt, dx, dB, dC, dA) once, and the operations the function
+    needs at f32's rate: per (b, t, d, n) the rebuilt a_t and h_{t-1} (the
+    exp, dt·A, bx·B, the FMA of h: 5), the adjoint's FMA and a·g (3), and
+    the terms of dA (4), ddt (4), dx, dB and dC (2 each) with their sums;
+    per (b, t, d) dt·x and dx's product.  The SFU floor of one exp an
+    element is on the ``scan_bwd:`` line.  No single PyTorch call computes
+    it: no library yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as sk
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, S, Di, N, L = 8, 512, 8192, 16, 256
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def inputs(S, dtype):
+        dt = torch.nn.functional.softplus(randn(B, S, Di))
+        return (dt, randn(B, S, N).to(dtype), randn(B, S, N).to(dtype),
+                randn(B, S, Di).to(dtype), -torch.exp(randn(Di, N)))
+
+    errs, rels = {}, {}
+
+    def case(what, ins, h0=None, dh=None, dy=None):
+        _, _, states = sk.ssm_scan(*ins, h0, chunk=L, keep=True)
+        dy = randn(*ins[0].shape) if dy is None else dy
+        got = sk.ssm_scan_bwd(*ins, h0, states, dy, dh=dh, chunk=L)
+        want = ref.ref_ssm_scan_bwd(*ins, h0, states, dy, dh=dh, chunk=L)
+        for name, g, w in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"), got,
+                              want):
+            if w is not None:
+                key = f"{what} {name}"
+                errs[key], rels[key] = check_ssm_bwd(g, w, key)
+        return states, dy, got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        case(f"{name} from zero", inputs(S, dtype))
+        case(f"{name} from a state", inputs(S, dtype),
+             h0=randn(B, Di, N), dh=randn(B, Di, N))
+    cut, Sp = 600, 768
+    ins = inputs(Sp, torch.bfloat16)
+    ins[0][:, cut:] = 0.0
+    dy = randn(B, Sp, Di)
+    dy[:, cut:] = 0.0
+    _, _, pad = case("bf16 600 of 768 padded", ins, dy=dy)
+    if any(bool(g[:, cut:].any()) for g in pad[1:4]):
+        raise AssertionError("ssm_scan_bwd: dx, dB or dC non-zero on the "
+                             "pad steps")
+    del ins, dy, pad
+    ins = inputs(S, torch.bfloat16)
+    states, dy, got = case("bf16 timed", ins)
+    nb = nbytes(*ins, states, dy, *got[:5])
+    elems = B * S * Di * N
+    flops = 22 * elems + 2 * B * S * Di
+    b_ms, b_by = bound(nb, flops, "float32")
+
+    def kern():
+        return sk.ssm_scan_bwd(*ins, None, states, dy, chunk=L)
+    return {sk.NAME_BWD: dict(
+        shape=f"dt/dy [{B},{S},{Di}] f32, x [{B},{S},{Di}] and B/C "
+              f"[{B},{S},{N}] bf16, A [{Di},{N}], chunk {L}, from the zero "
+              f"state (a jamba train step's Mamba layer at 8 x 512)",
+        max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
+        rel_err_by_output=rels,
+        ms=timer.ms(kern), device_ms=timer.device_ms(kern),
+        host_us=timer.host_us(kern),
+        plain_ms=timer.ms(lambda: ref.ref_ssm_scan_bwd(
+            *ins, None, states, dy, chunk=L)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes a selective scan's "
+                "backward",
+        flops_counted=flops, bytes_counted=nb, exps_counted=elems)}
+
+
+def ffn_bwd_jamba_width(torch, timer) -> dict:
+    """#6 and #7 at jamba-v0.1-52b's train shape, x/dy [4096,4096] (8 x
+    512 tokens), d_ff 14336, bf16 (the tensor-core route), against the
+    plain backward and timed (``ms``, ``device_ms``, ``host_us``) beside
+    the library's matmuls; and in f32 at the jamba_train phase's f32 step,
+    600 rows (the SIMT kernels: dx in 4-row blocks at d_model 4096, dW in
+    4-wide F tiles), dx's tolerance scaled by sqrt(F / 512) as the
+    forward's at this width (the F-term f32 sums' rounding grows as
+    sqrt(F)).  Bounds as ``backward_kernels``' rows."""
+    from repro_torch.kernels import fused_ffn as ffn
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    N, D, Fd = 4096, 4096, 14336
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    w32 = [randn(D, Fd, scale=D ** -0.5), randn(D, Fd, scale=D ** -0.5),
+           randn(Fd, D, scale=Fd ** -0.5)]
+    args32 = [randn(600, D)] + w32 + [randn(600, D)]
+    want = ref.ref_swiglu_ffn_bwd(*args32)
+    f32_dx = check_grad(ffn.NAME_BWD_DX, ffn.swiglu_ffn_bwd_dx(*args32),
+                        want[0], "float32", "jamba width f32 N=600",
+                        TOL["fused_ffn_bwd_dx"]["float32"]
+                        * (Fd / 512) ** 0.5)
+    f32_dw = worst(*(check_grad(ffn.NAME_BWD_DW, g, w, "float32",
+                                "jamba width f32 N=600", dw_tol(600,
+                                                                "float32"))
+                     for g, w in zip(ffn.swiglu_ffn_bwd_dw(*args32),
+                                     want[1:])))
+    del args32, want
+    x, dy = randn(N, D).to(torch.bfloat16), randn(N, D).to(torch.bfloat16)
+    wg, wu, wd = (t.to(torch.bfloat16) for t in w32)
+    del w32
+    want = ref.ref_swiglu_ffn_bwd(x, wg, wu, wd, dy)
+    what = f"jamba width bf16 N={N}"
+    dx_err = check_grad(ffn.NAME_BWD_DX,
+                        ffn.swiglu_ffn_bwd_dx(x, wg, wu, wd, dy), want[0],
+                        "bfloat16", what)
+    dw_err = worst(*(check_grad(ffn.NAME_BWD_DW, g, w, "bfloat16", what)
+                     for g, w in zip(ffn.swiglu_ffn_bwd_dw(x, wg, wu, wd,
+                                                           dy), want[1:])))
+    del want
+    pairs = ffn.swiglu_ffn_bwd_grads(x, wg, wu, wd, dy)
+    hi = [t[0] for t in pairs]
+
+    def path_dx():
+        return ffn.swiglu_ffn_bwd_dx(x, wg, wu, wd, dy)
+
+    def dw():
+        return ffn.swiglu_ffn_bwd_dw_tc(x, dy, *pairs)
+
+    def lib_dx():
+        g, u, dh = x @ wg, x @ wu, dy @ wd.t()
+        sg = torch.sigmoid(g)
+        dg = dh * u * (sg + g * sg * (1 - sg))
+        return dg @ wg.t() + (dh * g * sg) @ wu.t()
+
+    def lib_dw():
+        return x.t() @ hi[0], x.t() @ hi[1], hi[2].t() @ dy
+
+    shape = f"x/dy [{N},{D}] Wg/Wu [{D},{Fd}] Wd [{Fd},{D}] bf16"
+    dx_b, dx_by = bound(nbytes(x, wg, wu, wd, dy, x, *pairs),
+                        5 * 2 * N * D * Fd, "bfloat16")
+    dw_b, dw_by = bound(nbytes(x, dy, *hi, wg, wu, wd), 3 * 2 * N * D * Fd,
+                        "bfloat16")
+    rows = {
+        ffn.NAME_BWD_DX: dict(
+            shape=f"{shape}; the gradient kernel and the dx kernel",
+            max_abs_err=dx_err["err"], rel_err=dx_err["rel"],
+            max_abs_err_f32_n600=f32_dx["err"], rel_err_f32_n600=f32_dx["rel"],
+            ms=timer.ms(path_dx), device_ms=timer.device_ms(path_dx),
+            host_us=timer.host_us(path_dx),
+            plain_ms=timer.ms(lambda: ref.ref_swiglu_ffn_bwd(x, wg, wu, wd,
+                                                             dy)),
+            bound_ms=dx_b, bound_by=dx_by, library_ms=timer.ms(lib_dx),
+            library_device_ms=timer.device_ms(lib_dx)),
+        ffn.NAME_BWD_DW: dict(
+            shape=f"{shape}; the dW kernel alone over the gradient kernel's "
+                  f"pairs [2,{N},{Fd}]",
+            max_abs_err=dw_err["err"], rel_err=dw_err["rel"],
+            max_abs_err_f32_n600=f32_dw["err"], rel_err_f32_n600=f32_dw["rel"],
+            ms=timer.ms(dw), device_ms=timer.device_ms(dw),
+            host_us=timer.host_us(dw),
+            plain_ms=timer.ms(lambda: ref.ref_swiglu_ffn_bwd_dw(
+                x, dy, *(t.float().sum(0) for t in pairs))),
+            bound_ms=dw_b, bound_by=dw_by, library_ms=timer.ms(lib_dw),
+            library_device_ms=timer.device_ms(lib_dw))}
+    del x, dy, wg, wu, wd, pairs, hi
+    torch.cuda.empty_cache()
+    return rows
+
+
+def scan_bwd_line(torch, entries: dict, gpu: str) -> str:
+    """#12b's errors by output and times beside its bound and SFU floor,
+    and #6 / #7 at jamba width beside their bounds and the library."""
+    e = entries["ssm_scan_bwd"]
+    worst_rel = max(e["rel_err_by_output"].values())
+    parts = [f"ssm_scan_bwd {e['shape']}: {e['ms']:.4f} ms, device "
+             f"{e['device_ms']:.4f}, host {e['host_us']:.1f} us, plain "
+             f"{e['plain_ms']:.1f}; bound {e['bound_ms']:.4f} "
+             f"{e['bound_by']}, SFU floor "
+             f"{sfu_floor_ms(torch, e['exps_counted']):.4f}; max abs err "
+             f"{e['max_abs_err']:.3g}, largest ||err|| / ||want|| "
+             f"{worst_rel:.3g} (tol {SSM_BWD_TOL})"]
+    for name in ("fused_ffn_bwd_dx", "fused_ffn_bwd_dw"):
+        j = entries[name]["jamba_width"]
+        parts.append(
+            f"{name} at jamba width {j['shape']}: {j['ms']:.4f} ms, device "
+            f"{j['device_ms']:.4f}, host {j['host_us']:.1f} us, plain "
+            f"{j['plain_ms']:.3f}, library {j['library_ms']:.4f} (device "
+            f"{j['library_device_ms']:.4f}); bound {j['bound_ms']:.4f} "
+            f"{j['bound_by']}; err bf16 {j['max_abs_err']:.3g} (rel "
+            f"{j['rel_err']:.3g}), f32 600 rows "
+            f"{j['max_abs_err_f32_n600']:.3g} (rel "
+            f"{j['rel_err_f32_n600']:.3g})")
+    return "scan_bwd: " + " | ".join(parts) + f" [{gpu}]"
 
 
 def mlstm_kernel(torch, timer) -> dict:
@@ -1924,7 +2183,8 @@ def scan_quant_line(torch, entries: dict, gpu: str) -> str:
     for e in (scan, scan["jamba_profile_shape"]):
         parts.append(
             f"ssm_scan {e['shape']}: {e['ms']:.4f} ms, device "
-            f"{e['device_ms']:.4f}, host {e['host_us']:.1f} us; bound "
+            f"{e['device_ms']:.4f}, host {e['host_us']:.1f} us, plain "
+            f"{e['plain_ms']:.1f}; bound "
             f"{e['bound_ms']:.4f} {e['bound_by']}, SFU floor "
             f"{sfu_floor_ms(torch, e['exps_counted']):.4f}")
     q = entries["quantize_int8"]
@@ -1950,11 +2210,13 @@ def leaf_paths(tree, pre: str = "") -> list:
     return [pre]
 
 
-def f32_step_errs(torch, cfg, B: int, S: int,
-                  rel_tols: dict | None = None) -> tuple[dict, list]:
-    """One f32 step of ``cfg`` (params from seed 0, the synthetic batch
-    of step 0, B x S): its loss and every grad leaf with the kernels on the
-    card against the plain path on the CPU.  Returns ({"loss": max abs
+def f32_step_errs(torch, cfg, B: int, S: int, rel_tols: dict | None = None,
+                  on_card: bool = False) -> tuple[dict, list]:
+    """One f32 step of ``cfg`` (params from seed 0, drawn on the host, or
+    with ``on_card`` on the card (``card_params``, quick for billions) and
+    copied to the host; the synthetic batch of step 0, B x S): its loss
+    and every grad leaf with the kernels on the card against the plain
+    path on the CPU.  Returns ({"loss": max abs
     err, "grad": max abs grad err, "rel": largest leaf ||err|| / ||grad||
     held to TRAIN_GRAD_REL_TOL, "own_rel": that of the leaves ``rel_tols``
     names, "cpu_s" / "cuda_s": each side's wall seconds}, failures)
@@ -1966,13 +2228,19 @@ def f32_step_errs(torch, cfg, B: int, S: int,
     from repro_torch.models.registry import model_specs
     from repro_torch.train.steps import value_and_grad
     cfg = cfg.scaled(dtype=torch.float32)
-    cpu_params = init_params(model_specs(cfg), seed=0)
+    if on_card:
+        params = {"cuda": card_params(torch, cfg, torch.float32)}
+        params["cpu"] = tree_map(lambda t: t.cpu(), params["cuda"])
+    else:
+        cpu_params = init_params(model_specs(cfg), seed=0)
+        params = {dev: tree_map(lambda t: t.to(dev), cpu_params)
+                  for dev in ("cpu", "cuda")}
     batch = synthetic_batch(DataConfig(cfg.vocab_size, S, B), 0)
     res, errs = {}, {}
     for dev in ("cpu", "cuda"):
         t0 = time.perf_counter()
-        res[dev] = value_and_grad(tree_map(lambda t: t.to(dev), cpu_params),
-                                  to_device(batch, dev), cfg)
+        res[dev] = value_and_grad(params.pop(dev), to_device(batch, dev),
+                                  cfg)
         torch.cuda.synchronize()
         errs[f"{dev}_s"] = time.perf_counter() - t0
     loss_err = abs(float(res["cuda"][0]) - float(res["cpu"][0]))
@@ -2155,6 +2423,57 @@ def xlstm_train_phase(torch, gpu: str) -> tuple[str, dict]:
         raise AssertionError(line + "\nxlstm_train phase failed: "
                              + "; ".join(failed))
     return line, {n: run["launches"][n] for n in XLSTM_TRAIN_KERNELS}
+
+
+# The jamba_train phase's bf16 run: 20 steps of train_cut() at 8 x 512 at
+# the launcher's default peak lr, 3e-4.  scripts/jamba_lr_probe.py: the
+# drop is 0.0335 at 3e-4, 0.0409 at 4e-4, 0.0559 at 5e-4 (a spike at step
+# 10) and 0.0089 at 6e-4 (the loss rose to 11.92 by step 11); at 3e-4
+# two calls gave the same losses to four decimals (an NVIDIA H100 80GB
+# HBM3 at 700 W).
+JAMBA_TRAIN_STEPS = 20
+
+
+def jamba_train_phase(torch, gpu: str) -> tuple[str, dict]:
+    """jamba-v0.1-52b training at full width: (a) one f32 step of the
+    jamba phase's three-layer cut (mamba, mamba_moe, attn; about 3.96 B
+    parameters, drawn on the card) at batch 1 x 600 (two 256-step chunks
+    and a padded third: 600 is not a multiple of the chunk), its loss and
+    every grad leaf with the kernels on the card (#12 keeping its chunk
+    starts, #12b, the flash and FFN backward kernels in f32) against the
+    plain path on the CPU, within TRAIN_LOSS_TOL, TRAIN_GRAD_TOL and
+    TRAIN_GRAD_REL_TOL; (b) python -m repro_torch.launch.train's loop over
+    ``train_cut()`` (mamba, attn: 1,036,464,128 parameters, the depth one
+    card trains with f32 params and AdamW), bf16 activations, batch 8 x
+    512, JAMBA_TRAIN_STEPS cosine steps to peak lr 3e-4, params drawn on
+    the card, every
+    launch counter zeroed just before and read just after.  Fails unless
+    the loss falls by more than TRAIN_LOSS_DROP and every kernel of
+    JAMBA_TRAIN_KERNELS launched.  The forward scan's launches are counted,
+    not assumed: under remat "minimal" the backward reruns #12."""
+    from repro_torch.configs.jamba_v0_1_52b import TRAIN_CUT, train_cut
+    from repro_torch.models.common import LayerGroup
+    cfg = train_cut().scaled(num_layers=len(JAMBA_CUT),
+                             groups=(LayerGroup(JAMBA_CUT, 1),))
+    errs, failed = f32_step_errs(torch, cfg, 1, XLSTM_PROMPT, on_card=True)
+    torch.cuda.empty_cache()
+    run, more = bf16_train_run(torch, train_cut(), JAMBA_TRAIN_KERNELS,
+                               steps=JAMBA_TRAIN_STEPS, draw_on_device=True)
+    failed += more
+    torch.cuda.empty_cache()
+    what = (f"jamba-v0.1-52b f32, the cut {'/'.join(JAMBA_CUT)} at full "
+            f"width, batch 1 x {XLSTM_PROMPT}")
+    per = {n: run["launches"][n] / JAMBA_TRAIN_STEPS
+           for n in ("ssm_scan", "ssm_scan_bwd")}
+    line = (f"jamba_train: {step_errs_text(errs, what)}; CPU side "
+            f"{errs['cpu_s']:.1f} s, card {errs['cuda_s']:.1f} s; "
+            f"train_cut() {'/'.join(TRAIN_CUT)} (1,036,464,128 params): "
+            f"{run['text']}; a step launched ssm_scan {per['ssm_scan']:g} "
+            f"and ssm_scan_bwd {per['ssm_scan_bwd']:g} times [{gpu}]")
+    if failed:
+        raise AssertionError(line + "\njamba_train phase failed: "
+                             + "; ".join(failed))
+    return line, {n: run["launches"][n] for n in JAMBA_TRAIN_KERNELS}
 
 
 # kernel-name substrings -> the groups of the train profile
@@ -2865,6 +3184,13 @@ def jamba_phase(torch, gpu: str) -> tuple[str, dict]:
 DENSE_ARCHS = ("qwen3-4b", "gemma-2b", "granite-20b")
 DENSE_CUT = 2            # layers of the f32 check against the CPU
 GRANITE_SERVE_LAYERS = 8   # of 52: 4.8 B params, 9.7 GB in bf16
+# The bf16 serving depths (the time limit): qwen3-4b 12 of 36 layers,
+# gemma-2b 6 of 18, granite-20b GRANITE_SERVE_LAYERS of 52.  With the
+# jamba_train phase the whole script took 1253 s at full depth (PR 30's
+# call 4 on an NVIDIA H100 80GB HBM3 at 700 W: the dense phase 260 s, of
+# which qwen3-4b's four serve runs 51 s and gemma-2b's scheduled run 57).
+DENSE_SERVE_LAYERS = {"qwen3-4b": 12, "gemma-2b": 6,
+                      "granite-20b": GRANITE_SERVE_LAYERS}
 DENSE_TRAIN_STEPS, DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ = 20, 8, 512
 # what each dense config's runs must launch: #2 only where the FFN is
 # SwiGLU (qwen3-4b; GeGLU stays plain, as in the reference), the flash
@@ -2878,12 +3204,14 @@ DENSE_SERVE_KERNELS = {
 
 
 def dense_config(arch: str, **kw):
-    """The registered config at full width; granite-20b cut to
-    GRANITE_SERVE_LAYERS layers (its 52 do not fit one card's draw)."""
+    """The registered config at full width cut to DENSE_SERVE_LAYERS[arch]
+    layers (granite-20b's 52 do not fit one card's draw; the others: the
+    time limit)."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.granite_20b import cut
-    cfg = cut(GRANITE_SERVE_LAYERS) if arch == "granite-20b" else \
-        get_config(arch)
+    from repro_torch.models.common import LayerGroup
+    n = DENSE_SERVE_LAYERS[arch]
+    cfg = get_config(arch).scaled(num_layers=n,
+                                  groups=(LayerGroup(("attn",), n),))
     return cfg.scaled(**kw) if kw else cfg
 
 
@@ -3135,9 +3463,13 @@ def dense_phase(torch, gpu: str) -> tuple[str, dict]:
     return line, total
 
 
-MOE_CUT = 2                 # layers of qwen3-moe's f32 checks and training
-QWEN_MOE_SERVE_LAYERS = 12  # of 48: 8.1 B params, 16 GB in bf16
-QWEN_MOE_SCHED_LAYERS = 4   # the scheduler run's depth (the time limit)
+MOE_CUT = 2                 # layers of qwen3-moe's training
+MOE_F32_CUT = 1             # layers of qwen3-moe's f32 check (the time limit)
+# qwen3-moe's bf16 serving depth, 4 of 48 layers (3.1 B params), and the
+# scheduler run's, 2: at 12 and 4 layers their seven runs took 77 of the
+# moe phase's 180 s in PR 30's call 4 (the whole script 1253 s).
+QWEN_MOE_SERVE_LAYERS = 4
+QWEN_MOE_SCHED_LAYERS = 2
 MIXTRAL_SERVE_LAYERS = 4    # of 32: 6.1 B params, 12 GB in bf16
 # mixtral's f32 check: one layer at a capacity past the window (a ring of
 # 4096), a prompt inside it and one past it, each decoded for some steps
@@ -3242,7 +3574,7 @@ def mixtral_ring_check(torch) -> tuple[dict, dict]:
 
 def moe_phase(torch, gpu: str) -> tuple[str, dict]:
     """The MoE family at full width, weights drawn on the card from seed 0.
-    qwen3-moe-30b-a3b: (a) a MOE_CUT-layer cut in f32 against the CPU
+    qwen3-moe-30b-a3b: (a) a MOE_F32_CUT-layer cut in f32 against the CPU
     (``f32_cut_check``: prefill and decode logits over dense, paged and
     int8 KV within MODEL_LOGITS_TOL, a train step at 2 x 512 within
     TRAIN_LOSS_TOL / TRAIN_GRAD_TOL); (b) QWEN_MOE_SERVE_LAYERS layers in
@@ -3278,14 +3610,14 @@ def moe_phase(torch, gpu: str) -> tuple[str, dict]:
             failed.append(f"{what}: fused_ffn launched for an MoE stack")
 
     # (a) qwen3-moe, f32 cut against the CPU
-    cut = qwen3_moe_30b_a3b.cut(MOE_CUT).scaled(dtype=torch.float32)
+    cut = qwen3_moe_30b_a3b.cut(MOE_F32_CUT).scaled(dtype=torch.float32)
     figs, launches = f32_cut_check(torch, cut, train_seq=MOE_TRAIN_SEQ)
     add(launches, "qwen3-moe f32", sorted(set(MOE_KERNELS["paged"]
                                               + MOE_KERNELS["int8"]
                                               + MOE_KERNELS["train"])))
     failed += [f"qwen3-moe f32: {b}" for b in figs["failed"]]
     parts.append(
-        f"qwen3-moe-30b-a3b f32 {MOE_CUT}-layer cut ({figs['params']:,} "
+        f"qwen3-moe-30b-a3b f32 {MOE_F32_CUT}-layer cut ({figs['params']:,} "
         f"params), 2 prompts x {XLSTM_PROMPT}: logits err prefill "
         f"{figs['errs'][0]:.3g}, dense ticks {fmt(figs['errs'][1:])}, paged "
         f"f32 {fmt(figs['paged']['f32']['errs'])}, int8 "
@@ -3498,10 +3830,11 @@ def paged_phase(torch, gpu: str) -> tuple[str, dict]:
 SCHED_PROMPT, SCHED_CAPACITY = 600, 640  # f32 check: 19 chunks, last padded
 SCHED_CHUNK = 32                         # the reference's default chunk
 # The scheduler's serve runs (a cold and a warm one a layout, ~610 ticks
-# each, host-bound) at 4 of exanode-100m's 12 layers, full width, beside
+# each, host-bound) at 2 of exanode-100m's 12 layers, full width, beside
 # monolithic runs at the same depth: at 12 layers they took 170 of the
-# whole script's 765 s on the H100, time the xlstm_train phase needs.
-SCHED_SERVE_LAYERS = 4
+# whole script's 765 s on the H100 (PR 28), at 4 about 87 of the sched
+# phase's 106 s in PR 30's call 4, whose whole script took 1253 s.
+SCHED_SERVE_LAYERS = 2
 # per layout: the kernels a scheduler run must launch (the chunk attends in
 # plain torch, as the reference's is jnp, so flash_attention does not run)
 SCHED_KERNELS = {"dense": ("fused_ffn", "decode_attention"),
@@ -4309,6 +4642,7 @@ def main() -> int:
         print(moe_shapes_line(entries, gpu), flush=True)
         print(wide_groups_line(entries, gpu), flush=True)
         print(scan_quant_line(torch, entries, gpu), flush=True)
+        print(scan_bwd_line(torch, entries, gpu), flush=True)
         print(split_sweep(torch, gpu, args.iters), flush=True)
         secs["kernels"] = time.perf_counter() - t0
     if "model" in phases:
@@ -4322,6 +4656,7 @@ def main() -> int:
                       ("dense", dense_phase), ("moe", moe_phase),
                       ("train", train_phase),
                       ("xlstm_train", xlstm_train_phase),
+                      ("jamba_train", jamba_train_phase),
                       ("ft", ft_phase)):
         if path in phases:
             t0 = time.perf_counter()

@@ -31,6 +31,21 @@ def one_period() -> ModelConfig:
     return config().scaled(num_layers=8, groups=(LayerGroup(PERIOD, 1),))
 
 
+# the training cut: the period's first Mamba layer and its attention layer
+TRAIN_CUT = ("mamba", "attn")
+
+
+def train_cut() -> ModelConfig:
+    """The full-width model cut to the period's (mamba, attn) layers:
+    1,036,464,128 parameters, 16.6 GB as f32 params, grads and AdamW
+    moments (16 B a parameter) before activations: the depth one 80 GB
+    card trains.  A mamba_moe layer alone is 3.46 B parameters (55.4 GB
+    at 16 B each).  Only depth is cut; every width is the published
+    one."""
+    return config().scaled(num_layers=len(TRAIN_CUT),
+                           groups=(LayerGroup(TRAIN_CUT, 1),))
+
+
 def smoke() -> ModelConfig:
     return config().scaled(
         num_layers=8, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,

@@ -50,7 +50,8 @@
 // f32 stays on the first SIMT versions, kept for the f32 parity checks.
 // * dX (ffn_bwd_dx_kernel): one block owns BR rows, staged once in shared
 //   memory as f32, and walks F in 32-wide tiles: each lane one F column,
-//   each warp BR/8 rows, it recomputes g, u and dh for the tile, parks dg
+//   each warp BR/8 rows (one, four warps busy, at BR 4: d_model past
+//   3072), it recomputes g, u and dh for the tile, parks dg
 //   and du in shared memory and folds dg·Wgᵀ + du·Wuᵀ into an f32 [BR,D]
 //   accumulator in shared memory.
 // * dW (ffn_bwd_dw_kernel, f32 FMAs): one block owns a BF-wide tile of F
@@ -87,7 +88,9 @@ ffn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wg,
                   const T* __restrict__ wu, const T* __restrict__ wd,
                   const T* __restrict__ dy, T* __restrict__ dx, int N, int D,
                   int F) {
-  constexpr int RPW = BR / 8;  // rows per warp
+  // rows per warp; at BR 4 (d_model past 3072) warps 4-7 idle in the
+  // first pass and help fold
+  constexpr int RPW = BR >= 8 ? BR / 8 : 1;
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;               // [BR][D]
   float* acc = xs + BR * D;       // [BR][D]
@@ -96,6 +99,7 @@ ffn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wg,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * BR;
+  const bool rows = warp * RPW < BR;  // the warp owns rows of the block
   for (int i = tid; i < BR * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     xs[i] = row0 + r < N ? to_f32(x[(int64_t)(row0 + r) * D + d]) : 0.f;
@@ -108,7 +112,7 @@ ffn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wg,
     float g[RPW], u[RPW], dh[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) g[i] = u[i] = dh[i] = 0.f;
-    if (f < F) {
+    if (f < F && rows) {
       const T* pg = wg + f;
       const T* pu = wu + f;
       const T* pd = wd + (int64_t)f * D;
@@ -143,8 +147,10 @@ ffn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wg,
     for (int i = 0; i < RPW; ++i) {
       float h, dg = 0.f, du = 0.f;
       if (f < F) swiglu_grads(g[i], u[i], dh[i], &h, &dg, &du);
-      dgs[(warp * RPW + i) * kBF + lane] = dg;
-      dus[(warp * RPW + i) * kBF + lane] = du;
+      if (rows) {
+        dgs[(warp * RPW + i) * kBF + lane] = dg;
+        dus[(warp * RPW + i) * kBF + lane] = du;
+      }
     }
     __syncthreads();
 
@@ -379,6 +385,7 @@ cudaError_t dispatch_dx(int br, const void* x, const void* wg, const void* wu,
                         const void* wd, const void* dy, void* dx, int N, int D,
                         int F, cudaStream_t s) {
   switch (br) {
+    case 4: return launch_dx<T, 4>(x, wg, wu, wd, dy, dx, N, D, F, s);
     case 8: return launch_dx<T, 8>(x, wg, wu, wd, dy, dx, N, D, F, s);
     case 16: return launch_dx<T, 16>(x, wg, wu, wd, dy, dx, N, D, F, s);
     case 32: return launch_dx<T, 32>(x, wg, wu, wd, dy, dx, N, D, F, s);
@@ -629,7 +636,7 @@ cudaError_t launch_dw_tc(const void* x, const void* dy, const void* dg,
 }  // namespace
 
 // f32 (SIMT): x, dy, dx [N,D]; wg/wu [D,F]; wd [F,D]; all contiguous.  br
-// rows per block (8, 16 or 32).
+// rows per block (4, 8, 16 or 32).
 extern "C" int repro_swiglu_ffn_bwd_dx(const void* x, const void* wg,
                                        const void* wu, const void* wd,
                                        const void* dy, void* dx, int N, int D,

@@ -106,15 +106,18 @@ struct Tiles {
 };
 
 // NMAX / 8 lanes a channel, 64 of them a block: 128 registers a thread at
-// 512 threads an SM.
-template <typename T, int NMAX>
+// 512 threads an SM.  KEEP (the training forward) also writes the state
+// entering each L-step chunk to hs [Bt, nc, Di, N] (chunk 0's is h0, or
+// zero): the starts #12b (csrc/ssm_scan_bwd.cu) rebuilds the states from.
+// Without it the code is the serving path's as it was.
+template <typename T, int NMAX, bool KEEP>
 __global__ void __launch_bounds__(kChannels * NMAX / kStates,
                                   8 * kStates / NMAX)
 ssm_scan_kernel(const float* __restrict__ dt, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const T* __restrict__ x,
                 const float* __restrict__ A, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ hout, int S,
-                int Di, int N) {
+                float* __restrict__ y, float* __restrict__ hout,
+                float* __restrict__ hs, int S, int Di, int N, int L) {
   constexpr int kLanes = NMAX / kStates;         // lanes sharing a channel
   constexpr int kThreads = kChannels * kLanes;
   constexpr int kBC = kSteps * NMAX / kThreads;  // B (and C) values a thread
@@ -193,6 +196,10 @@ ssm_scan_kernel(const float* __restrict__ dt, const T* __restrict__ Bm,
     }
   };
 
+  // the next chunk start to keep, and its chunk (KEEP only)
+  int keep_at = 0, kept = 0;
+  const int nc = KEEP ? (S + L - 1) / L : 0;
+
   const int ntiles = (S + kSteps - 1) / kSteps;
   stage(0, 0);
   load_bc(0);
@@ -218,6 +225,19 @@ ssm_scan_kernel(const float* __restrict__ dt, const T* __restrict__ Bm,
       float part[kLanes];  // this lane's share of y at steps r .. r+kLanes-1
 #pragma unroll
       for (int s = 0; s < kLanes; ++s) {
+        if constexpr (KEEP) {
+          if (i * kSteps + r + s == keep_at && keep_at < S) {
+            const int64_t at = ((static_cast<int64_t>(b) * nc + kept) * Di
+                                 + d) * N;
+#pragma unroll
+            for (int p = 0; p < kStates; ++p) {
+              const int n = g * kStates + p;
+              if (live && n < N) hs[at + n] = h[p];
+            }
+            ++kept;
+            keep_at += L;
+          }
+        }
         const float dtv = dn, bx = dtv * xn;
         float bv[kStates], cv[kStates];
 #pragma unroll
@@ -262,12 +282,12 @@ ssm_scan_kernel(const float* __restrict__ dt, const T* __restrict__ Bm,
   }
 }
 
-template <typename T, int NMAX>
+template <typename T, int NMAX, bool KEEP>
 cudaError_t launch(const void* dt, const void* Bm, const void* Cm,
                    const void* x, const void* A, const void* h0, void* y,
-                   void* h, int Bt, int S, int Di, int N,
+                   void* h, void* hs, int Bt, int S, int Di, int N, int L,
                    cudaStream_t stream) {
-  const auto kern = ssm_scan_kernel<T, NMAX>;
+  const auto kern = ssm_scan_kernel<T, NMAX, KEEP>;
   const int smem = static_cast<int>(sizeof(Tiles<T, NMAX>));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -277,42 +297,62 @@ cudaError_t launch(const void* dt, const void* Bm, const void* Cm,
       static_cast<const float*>(dt), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const T*>(x),
       static_cast<const float*>(A), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(h), S, Di, N);
+      static_cast<float*>(y), static_cast<float*>(h),
+      static_cast<float*>(hs), S, Di, N, L);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool KEEP>
 cudaError_t dispatch_n(const void* dt, const void* Bm, const void* Cm,
                        const void* x, const void* A, const void* h0, void* y,
-                       void* h, int Bt, int S, int Di, int N,
+                       void* h, void* hs, int Bt, int S, int Di, int N, int L,
                        cudaStream_t s) {
-  if (N <= 8) return launch<T, 8>(dt, Bm, Cm, x, A, h0, y, h, Bt, S, Di, N, s);
+  if (N <= 8)
+    return launch<T, 8, KEEP>(dt, Bm, Cm, x, A, h0, y, h, hs, Bt, S, Di, N,
+                              L, s);
   if (N <= 16)
-    return launch<T, 16>(dt, Bm, Cm, x, A, h0, y, h, Bt, S, Di, N, s);
+    return launch<T, 16, KEEP>(dt, Bm, Cm, x, A, h0, y, h, hs, Bt, S, Di, N,
+                               L, s);
   if (N <= 32)
-    return launch<T, 32>(dt, Bm, Cm, x, A, h0, y, h, Bt, S, Di, N, s);
-  return launch<T, 64>(dt, Bm, Cm, x, A, h0, y, h, Bt, S, Di, N, s);
+    return launch<T, 32, KEEP>(dt, Bm, Cm, x, A, h0, y, h, hs, Bt, S, Di, N,
+                               L, s);
+  return launch<T, 64, KEEP>(dt, Bm, Cm, x, A, h0, y, h, hs, Bt, S, Di, N, L,
+                             s);
+}
+
+template <typename T>
+cudaError_t dispatch_keep(const void* dt, const void* Bm, const void* Cm,
+                          const void* x, const void* A, const void* h0,
+                          void* y, void* h, void* hs, int Bt, int S, int Di,
+                          int N, int L, cudaStream_t s) {
+  if (hs == nullptr)
+    return dispatch_n<T, false>(dt, Bm, Cm, x, A, h0, y, h, hs, Bt, S, Di, N,
+                                L, s);
+  return dispatch_n<T, true>(dt, Bm, Cm, x, A, h0, y, h, hs, Bt, S, Di, N, L,
+                             s);
 }
 
 }  // namespace
 
 // dt [Bt,S,Di] f32, B/C [Bt,S,N] and x [Bt,S,Di] of one dtype (f32 or
 // bf16), A [Di,N] f32, h0 [Bt,Di,N] f32 or null (zero start); y [Bt,S,Di]
-// and h [Bt,Di,N] f32.  All contiguous; 0 < N <= 64, S > 0; Di a multiple
-// of 8 and dt, x, y 16-byte aligned (their rows are read and written in
-// 16-byte pieces).
+// and h [Bt,Di,N] f32; hs [Bt,ceil(S/L),Di,N] f32, or null (serving: no
+// chunk starts kept, L unread).  All contiguous; 0 < N <= 64, S > 0; Di a
+// multiple of 8 and dt, x, y 16-byte aligned (their rows are read and
+// written in 16-byte pieces).
 extern "C" int repro_ssm_scan(const void* dt, const void* Bm, const void* Cm,
                               const void* x, const void* A, const void* h0,
-                              void* y, void* h, int Bt, int S, int Di, int N,
-                              int dtype, void* stream) {
+                              void* y, void* h, void* hs, int Bt, int S,
+                              int Di, int N, int L, int dtype, void* stream) {
   if (Bt <= 0 || S <= 0 || Di <= 0 || Di % 8 || N <= 0 || N > 64 ||
-      Bt > 65535)
+      Bt > 65535 || (hs != nullptr && L <= 0))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return dispatch_n<float>(dt, Bm, Cm, x, A, h0, y, h, Bt, S, Di, N, s);
+    return dispatch_keep<float>(dt, Bm, Cm, x, A, h0, y, h, hs, Bt, S, Di, N,
+                                L, s);
   if (dtype == kBF16)
-    return dispatch_n<__nv_bfloat16>(dt, Bm, Cm, x, A, h0, y, h, Bt, S, Di,
-                                     N, s);
+    return dispatch_keep<__nv_bfloat16>(dt, Bm, Cm, x, A, h0, y, h, hs, Bt,
+                                        S, Di, N, L, s);
   return cudaErrorInvalidValue;
 }

@@ -60,7 +60,7 @@ BWD_LIB = "fused_ffn_bwd"
 BF = 32            # F tile width (csrc/fused_ffn.cu)
 SMEM_ROWS_X_D = 24576  # br * D: the f32 [br, D] rows + accumulator in smem
 MAX_D = SMEM_ROWS_X_D // 4   # forward: br >= 4 (d_model 4096 takes br 4)
-BWD_MAX_D = SMEM_ROWS_X_D // 8   # the dx kernel's blocks take 8 rows
+BWD_MAX_D = SMEM_ROWS_X_D // 4   # the dx kernel's blocks take 4 rows up
 # dw kernel: its three f32 weight-gradient tiles (12 * D * bf bytes) and
 # its [512/bf, bf] hidden tiles share one block's shared memory
 DW_SMEM_BYTES = 200 * 1024
@@ -147,8 +147,11 @@ def plan(N: int, D: int, F: int, num_sms: int) -> tuple[int, int, int]:
 
 def plan_dx(N: int, D: int) -> int:
     """Rows per block of the dx kernel: 16 (two blocks' f32 rows and
-    accumulators fit one SM at D = 768), or 8 for few rows or wide D."""
-    return 16 if N > 8 and 16 * D <= SMEM_ROWS_X_D else 8
+    accumulators fit one SM at D = 768), 8 for few rows or wide D, 4 past
+    D 3072 (jamba-v0.1-52b's 4096)."""
+    if N > 8 and 16 * D <= SMEM_ROWS_X_D:
+        return 16
+    return 8 if 8 * D <= SMEM_ROWS_X_D else 4
 
 
 def plan_dw(N: int, D: int, F: int, num_sms: int) -> tuple[int, int, int]:

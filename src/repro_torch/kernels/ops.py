@@ -21,10 +21,11 @@ reference differentiates its jnp chunk math: the port's backward is
 written by hand, the kernels ``mlstm_scan_bwd`` on the card and their
 plain passes (``ref_mlstm_scan_bwd``) on the CPU, and its forward keeps
 what that backward reads (the denominators and the carry entering every
-chunk) only while a gradient is taken.  The Mamba selective scan has no
-backward kernel (the reference has no Pallas backward for it): it
-refuses inputs that need a gradient on every device, so that no training
-runs through its plain version unnoticed.  The int8 ops (kernels #10 and
+chunk) only while a gradient is taken.  So is the Mamba selective scan
+(``SSMChunkScan``): the reference has no Pallas backward for it either,
+and the port's is kernel #12b, ``ssm_scan_bwd`` on the card and its plain
+version ``ref_ssm_scan_bwd`` on the CPU, fed the states the forward keeps
+at each chunk start while a gradient is taken.  The int8 ops (kernels #10 and
 #11 and the int8 pool's entry write) are bit for bit: their plain
 versions and kernels round the same f32 values the same way.
 """
@@ -54,7 +55,8 @@ KERNELS = {_fa.NAME: (_fa, "launches"), _ffn.NAME: (_ffn, "launches"),
            _qt.NAME_QUANT: (_qt, "launches_quant"),
            _qt.NAME_DEQUANT: (_qt, "launches_dequant"),
            _qt.NAME_WRITE: (_qt, "launches_write"),
-           _ssm.NAME: (_ssm, "launches")}
+           _ssm.NAME: (_ssm, "launches"),
+           _ssm.NAME_BWD: (_ssm, "launches_bwd")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -225,19 +227,53 @@ def mlstm_scan(q, k, v, i_gate, f_log, *, chunk: int = 256, state=None):
     return _mlstm_fwd(q, k, v, i_gate, f_log, chunk, state, keep=False)
 
 
-def ssm_chunk_scan(dt, B_ssm, C_ssm, x, A, *, h0=None):
+def _ssm_fwd(dt, B_ssm, C_ssm, x, A, h0, chunk: int, keep: bool):
+    if dt.device.type == "cpu":
+        return ref.ref_ssm_scan(dt, B_ssm, C_ssm, x, A, h0, chunk=chunk,
+                                keep=keep)
+    return _ssm.ssm_scan(dt, B_ssm, C_ssm, x, A, h0, chunk=chunk, keep=keep)
+
+
+class SSMChunkScan(torch.autograd.Function):
+    """The Mamba selective scan with its backward written by hand (the
+    reference takes ``jax.grad`` of its jnp chunk scan): the forward runs
+    #12 keeping the state entering each ``chunk``-step chunk and saves
+    the inputs and those states; the backward is #12b on the card,
+    ``ref_ssm_scan_bwd`` on the CPU.  The final state h is differentiable
+    too.  ``h0`` is None for a scan from zero."""
+
+    @staticmethod
+    def forward(ctx, dt, B_ssm, C_ssm, x, A, h0, chunk: int):
+        y, h, states = _ssm_fwd(dt, B_ssm, C_ssm, x, A, h0, chunk, keep=True)
+        ctx.save_for_backward(dt, B_ssm, C_ssm, x, A, states)
+        ctx.chunk, ctx.from_state = chunk, h0 is not None
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        dt, B_ssm, C_ssm, x, A, states = ctx.saved_tensors
+        dy = torch.zeros_like(dt) if dy is None else dy.contiguous()
+        dh = None if dh is None else dh.contiguous()
+        bwd = (ref.ref_ssm_scan_bwd if dt.device.type == "cpu"
+               else _ssm.ssm_scan_bwd)
+        ddt, dx, dB, dC, dA, dh0 = bwd(
+            dt, B_ssm, C_ssm, x, A, states[:, 0] if ctx.from_state else None,
+            states, dy, dh=dh, chunk=ctx.chunk)
+        return ddt, dB, dC, dx, dA, dh0, None
+
+
+def ssm_chunk_scan(dt, B_ssm, C_ssm, x, A, *, h0=None, chunk: int = 256):
     """The Mamba selective scan: dt [B,S,Di] f32 (softplus'd), B_ssm/C_ssm
     [B,S,N] and x [B,S,Di] in the activation dtype, A [Di,N] f32 ->
     (y [B,S,Di] f32, h [B,Di,N] f32) with the final state; ``h0`` starts
-    the state (default zero).  An input that needs a gradient raises:
-    Mamba training is not ported."""
+    the state (default zero).  Differentiable in every input and h0
+    (``SSMChunkScan``, whose backward rebuilds the states from one kept
+    every ``chunk`` steps); without a gradient it is the serving path's
+    plain call."""
     if _needs_grad(dt, B_ssm, C_ssm, x, A, *(() if h0 is None else (h0,))):
-        raise NotImplementedError(
-            "ssm_chunk_scan has no backward kernel: training Mamba blocks "
-            "is not ported yet (ROADMAP queue 1, item 11, hybrid)")
-    if dt.device.type == "cpu":
-        return ref.ref_ssm_scan(dt, B_ssm, C_ssm, x, A, h0)
-    return _ssm.ssm_scan(dt, B_ssm, C_ssm, x, A, h0)
+        return SSMChunkScan.apply(dt, B_ssm, C_ssm, x, A, h0, chunk)
+    return _ssm_fwd(dt, B_ssm, C_ssm, x, A, h0, chunk, keep=False)
 
 
 def quantize_int8(x):

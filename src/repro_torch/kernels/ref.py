@@ -600,7 +600,8 @@ def ref_mlstm_scan_bwd(q, k, v, i_gate, f_log, y, kept, dy, *,
     return dq, dk, dv, di, df, dC0, dn0, dm0
 
 
-def ref_ssm_scan(dt, B_ssm, C_ssm, x, A, h0=None):
+def ref_ssm_scan(dt, B_ssm, C_ssm, x, A, h0=None, *, chunk: int = 0,
+                 keep: bool = False):
     """The Mamba selective scan (the function of the Pallas
     ``_ssm_kernel``; the reference's oracle ``ref_mamba_chunk_scan`` with
     its gates built step by step): dt [B,S,Di] (softplus'd), x [B,S,Di]
@@ -612,15 +613,82 @@ def ref_ssm_scan(dt, B_ssm, C_ssm, x, A, h0=None):
         h_t = a_t·h_{t-1} + b_t,  y_t = Σ_n C_t[n]·h_t[:, n].
 
     Sequential in time, one [B,Di,N] state at a time: the [B,S,Di,N]
-    gates never exist."""
+    gates never exist.  With ``keep`` it also returns the state entering
+    each ``chunk``-step chunk, [B,nc,Di,N] f32 with nc = ceil(S / chunk)
+    (chunk 0's is h0, or zero): what ``ref_ssm_scan_bwd`` rebuilds the
+    states from.  f64 inputs stay f64 (the f64 checks)."""
     Bt, S, Di = dt.shape
-    dt, x, Bs, Cs, A = (t.float() for t in (dt, x, B_ssm, C_ssm, A))
+    dt, x, Bs, Cs, A = (_at_least_f32(t) for t in (dt, x, B_ssm, C_ssm, A))
     h = (dt.new_zeros(Bt, Di, A.shape[-1]) if h0 is None
-         else h0.float().clone())
+         else _at_least_f32(h0).clone())
+    if keep and chunk <= 0:
+        raise ValueError("keep=True needs the chunk the states are kept at")
     bx = dt * x
-    ys = []
+    ys, kept = [], []
     for t in range(S):
+        if keep and t % chunk == 0:
+            kept.append(h)
         h = torch.exp(dt[:, t, :, None] * A) * h \
             + bx[:, t, :, None] * Bs[:, t, None, :]
         ys.append(torch.einsum("bn,ben->be", Cs[:, t], h))
-    return (torch.stack(ys, dim=1) if ys else dt.new_zeros(Bt, 0, Di)), h
+    y = torch.stack(ys, dim=1) if ys else dt.new_zeros(Bt, 0, Di)
+    if not keep:
+        return y, h
+    return y, h, torch.stack(kept, dim=1)
+
+
+def ref_ssm_scan_bwd(dt, B_ssm, C_ssm, x, A, h0, states, dy, *, dh=None,
+                     chunk: int):
+    """The backward of ``ref_ssm_scan`` (the plain version of kernel #12b,
+    ``csrc/ssm_scan_bwd.cu``; the reference takes ``jax.grad`` of its jnp
+    chunk scan): the forward's inputs, ``states`` [B,nc,Di,N] (the state
+    entering each ``chunk``-step chunk, as ``keep=True`` returns them), dy
+    [B,S,Di] and ``dh`` [B,Di,N] (the final state's gradient; None for
+    zero) -> (ddt [B,S,Di] f32, dx in x's dtype, dB_ssm, dC_ssm [B,S,N] in
+    their dtype, dA [Di,N] f32, dh0 [B,Di,N] f32, or None without h0).
+
+    With a_t = exp(dt_t·A) and the adjoint g_t = dL/dh_t, which runs
+    backward in time, g_t = C_t·dy_t + a_{t+1}·g_{t+1} (g past the last
+    step is dh):
+
+        dA      = Σ_{b,t} g_t·h_{t-1}·a_t·dt_t
+        ddt_t   = Σ_n g_t·(h_{t-1}·a_t·A + x_t·B_t)
+        dx_t    = dt_t·Σ_n g_t·B_t
+        dB_t[n] = Σ_d g_t·dt_t·x_t,   dC_t[n] = Σ_d dy_t·h_t
+        dh0     = a_0·g_0
+
+    The chunks are walked last to first; inside each, h is rebuilt from
+    the chunk's saved start by a walk forward, then the walk backward
+    carries g, as the kernel does.  f64 inputs stay f64."""
+    Bt, S, Di = dt.shape
+    out_dtypes = (x.dtype, B_ssm.dtype, C_ssm.dtype)
+    dt, x, Bs, Cs, A, dy = (_at_least_f32(t)
+                            for t in (dt, x, B_ssm, C_ssm, A, dy))
+    N = A.shape[-1]
+    g = (dt.new_zeros(Bt, Di, N) if dh is None
+         else _at_least_f32(dh).clone())
+    ddt, dx = torch.zeros_like(dt), torch.zeros_like(dt)
+    dB, dC = dt.new_zeros(Bt, S, N), dt.new_zeros(Bt, S, N)
+    dA = torch.zeros_like(A)
+    bx = dt * x
+    for c in reversed(range(-(-S // chunk))):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        hs, gates = [_at_least_f32(states[:, c])], []
+        for t in range(t0, t1):
+            a = torch.exp(dt[:, t, :, None] * A)
+            hs.append(a * hs[-1] + bx[:, t, :, None] * Bs[:, t, None, :])
+            gates.append(a)
+        for t in reversed(range(t0, t1)):
+            i = t - t0
+            a, hp = gates[i], hs[i]
+            g = Cs[:, t, None, :] * dy[:, t, :, None] + g
+            ah = a * hp
+            dA += (g * ah * dt[:, t, :, None]).sum(0)
+            ddt[:, t] = (g * (ah * A + x[:, t, :, None]
+                              * Bs[:, t, None, :])).sum(-1)
+            dx[:, t] = dt[:, t] * (g * Bs[:, t, None, :]).sum(-1)
+            dB[:, t] = torch.einsum("ben,be->bn", g, bx[:, t])
+            dC[:, t] = torch.einsum("be,ben->bn", dy[:, t], hs[i + 1])
+            g = a * g
+    return (ddt, dx.to(out_dtypes[0]), dB.to(out_dtypes[1]),
+            dC.to(out_dtypes[2]), dA, g if h0 is not None else None)

@@ -23,6 +23,9 @@ an arch too deep for one card (granite-20b, qwen3-moe-30b-a3b,
 mixtral-8x7b) to N layers at full width (``configs.get_arch_config``);
 ``--draw-on-device`` draws the weights on the card from the seed, which
 is quick for billions of parameters (other values than the CPU draw).
+``train_loop`` takes a ``ModelConfig`` as well, such as jamba-v0.1-52b's
+``configs.jamba_v0_1_52b.train_cut()`` (its mamba and attn layers at full
+width, the depth one card trains).
 
 Not ported yet: the reference's preflight (ROADMAP queue 1, item 12) and
 its mesh and grad-sync options (item 9).

@@ -63,24 +63,24 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port serves but does
-    not train: Mamba blocks, whose scan kernel has no backward kernel yet
-    (the port adds no silent autograd through the plain version).
-    Attention stacks train through the flash and FFN backward kernels,
-    MoE FFNs by autograd over the router, dispatch, ``torch.bmm`` experts
-    and fixed-order combine (the reference differentiates its jnp MoE,
+    not train.  Since the Mamba scan's backward kernel (#12b) there is
+    none: every config ``check_supported`` admits trains.  Attention
+    stacks train through the flash and FFN backward kernels, MoE FFNs by
+    autograd over the router, dispatch, ``torch.bmm`` experts and
+    fixed-order combine (the reference differentiates its jnp MoE,
     outside any Pallas kernel), xLSTM stacks through the mLSTM backward
     kernel and autograd over the sLSTM's plain cell, as the reference's
-    is jnp."""
+    is jnp, and Mamba blocks through the selective scan's backward
+    (``ssm_scan_bwd``) and autograd over the mixer's projections, conv
+    and gates, jnp in the reference.  The check stays the one place a
+    future block kind without a backward would be refused: every kind in
+    ``PORTED_KINDS`` has one now."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    missing = {
-        "Mamba blocks (a backward for the selective-scan kernel #12; "
-        "ROADMAP queue 1, entry 5)": bool(kinds & set(MAMBA_KINDS)),
-    }
-    missing = [what for what, hit in missing.items() if hit]
+    missing = [k for k in sorted(kinds) if k not in PORTED_KINDS]
     if missing:
         raise NotImplementedError(
-            f"training {cfg.name!r} needs {', '.join(missing)}, which the "
-            f"port does not have yet (ROADMAP queue 1, item 11)")
+            f"training {cfg.name!r} needs block kinds {missing}, which the "
+            f"port does not train yet (ROADMAP queue 1)")
 
 
 def needs_flash_train(cfg: ModelConfig) -> bool:
@@ -100,7 +100,11 @@ class Capabilities:
     flash forward and backward kernels, which the training path needs on
     the card); ``supports_paged_decode`` / ``supports_quantized_kv`` gate
     the pooled KV layout and its int8 pool; ``supports_chunked_prefill``
-    the scheduler's chunk append."""
+    the scheduler's chunk append.  Mamba blocks have no flag: every
+    registered Mamba config (d_state 8 and 16) trains through
+    ``ssm_scan`` + ``ssm_scan_bwd`` (#12b takes N <= 16 and chunks of at
+    most 256), which ``Runtime.describe()`` names on a training Runtime
+    of a hybrid stack."""
     swa: bool
     subquadratic: bool
     supports_flash_train: bool

@@ -5,8 +5,9 @@ of ``repro.models.ssm``).
 Mamba's prefill runs the selective scan through ``kernels.ops.
 ssm_chunk_scan`` (the Hopper kernel on the card, the plain
 ``ref_ssm_scan`` on the CPU), which also returns the final state; its
-projections, causal conv and gates are plain PyTorch, as the reference's
-are jnp, and so is its decode step.
+backward is ``SSMChunkScan``'s, written by hand (#12b); its projections,
+causal conv and gates are plain PyTorch, as the reference's are jnp,
+differentiated by autograd, and so is its decode step.
 
 The mLSTM keeps a matrix memory C [B,H,dh,dh] with a normalizer n and a
 stabilizer m.  Its prefill runs the chunkwise-parallel form through
@@ -124,7 +125,10 @@ def mamba(x: torch.Tensor, p: dict, cfg: ModelConfig, ssm: SSMConfig,
 
     As in the reference, S is padded to a multiple of min(chunk, S) with
     pad steps whose dt is 0 (a = 1, b = 0: they leave h as it is), so the
-    kernel and the plain path see the reference's inputs."""
+    kernel and the plain path see the reference's inputs.  Differentiable
+    (``ops.SSMChunkScan``; the reference differentiates its chunk body):
+    the pad steps' mask takes their dt gradient, and their dy is zero, so
+    nothing flows back to the padded rows."""
     B, S, _ = x.shape
     Q = min(ssm.chunk, S)
     pad = (-S) % Q
@@ -135,7 +139,7 @@ def mamba(x: torch.Tensor, p: dict, cfg: ModelConfig, ssm: SSMConfig,
     A = -torch.exp(p["A_log"].float())
     y, h = ops.ssm_chunk_scan(dt.contiguous(), B_ssm.contiguous(),
                               C_ssm.contiguous(), xc.contiguous(),
-                              A.contiguous(), h0=h0)
+                              A.contiguous(), h0=h0, chunk=Q)
     out = _mamba_out(y[:, :S], xc[:, :S], z[:, :S], p, x.dtype)
     if not return_state:
         return out

@@ -206,9 +206,9 @@ class Runtime:
         the int8 pool raise the reference's ``ValueError``).  xlstm-125m
         trains (the mLSTM backward kernel, autograd over the sLSTM cell
         under chunked remat), and so do MoE stacks (autograd over the
-        router and experts); a train shape for a Mamba config raises
-        ``NotImplementedError`` (``registry.check_trainable``): its
-        training is not ported.  ``scheduler`` turns
+        router and experts) and the Jamba hybrid (the selective scan's
+        backward kernel #12b, ``ssm_scan_bwd``, and autograd over the
+        Mamba mixer's projections, conv and gates).  ``scheduler`` turns
         on the engine's token-budget chunked-prefill scheduler
         (``serve.scheduler``; it needs ``caps.supports_chunked_prefill``,
         a pure self-attention stack without a sliding window, and raises
@@ -482,10 +482,15 @@ class Runtime:
             lines.append(f"  routes    : {self.routes()}")
         try:
             registry.check_trainable(self.cfg)
+            mamba = ("ssm_scan + ssm_scan_bwd (torch.autograd.Function; "
+                     f"{impl}), the Mamba mixer's projections, conv and "
+                     "gates by autograd; "
+                     if set(rec) & set(MAMBA_KINDS) else "")
             kernels = ("mlstm_scan + mlstm_scan_bwd (torch.autograd."
                        f"Function; {impl}), the sLSTM cell by autograd "
                        "under chunked remat" if "mlstm" in rec else
-                       "flash_attention + flash_attention_bwd_dq/_dkv"
+                       mamba
+                       + "flash_attention + flash_attention_bwd_dq/_dkv"
                        + (", fused_ffn + fused_ffn_bwd_dx/_dw"
                           if dense_ffn(self.cfg) else "")
                        + f" (torch.autograd.Function; {impl})"

@@ -142,13 +142,21 @@ def test_scan_plain_matches_pallas(jref, B, S, Di, N, chunk, dblk):
 
 
 def test_scan_refuses_grads_and_cpu_tensors_in_the_kernel():
-    """No autograd through the plain version (Mamba training is not
-    ported), and the kernel's wrapper takes CUDA tensors only."""
+    """The kernels' wrappers are not differentiable themselves and take
+    CUDA tensors only; a gradient goes through ``ops.ssm_chunk_scan``,
+    whose ``SSMChunkScan`` runs the plain forward and backward here."""
     ts = [torch.from_numpy(a) for a in _scan_inputs(1, 8, 16, 4)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssm_chunk_scan(ts[0].requires_grad_(), *ts[1:])
+    with pytest.raises(ValueError, match="not differentiable"):
+        ssm_kernel.ssm_scan(ts[0].requires_grad_(), *ts[1:])
+    y, _ = ops.ssm_chunk_scan(*ts)
+    assert type(y.grad_fn).__name__ == "SSMChunkScanBackward"
+    ts = [t.detach() for t in ts]
     with pytest.raises(ValueError, match="CUDA"):
-        ssm_kernel.ssm_scan(*(t.detach() for t in ts))
+        ssm_kernel.ssm_scan(*ts)
+    _, _, states = ref.ref_ssm_scan(*ts, chunk=8, keep=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_kernel.ssm_scan_bwd(*ts, None, states, torch.zeros(1, 8, 16),
+                                chunk=8)
 
 
 def _rehearse_ssm(dt, B_ssm, C_ssm, x, A, h0=None, tile=32, states=8):
@@ -467,10 +475,10 @@ def test_state_bytes_match_reference_cache(jref):
     assert kvcache.state_bytes_per_stream(one_period()) == 4_014_080
 
 
-def test_runtime_refuses_paged_int8_scheduler_and_training(jref):
+def test_runtime_refuses_paged_int8_scheduler_and_trains(jref):
     """The reference's ValueErrors for the paged layout, the int8 pool
-    and the scheduler on a hybrid stack, and NotImplementedError naming
-    ROADMAP for training."""
+    and the scheduler on a hybrid stack; the train Runtime is created and
+    ``check_trainable`` passes (the Mamba scan's backward, #12b)."""
     for kw, msg in (({"kv_layout": "paged"}, "paged KV"),
                     ({"kv_layout": "paged", "kv_dtype": "int8"}, "paged KV"),
                     ({"kv_dtype": "int8"}, "requires kv_layout='paged'"),
@@ -482,11 +490,11 @@ def test_runtime_refuses_paged_int8_scheduler_and_training(jref):
     rt = PortRuntime.create(ARCH, smoke=True, device="cpu")
     with pytest.raises(ValueError, match="chunked prefill"):
         rt.engine(scheduler=True)
-    with pytest.raises(NotImplementedError, match="Mamba.*ROADMAP"):
-        PortRuntime.create(ARCH, smoke=True, device="cpu",
-                           shape_kind="train")
-    with pytest.raises(NotImplementedError, match="Mamba.*entry 5"):
-        check_trainable(rt.cfg)
+    train = PortRuntime.create(ARCH, smoke=True, device="cpu",
+                               shape_kind="train")
+    assert train.shape_kind == "train"
+    check_trainable(rt.cfg)
+    assert "kernels: ssm_scan + ssm_scan_bwd" in train.describe()
     text = rt.describe()
     assert ("  family    : hybrid (recurrent: mamba x3, mamba_moe x4; state "
             "bytes/stream=34,048)") in text

@@ -179,8 +179,8 @@ def test_runtime_accepts_and_refuses_as_the_reference(ref):
     """qwen3-moe: dense, paged, int8, the scheduler and training.
     mixtral: dense ring KV and training; its paged layout, int8 pool,
     scheduler and ``scrub_every`` raise the reference's ``ValueError``s;
-    Jamba training still raises ``NotImplementedError`` naming queue 1,
-    entry 5 (no longer MoE)."""
+    Jamba, whose MoE FFN trains as these do, trains too since the Mamba
+    scan's backward (#12b)."""
     for kw in ({}, LAYOUTS["paged"], LAYOUTS["int8"], {"scheduler": True},
                {"shape_kind": "train"}):
         PortRuntime.create("qwen3-moe-30b-a3b", smoke=True, device="cpu",
@@ -200,11 +200,9 @@ def test_runtime_accepts_and_refuses_as_the_reference(ref):
     for rt, kw in ((rrt, dict(injector=None)), (prt, {})):
         with pytest.raises(ValueError, match="sliding-window"):
             rt.engine(num_slots=2, scrub_every=1, **kw)
-    with pytest.raises(NotImplementedError) as err:
-        PortRuntime.create("jamba-v0.1-52b", smoke=True, device="cpu",
-                           shape_kind="train")
-    assert "entry 5" in str(err.value) and "Mamba" in str(err.value)
-    assert "mixture of experts" not in str(err.value)
+    jamba = PortRuntime.create("jamba-v0.1-52b", smoke=True, device="cpu",
+                               shape_kind="train")
+    assert "ssm_scan + ssm_scan_bwd" in jamba.describe()
     text = prt.describe()
     assert "window 16" in text and "torch.bmm experts" in text
     assert "fused_ffn" not in text.split("train")[0]

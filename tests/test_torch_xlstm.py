@@ -589,11 +589,16 @@ def test_runtime_rejects_paged_for_xlstm(jref):
 
 def test_runtime_still_rejects_train_for_jamba():
     """xlstm-125m trains (tests/test_torch_xlstm_train.py), and so do MoE
-    stacks (tests/test_torch_moe.py); the hybrid, with its Mamba blocks,
-    still refuses a train shape, naming the ROADMAP entry."""
-    with pytest.raises(NotImplementedError,
-                       match="Mamba.*entry 5.*ROADMAP"):
-        PortRuntime.create("jamba-v0.1-52b", smoke=True, device="cpu",
+    stacks (tests/test_torch_moe.py) and, since the Mamba scan's backward
+    (#12b), the hybrid: its train shape is no longer refused and names
+    ``ssm_scan_bwd`` (tests/test_torch_jamba_train.py).  What the port
+    still refuses is an arch it has not ported: whisper-tiny, the next
+    slice, is no registry name of the port's yet."""
+    rt = PortRuntime.create("jamba-v0.1-52b", smoke=True, device="cpu",
+                            shape_kind="train")
+    assert "kernels: ssm_scan + ssm_scan_bwd" in rt.describe()
+    with pytest.raises(KeyError, match="whisper-tiny"):
+        PortRuntime.create("whisper-tiny", smoke=True, device="cpu",
                            shape_kind="train")
 
 
@@ -615,22 +620,19 @@ def _port_config(rcfg) -> PortConfig:
 @pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "Mamba"),
                                        ("mixtral-8x7b", "mixture of experts")])
 def test_check_supported_still_rejects_jamba_and_mixtral(jref, arch, what):
-    """What the port still refuses of these archs: training jamba's Mamba
-    blocks (``check_trainable``), with the message naming ROADMAP; serving
-    jamba is ported (tests/test_torch_jamba.py), so ``check_supported``
-    admits it.  mixtral-8x7b, carried over field for field from the
-    reference's config, is ported whole since its sliding-window ring
-    buffer and MoE training came (tests/test_torch_moe.py): both gates
-    admit it, and its MoE blocks are no longer named as missing."""
+    """What the port still refuses of these archs: nothing.  Both,
+    carried over field for field from the reference's configs, pass
+    ``check_supported`` and ``check_trainable``: jamba since the Mamba
+    scan's backward (tests/test_torch_jamba_train.py), mixtral since its
+    ring buffer and MoE training (tests/test_torch_moe.py).  The next
+    slice's arch, whisper-tiny (an encoder-decoder), is still refused,
+    naming ROADMAP, and neither block family (``what``) is named
+    there."""
     cfg = _port_config(jref["configs"].get_config(arch))
-    if arch == "mixtral-8x7b":
-        check_supported(cfg)
-        check_trainable(cfg)
-        with pytest.raises(NotImplementedError) as err:
-            check_trainable(_port_config(
-                jref["configs"].get_config("jamba-v0.1-52b")))
-        assert what not in str(err.value)
-        return
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-        check_trainable(cfg)
     check_supported(cfg)
+    check_trainable(cfg)
+    with pytest.raises(NotImplementedError, match="encoder-decoder.*ROADMAP"
+                       ) as err:
+        check_supported(_port_config(
+            jref["configs"].get_config("whisper-tiny")))
+    assert what not in str(err.value)
